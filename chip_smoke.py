@@ -1,0 +1,626 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch + CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds every CUDA kernel of the port from ``src/repro_torch/kernels/
+csrc`` (one ``nvcc`` per source, all started together), holds each
+kernel against its plain PyTorch version at the serving path's shapes,
+serves full-width qwen3-1.7b (random weights from a seed) through
+``ServeLoop`` with the Morton-scheduled SFC GEMM and the paged decode
+attention kernel, checks the launch counts and the outputs, times each
+kernel beside its bound, its plain version and the library call, and
+prints as its last line ``{"ok": true, "device": {...}}``.  Any failed
+phase exits non-zero.  Without a CUDA device, or without the repository
+around it, it exits non-zero and prints no result.
+
+Tolerances (kernel against plain version, on the card, TF32 off):
+
+* B1 f32 output: |kernel - plain| <= 1e-4 + 1e-4 |plain|, f32 summation
+  order only (values O(1), K <= 6144).
+* B1 bf16 output: <= 1e-3 + 2**-7 |plain|: at most one bf16 rounding
+  step apart (the two f32 sums may straddle a rounding boundary).
+* B2 f32: <= 2e-5 absolute (O(1) outputs; online vs direct softmax).
+* B2 bf16: <= 3e-2 absolute: the plain version rounds the scores and
+  the softmax weights to bf16 as the reference does; the kernel keeps
+  both in f32.
+* One full-width decode step, kernels against plain versions from an
+  identical state: max |logit difference| <= LOGIT_BOUND with bf16
+  weights, <= LOGIT_BOUND_F32 with the same weights in f32 (below).
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+LOGIT_BOUND = 0.25             # one bf16 decode step, see the docstring
+LOGIT_BOUND_F32 = 1e-3         # the same step with f32 weights
+SLEEP_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz boost clock
+
+SLOTS = 4
+PAGE_SIZE = 16
+CACHE_LEN = 64
+MAX_NEW = 16
+N_REQUESTS = 6                 # > SLOTS: two requests wait in the queue
+
+
+def _smi() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi unavailable"
+
+
+class Report:
+    """Collects per-case errors and fails at the end of a phase."""
+
+    def __init__(self):
+        self.failures: list[str] = []
+
+    def check(self, name: str, got, want, atol: float, rtol: float) -> float:
+        import torch
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        bad = bool((diff > atol + rtol * want.float().abs()).any()) or \
+            not bool(torch.isfinite(got.float()).all())
+        print(f"  {'FAIL' if bad else 'ok  '} {name}: max_abs_err {err:.3e} "
+              f"(bound {atol:g} + {rtol:g}|ref|)")
+        if bad:
+            self.failures.append(name)
+        return err
+
+    def raise_if_failed(self, phase: str):
+        if self.failures:
+            raise SystemExit(f"chip_smoke: {phase} failed: {self.failures}")
+
+
+# ----------------------------------------------------------- main path ----
+def main_path_gemms(cfg):
+    """(name, M, K, N, epilogue, out f32, launches per decode step) of
+    every B1 call one decode step makes at full width."""
+    d, hd, kvd, f, v = (cfg.d_model, cfg.n_heads * cfg.d_head,
+                        cfg.n_kv_heads * cfg.d_head, cfg.d_ff,
+                        cfg.padded_vocab)
+    n_l = cfg.n_layers
+    return [("wq", SLOTS, d, hd, "none", False, n_l),
+            ("wk|wv", SLOTS, d, kvd, "none", False, 2 * n_l),
+            ("wo+res", SLOTS, hd, d, "residual", False, n_l),
+            ("w1+silu", SLOTS, d, f, "silu", False, n_l),
+            ("w3", SLOTS, d, f, "none", False, n_l),
+            ("w2+res", SLOTS, f, d, "residual", False, n_l),
+            ("head->f32", SLOTS, d, v, "none", True, 1)]
+
+
+def _gemm_inputs(m, k, n, dtype, gen, epilogue):
+    import torch
+    a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    b = (torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5).to(dtype)
+    kw = {}
+    if epilogue == "residual":
+        kw["residual"] = torch.randn(m, n, generator=gen,
+                                     device="cuda").to(dtype)
+    elif epilogue == "bias+gelu":
+        kw["bias"] = torch.randn(n, generator=gen, device="cuda")
+        kw["activation"] = "gelu"
+    elif epilogue in ("silu", "relu"):
+        kw["activation"] = epilogue
+    return a, b, kw
+
+
+def check_kernels(cfg) -> dict:
+    """Phase 2: every kernel against its plain version at the main-path
+    shapes (and the variants around them).  Returns max errors."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
+        sfc_matmul_plain, tile_schedule
+
+    rep = Report()
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    errs = {"B1": 0.0, "B2": 0.0}
+
+    def gemm_case(label, m, k, n, dtype, epilogue, out_f32=False,
+                  schedule="morton", use_prefetch=True, blk=(128, 128, 128)):
+        a, b, kw = _gemm_inputs(m, k, n, dtype, gen, epilogue)
+        out_dtype = torch.float32 if out_f32 else None
+        bm, bn, bk = blk
+        got = sfc_matmul_cuda(a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
+                              use_prefetch=use_prefetch, out_dtype=out_dtype,
+                              **kw)
+        sched = tile_schedule(schedule, -(-m // bm), -(-n // bn),
+                              use_prefetch=use_prefetch, device="cuda")
+        want = sfc_matmul_plain(a, b, sched=sched, bm=bm, bn=bn, bk=bk,
+                                out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        if got.dtype == torch.float32:
+            tol = (1e-4, 1e-4)
+        else:
+            tol = (1e-3, 2.0 ** -7)
+        name = (f"B1 {label} {m}x{k}x{n} {str(dtype)[6:]} {schedule}"
+                f"{'' if use_prefetch else ' closed-form'} {epilogue}"
+                f"{' ->f32' if out_f32 else ''}")
+        errs["B1"] = max(errs["B1"], rep.check(name, got, want, *tol))
+
+    print("[kernels] B1 sfc_matmul against its plain version")
+    for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
+        gemm_case(name, m, k, n, torch.bfloat16, ep, f32)
+        gemm_case(name, m, k, n, torch.float32, ep, f32)
+        gemm_case(name, m, k, n, torch.bfloat16, ep, f32,
+                  schedule="rowmajor", use_prefetch=False)
+    for sched in ("hilbert", "rowmajor"):
+        gemm_case("wq", SLOTS, cfg.d_model, cfg.d_model, torch.bfloat16,
+                  "none", schedule=sched)
+    for sched in ("morton", "hilbert"):      # square power-of-two grids
+        for pf in (True, False):
+            gemm_case("square", 512, 384, 512, torch.bfloat16, "relu",
+                      schedule=sched, use_prefetch=pf)
+            gemm_case("square", 512, 384, 512, torch.float32, "bias+gelu",
+                      schedule=sched, use_prefetch=pf)
+    for dtype in (torch.bfloat16, torch.float32):  # rows path, 5-8 rows
+        gemm_case("rows-8", 6, 2048, 1024, dtype, "residual")
+    gemm_case("ragged-N", 3, 520, 77, torch.bfloat16, "silu")  # tile path
+    gemm_case("ragged", 100, 260, 300, torch.bfloat16, "bias+gelu",
+              schedule="hilbert")
+    gemm_case("ragged", 37, 131, 77, torch.float32, "residual",
+              schedule="morton")
+    gemm_case("ragged-blk64", 70, 200, 150, torch.float32, "silu",
+              schedule="peano", blk=(64, 64, 64))
+    rep.raise_if_failed("B1 checks")
+
+    print("[kernels] B2 paged_decode_attention against its plain version")
+    hkv, dh, h = cfg.n_kv_heads, cfg.d_head, cfg.n_heads
+    for dtype in (torch.bfloat16, torch.float32):
+        for ps in (4, 8, 16):
+            rows, maxp = 64 + 1, 6
+            kp = torch.randn(rows, ps, hkv, dh, generator=gen,
+                             device="cuda").to(dtype)
+            vp = torch.randn(rows, ps, hkv, dh, generator=gen,
+                             device="cuda").to(dtype)
+            kp[-1] = 0
+            vp[-1] = 0
+            q = torch.randn(SLOTS, h, dh, generator=gen,
+                            device="cuda").to(dtype)
+            tab = torch.randint(0, rows - 1, (SLOTS, maxp), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            tab[1, 2:] = rows - 1            # partly filled table
+            tab[3, :] = rows - 1             # an empty table
+            span = ps * maxp
+            poss = [0, span // 2 + 1, span - 1,
+                    torch.tensor([span - 1, ps + 1, 3, 2 * ps],
+                                 dtype=torch.int32, device="cuda")]
+            for pos in poss:
+                got = paged_decode_attention_cuda(q, kp, vp, tab, pos)
+                want = paged_decode_attention_ref(q, kp, vp, tab, pos)
+                torch.cuda.synchronize()
+                tol = (2e-5, 0.0) if dtype == torch.float32 else (3e-2, 0.0)
+                label = "vector" if torch.is_tensor(pos) else f"scalar {pos}"
+                errs["B2"] = max(errs["B2"], rep.check(
+                    f"B2 {str(dtype)[6:]} ps={ps} pos {label}", got, want,
+                    *tol))
+    rep.raise_if_failed("B2 checks")
+    return errs
+
+
+# ------------------------------------------------------------- serving ----
+def serve(cfg, params) -> dict:
+    """Phase 3: full-width lockstep paged serving through the kernels."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.paged_attention as pa_mod
+    import repro_torch.kernels.sfc_matmul as sfc_mod
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import DotEngine
+    from repro_torch.serve import ServeConfig
+
+    rows_checked = [0]
+
+    class CheckedLoop(ServeLoop):
+        """ServeLoop whose sampler first checks the logit row."""
+
+        def _sample(self, logits_row):
+            if not np.isfinite(logits_row).all():
+                raise SystemExit("chip_smoke: non-finite logits in serving")
+            rows_checked[0] += 1
+            return super()._sample(logits_row)
+
+    sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
+                     eos_id=-1, layout="paged", mode="lockstep", seed=0)
+    loop = CheckedLoop(cfg, params, sc, engine=DotEngine(schedule="morton"),
+                       device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(16, 33, size=N_REQUESTS)]
+    for r, p in enumerate(prompts):
+        loop.submit(r, p)
+    torch.cuda.synchronize()
+    sfc_mod.launches = 0
+    pa_mod.launches = 0
+    t0 = time.perf_counter()
+    out = loop.run(max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"B1": sfc_mod.launches, "B2": pa_mod.launches}
+    steps = loop.steps
+    want = {"B1": steps * (7 * cfg.n_layers + 1), "B2": steps * cfg.n_layers}
+    print(f"[serve] {N_REQUESTS} requests, prompts "
+          f"{[len(p) for p in prompts]}, max_new {MAX_NEW}, {SLOTS} slots, "
+          f"admission order {loop.admitted}, {loop.preemptions} preemptions")
+    print(f"[serve] {steps} decode_step calls ({sum(len(p) for p in prompts)}"
+          f" prefill tokens); launches B1 {launches['B1']} (want "
+          f"{want['B1']}), B2 {launches['B2']} (want {want['B2']})")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: launch counts {launches} != {want}")
+    for r, p in enumerate(prompts):
+        if len(out[r]) != len(p) + MAX_NEW or out[r][:len(p)] != p:
+            raise SystemExit(f"chip_smoke: request {r} returned "
+                             f"{len(out[r])} tokens")
+    if rows_checked[0] != N_REQUESTS * MAX_NEW:
+        raise SystemExit("chip_smoke: not every sampled row was checked")
+    gen_tokens = N_REQUESTS * MAX_NEW
+    return {"launches": launches, "steps": steps, "wall_s": wall,
+            "tokens": gen_tokens, "tok_per_s": gen_tokens / wall,
+            "ms_per_step": wall * 1e3 / steps}
+
+
+class plain_versions:
+    """Context in which the model's kernel call sites run the kernels'
+    plain versions on the card (the yardstick of the full-step check).
+    Swaps the two names the model calls; nothing in the port reads a
+    switch."""
+
+    def __enter__(self):
+        import repro_torch.kernels.ops as ops
+        import repro_torch.models.attention as attention
+        from repro_torch.kernels.ref import paged_decode_attention_ref
+        from repro_torch.kernels.sfc_matmul import sfc_matmul_plain, \
+            tile_schedule
+
+        def gemm(a, b, *, schedule, bm, bn, bk, out_dtype, use_prefetch, g,
+                 **kw):
+            sched = tile_schedule(schedule, -(-a.shape[0] // bm),
+                                  -(-b.shape[1] // bn),
+                                  use_prefetch=use_prefetch, g=g,
+                                  device=a.device)
+            return sfc_matmul_plain(a, b, sched=sched, bm=bm, bn=bn, bk=bk,
+                                    out_dtype=out_dtype, **kw)
+
+        self._saved = (ops.sfc_matmul_cuda,
+                       attention.paged_decode_attention_cuda)
+        ops.sfc_matmul_cuda = gemm
+        attention.paged_decode_attention_cuda = paged_decode_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.kernels.ops as ops
+        import repro_torch.models.attention as attention
+        ops.sfc_matmul_cuda, attention.paged_decode_attention_cuda = \
+            self._saved
+
+
+def build_state(cfg, params, steps: int = 24):
+    """A mid-serving paged state: 4 slots at ragged positions, filled
+    by ``steps`` decode steps through the kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import DotEngine, decode_step
+    from repro_torch.serve.paged_kv import init_paged_serving
+
+    alloc, state = init_paged_serving(cfg, SLOTS, CACHE_LEN,
+                                      page_size=PAGE_SIZE, device="cuda")
+    rng = np.random.default_rng(7)
+    start = np.asarray([0, 5, 11, 17])
+    eng = DotEngine(schedule="morton")
+    for i in range(steps):
+        pos = start + i
+        for s in range(SLOTS):
+            alloc.ensure(s, int(pos[s]))
+        state["block_tables"] = torch.tensor(alloc.block_table, device="cuda")
+        toks = torch.tensor(rng.integers(2, cfg.vocab, size=(SLOTS, 1)),
+                            device="cuda")
+        decode_step(params, cfg, state, toks,
+                    torch.tensor(pos, dtype=torch.int32, device="cuda"), eng)
+    pos = start + steps
+    for s in range(SLOTS):
+        alloc.ensure(s, int(pos[s]))
+    state["block_tables"] = torch.tensor(alloc.block_table, device="cuda")
+    toks = torch.tensor(rng.integers(2, cfg.vocab, size=(SLOTS, 1)),
+                        device="cuda")
+    return state, toks, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def compare_step(cfg, params, state, toks, pos, bound: float) -> dict:
+    """Phase 4: one full decode step on the kernels vs on the plain
+    versions, from clones of one state."""
+    import torch
+
+    from repro_torch.models import DotEngine, decode_step
+
+    eng = DotEngine(schedule="morton")
+    got, _ = decode_step(params, cfg, state.clone(), toks, pos, eng)
+    with plain_versions():
+        want, _ = decode_step(params, cfg, state.clone(), toks, pos, eng)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    agree = int((got[:, 0].argmax(-1) == want[:, 0].argmax(-1)).sum())
+    finite = bool(torch.isfinite(got).all())
+    print(f"[step] full-width {cfg.param_dtype} decode step, kernels vs "
+          f"plain versions: max |logit diff| {err:.4e} (bound {bound:g}), "
+          f"greedy tokens agree {agree}/{SLOTS}, logit range "
+          f"[{float(want.min()):.3f}, {float(want.max()):.3f}]")
+    if not finite or err > bound:
+        raise SystemExit("chip_smoke: full decode step disagrees with the "
+                         "plain versions")
+    return {"max_abs_err": err, "agree": agree}
+
+
+def to_f32(cfg, params, state):
+    """The same model and state with f32 weights and KV pages."""
+    import dataclasses
+
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+
+    st = state.clone()
+    for key in ("k_pages", "v_pages"):
+        st[key] = st[key].float()
+    return (dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32"), cast(params), st)
+
+
+def profile_steps(cfg, params, state, toks, pos, smi: str, n: int = 3):
+    """Phase 6: where a decode step's time goes on the card, from a
+    torch.profiler trace of ``n`` steps (device time by kernel, device
+    busy share of the traced wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import DotEngine, decode_step
+
+    eng = DotEngine(schedule="morton")
+    st = state.clone()
+    decode_step(params, cfg, st, toks, pos, eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        decode_step(params, cfg, st, toks, pos, eng)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            decode_step(params, cfg, st, toks, pos, eng)
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) / n
+    by_kernel: dict[str, float] = {}
+    by_op: dict[str, float] = {}      # host: self CPU time of torch ops
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            by_op[e.key] = float(e.self_cpu_time_total) / 1e3 / n
+            continue
+        us = float(e.self_device_time_total)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")[:72]
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+    busy = sum(by_kernel.values())
+    host_ops = sum(by_op.values())
+    print(f"[profile] decode step ({smi}): {plain_wall * 1e3:.3f} ms wall "
+          f"untraced, {traced_wall * 1e3:.3f} ms traced; device busy "
+          f"{busy:.3f} ms per step = {busy / (traced_wall * 1e3):.1%} of the "
+          f"traced wall (idle share {1 - busy / (traced_wall * 1e3):.1%})")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.4f} ms/step  {ms / busy:6.1%}  {name}")
+    print(f"[profile] host, traced: torch ops' self CPU time {host_ops:.3f} "
+          f"ms per step; the rest of the {traced_wall * 1e3:.3f} ms is Python "
+          f"and the ctypes kernel launches outside torch ops")
+    for name, ms in sorted(by_op.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.4f} ms/step  {name[:72]}")
+    return {"wall_ms": plain_wall * 1e3, "busy_ms": busy}
+
+
+# -------------------------------------------------------------- timing ----
+def _time_ms(fn, iters: int, flush) -> float:
+    """Median ms of ``fn`` over ``iters`` runs, each timed by CUDA
+    events after an L2 flush (a decode step reads each weight once, so
+    the kernel meets it cold) and a ~1 ms device sleep, so the host has
+    enqueued ``fn``'s first launch before the start event fires: a
+    single-launch ``fn`` is timed on the device alone, a multi-launch
+    plain version includes the host gaps between its launches."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        flush()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
+    """Phase 5: per-kernel times at the main-path shapes, aggregated per
+    decode step (launch count x per-launch time)."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
+        sfc_matmul_plain, tile_schedule
+    from repro_torch.serve.paged_kv import physical_rows, zero_row_index
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    print(f"[time] B1 sfc_matmul per launch at the main-path shapes, bf16, "
+          f"morton table ({smi})")
+    for name, m, k, n, ep, f32, count in main_path_gemms(cfg):
+        a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
+        out_dtype = torch.float32 if f32 else None
+        sched = tile_schedule("morton", 1, -(-n // 128), use_prefetch=True,
+                              device="cuda")
+        ms = _time_ms(lambda: sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw),
+                      20, flush)
+        plain = _time_ms(lambda: sfc_matmul_plain(
+            a, b, sched=sched, bm=128, bn=128, bk=128, out_dtype=out_dtype,
+            **kw), 3, flush)
+        lib = _time_ms(lambda: torch.matmul(a, b), 20, flush)
+        out_b = 4 if f32 else 2
+        nbytes = (m * k + k * n) * 2 + m * n * out_b + \
+            (m * n * 2 if ep == "residual" else 0)
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    2.0 * m * n * k / BF16_FLOPS_PER_S) * 1e3
+        print(f"  {name:10s} {m}x{k}x{n}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes), x{count} per step")
+        b1["ms"] += count * ms
+        b1["plain_ms"] += count * plain
+        b1["library_ms"] += count * lib
+        b1["bound_ms"] += count * bound
+
+    # B2 at the serving shape, on the mid-serving state of phase 4
+    kp, vp = state["k_pages"], state["v_pages"]
+    bt = state["block_tables"]
+    phys = physical_rows(state["page_perm"], bt, zero_row_index(kp))[0]
+    q = torch.randn(SLOTS, cfg.n_heads, cfg.d_head, generator=gen,
+                    device="cuda").to(kp.dtype)
+    ms = _time_ms(lambda: paged_decode_attention_cuda(q, kp, vp, phys, pos),
+                  50, flush)
+    plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, phys, pos),
+                     20, flush)
+    ps, hkv, dh = kp.shape[1], kp.shape[2], kp.shape[3]
+    pages = sum(min(int(p) // ps + 1, phys.shape[1]) for p in pos.tolist())
+    nbytes = (2 * pages * ps * hkv * dh * 2 + 2 * q.numel() * 2
+              + phys.numel() * 4 + pos.numel() * 4)
+    flops = 4.0 * cfg.n_heads * dh * pages * ps
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    n_l = cfg.n_layers
+    print(f"[time] B2 paged_decode_attention per launch, {SLOTS} slots at "
+          f"positions {pos.tolist()}, ps={ps}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound:.5f} ms (bytes), x{n_l} per step "
+          f"({smi})")
+    return [
+        {"name": "B1 sfc_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sfc_matmul.cu",
+         "replaces": "src/repro/kernels/sfc_matmul.py:148",
+         "ms": b1["ms"], "plain_ms": b1["plain_ms"],
+         "bound_ms": b1["bound_ms"], "bound_by": "bytes",
+         "library_ms": b1["library_ms"]},
+        {"name": "B2 paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:103",
+         "ms": n_l * ms, "plain_ms": n_l * plain, "bound_ms": n_l * bound,
+         "bound_by": "bytes", "library_ms": None},
+    ]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src}/repro_torch not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_model
+
+    smi = _smi()
+    print(f"[card] {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    secs = _build.build()
+    print(f"[build] nvcc sm_90a in parallel: "
+          f"{', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}; wall "
+          f"{time.perf_counter() - t0:.1f}s into {_build.build_dir()}")
+
+    cfg = get_config("qwen3_1_7b")
+    errs = check_kernels(cfg)
+
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[init] {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{n_bytes / 1e9:.2f} GB bf16 weights on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    sv = serve(cfg, params)
+    print(f"[serve] {sv['tokens']} generated tokens in {sv['wall_s']:.3f}s: "
+          f"{sv['tok_per_s']:.2f} tok/s, {sv['ms_per_step']:.3f} ms per "
+          f"decode_step (prefill steps included) ({smi})")
+    state, toks, pos = build_state(cfg, params)
+    step = compare_step(cfg, params, state, toks, pos, LOGIT_BOUND)
+    cfg32, params32, state32 = to_f32(cfg, params, state)
+    compare_step(cfg32, params32, state32, toks, pos, LOGIT_BOUND_F32)
+    del params32, state32
+    rows = time_kernels(cfg, state, pos, smi)
+    profile_steps(cfg, params, state, toks, pos, smi)
+    for row, kid in zip(rows, ("B1", "B2")):
+        row["launches"] = sv["launches"][kid]
+        row["max_abs_err"] = errs[kid]
+    print("kernels: [B1 sfc_matmul (cuda), B2 paged_decode_attention "
+          "(cuda)]; B3 sfc_matmul_batched_pallas and B4 sfc_matmul_cached "
+          "not ported (ROADMAP.md queue B)")
+    print(f"[summary] step logits max err {step['max_abs_err']:.4e}, "
+          f"greedy agree {step['agree']}/{SLOTS}; serve "
+          f"{sv['tok_per_s']:.2f} tok/s")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

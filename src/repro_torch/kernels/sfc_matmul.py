@@ -1,0 +1,213 @@
+"""SFC-ordered blocked GEMM with a fused epilogue: the wrapper of the
+CUDA kernel ``csrc/sfc_matmul.cu`` (port of
+``repro.kernels.sfc_matmul.sfc_matmul_pallas``) and its plain version.
+
+The output tile grid of ``C = act(A @ B + bias) + residual`` is
+``ceil(M/bm) x ceil(N/bn)``, the grid the reference builds for the
+padded shape, visited in the order of a space-filling curve:
+
+* ``use_prefetch=True`` (the default) reads tile ``t``'s ``(i, j)``
+  from the host-built ``(T, 2)`` int32 schedule table
+  (:func:`repro_torch.core.schedule.grid_schedule`), copied to the
+  device once per (schedule, grid, g, device);
+* ``use_prefetch=False`` decodes ``t`` in closed form inside the kernel
+  (:func:`decode_step`), the paper's trade of index computation for
+  locality; Morton and Hilbert need a square power-of-two grid.
+
+The kernel masks ragged M/N/K edges itself, so nothing is padded on the
+card.  On a CPU tensor :func:`sfc_matmul_cuda` runs
+:func:`sfc_matmul_plain`, which walks the same tiles from the same
+schedule and accumulates in f32 over bk-deep k blocks in k order (the
+kernel's path for M <= 8 splits K across threads instead: the two
+differ by f32 summation order only).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.curves import hilbert_decode, morton_decode
+from repro_torch.core.schedule import grid_schedule, is_pow2, \
+    schedule_extra_kwargs
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
+
+__all__ = ["sfc_matmul_cuda", "sfc_matmul_plain", "decode_step",
+           "tile_schedule", "launches"]
+
+# kernel launches made by sfc_matmul_cuda (CPU calls are not counted)
+launches = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
+_MODE_CODE = {"rowmajor": 1, "colmajor": 2, "morton": 3, "hilbert": 4}
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+
+_SIGNATURES = {"sfc_matmul_launch": (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    ctypes.c_int)}
+
+# device copies of schedule tables, per (schedule, mt, nt, g, device)
+_DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def decode_step(t: torch.Tensor, schedule: str, mt: int, nt: int):
+    """Closed-form tile step -> (i, j) on integer tensors; the plain
+    twin of the kernel's in-kernel decode."""
+    if schedule == "rowmajor":
+        return t // nt, t % nt
+    if schedule == "colmajor":
+        return t % mt, t // mt
+    if schedule in ("morton", "hilbert"):
+        if not (mt == nt and is_pow2(mt)):
+            raise ValueError(
+                f"closed-form {schedule} decode needs a square power-of-two "
+                f"tile grid, got {mt}x{nt}; use use_prefetch=True otherwise")
+        if schedule == "morton":
+            return morton_decode(t)
+        return hilbert_decode(t, mt.bit_length() - 1)
+    raise ValueError(f"no closed-form decode for schedule {schedule!r}")
+
+
+def tile_schedule(schedule: str, mt: int, nt: int, *, use_prefetch: bool,
+                  g: int = 0, device=None) -> torch.Tensor:
+    """The (T, 2) int32 tile order the kernel walks, as a tensor: the
+    host table, or the closed-form decode of ``arange(T)``."""
+    if use_prefetch:
+        tab = grid_schedule(schedule, mt, nt,
+                            **schedule_extra_kwargs(schedule, g))
+        return torch.from_numpy(tab.copy()).to(device)
+    i, j = decode_step(torch.arange(mt * nt, device=device), schedule, mt, nt)
+    return torch.stack([i, j], dim=1).to(torch.int32)
+
+
+def _device_table(schedule: str, mt: int, nt: int, g: int,
+                  device: torch.device) -> torch.Tensor:
+    key = (schedule, mt, nt, g, str(device))
+    tab = _DEVICE_TABLES.get(key)
+    if tab is None:
+        tab = tile_schedule(schedule, mt, nt, use_prefetch=True, g=g,
+                            device=device).contiguous()
+        _DEVICE_TABLES[key] = tab
+    return tab
+
+
+def sfc_matmul_plain(a, b, *, sched: torch.Tensor, bm: int, bn: int, bk: int,
+                     out_dtype=None, bias=None, activation: str = "none",
+                     residual=None) -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch: tiles in the order of
+    ``sched`` (T, 2), each an f32 sum over bk-deep k blocks in k order,
+    then the fused epilogue and one cast."""
+    m, k = a.shape
+    n = b.shape[1]
+    out_dtype = out_dtype or a.dtype
+    mt, nt, kt = -(-m // bm), -(-n // bn), -(-k // bk)
+    ap = F.pad(a.float(), (0, kt * bk - k, 0, mt * bm - m))
+    bp = F.pad(b.float(), (0, nt * bn - n, 0, kt * bk - k))
+    a_t = ap.view(mt, bm, kt, bk).permute(0, 2, 1, 3)   # (mt, kt, bm, bk)
+    b_t = bp.view(kt, bk, nt, bn).permute(0, 2, 1, 3)   # (kt, nt, bk, bn)
+    ii, jj = sched[:, 0].long(), sched[:, 1].long()
+    acc = torch.zeros(len(sched), bm, bn, dtype=torch.float32,
+                      device=a.device)
+    for kk in range(kt):
+        acc += torch.bmm(a_t[ii, kk], b_t[kk, jj])
+    tiles = torch.empty(mt, nt, bm, bn, dtype=torch.float32, device=a.device)
+    tiles[ii, jj] = acc
+    c = tiles.permute(0, 2, 1, 3).reshape(mt * bm, nt * bn)[:m, :n]
+    return apply_epilogue_ref(c, bias, activation, residual, out_dtype)
+
+
+def _check(a, b, bias, residual, activation, out_dtype):
+    if activation not in ACTIVATIONS:
+        raise ValueError(
+            f"unknown activation {activation!r}; choose from {ACTIVATIONS}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad GEMM operands {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
+        raise TypeError(f"operands must share a float32/bfloat16 dtype, got "
+                        f"{a.dtype} and {b.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    m, n = a.shape[0], b.shape[1]
+    if a.numel() == 0 or b.numel() == 0:
+        raise ValueError(f"empty GEMM {tuple(a.shape)} @ {tuple(b.shape)}")
+    for name, t, shape in (("bias", bias, (n,)), ("residual", residual,
+                                                   (m, n))):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+        if t.dtype not in _DTYPE_CODE or t.device != a.device:
+            raise TypeError(f"{name} must be float32/bfloat16 on {a.device}")
+    if b.device != a.device:
+        raise ValueError(f"operands on {a.device} and {b.device}")
+
+
+def sfc_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                    schedule: str = "morton", bm: int = 128, bn: int = 128,
+                    bk: int = 128, out_dtype=None, use_prefetch: bool = True,
+                    g: int = 0, bias=None, activation: str = "none",
+                    residual=None) -> torch.Tensor:
+    """C = act(A @ B + bias) + residual with SFC-ordered tile traversal.
+
+    a (M, K) and b (K, N) share a float32 or bfloat16 dtype; ``bias``
+    is (N,) and ``residual`` (M, N), float32 or bfloat16; ``out_dtype``
+    defaults to ``a.dtype``.  Any M/N/K: ragged edges are masked.  CUDA
+    tensors launch the kernel (or raise); CPU tensors run
+    :func:`sfc_matmul_plain`; other devices raise."""
+    global launches
+    out_dtype = out_dtype or a.dtype
+    _check(a, b, bias, residual, activation, out_dtype)
+    m, k = a.shape
+    n = b.shape[1]
+    mt, nt = -(-m // bm), -(-n // bn)
+    if a.device.type == "cpu":
+        sched = tile_schedule(schedule, mt, nt, use_prefetch=use_prefetch,
+                              g=g)
+        return sfc_matmul_plain(a, b, sched=sched, bm=bm, bn=bn, bk=bk,
+                                out_dtype=out_dtype, bias=bias,
+                                activation=activation, residual=residual)
+    if a.device.type != "cuda":
+        raise ValueError(f"sfc_matmul_cuda runs on cuda (or the plain "
+                         f"version on cpu), got {a.device}")
+    if bm % 16 or bn % 16 or not (0 < bm <= 128 and 0 < bn <= 128):
+        raise ValueError(f"the kernel takes bm and bn in multiples of 16 up "
+                         f"to 128, got {bm}x{bn}")
+    itemsize = a.element_size()
+    if (bm * bk + bk * bn) * itemsize > _SMEM_LIMIT:
+        raise ValueError(f"tiles {bm}x{bk} + {bk}x{bn} exceed shared memory")
+    for name, t in (("a", a), ("b", b), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if use_prefetch:
+        sched_t = _device_table(schedule, mt, nt, g, a.device)
+        mode, order = 0, 0
+    else:
+        decode_step(torch.zeros(1, dtype=torch.int64), schedule, mt, nt)
+        sched_t, mode = None, _MODE_CODE[schedule]
+        order = mt.bit_length() - 1 if schedule == "hilbert" else 0
+    vec_el = 16 // itemsize
+    vec = int(k % vec_el == 0 and n % vec_el == 0 and bk % vec_el == 0
+              and bn % vec_el == 0 and a.data_ptr() % 16 == 0
+              and b.data_ptr() % 16 == 0)
+    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    lib = _build.load("sfc_matmul", _SIGNATURES)
+    err = lib.sfc_matmul_launch(
+        a.data_ptr(), b.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        residual.data_ptr() if residual is not None else None,
+        out.data_ptr(),
+        sched_t.data_ptr() if sched_t is not None else None,
+        m, n, k, bm, bn, bk, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype],
+        _DTYPE_CODE[bias.dtype] if bias is not None else 0,
+        _DTYPE_CODE[residual.dtype] if residual is not None else 0,
+        _ACT_CODE[activation], mode, order, vec,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sfc_matmul kernel launch failed: cudaError {err}")
+    launches += 1
+    return out

@@ -1,0 +1,139 @@
+"""Rules of the PyTorch port that hold on any machine:
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+  anything of ``repro``;
+* on a machine without CUDA, asking for ``cuda`` raises: entry points
+  never drop to the CPU, the kernel wrappers never run their plain
+  version for a non-CPU tensor, and a missing ``nvcc`` raises instead of
+  switching the path;
+* ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  and in a directory that holds nothing else of the repository.
+"""
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda
+from repro_torch.launch.serve import ServeLoop
+from repro_torch.models import init_model
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_source_imports_no_jax_and_no_reference(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_every_port_module_loads_no_jax_or_reference():
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve_device("cuda")
+    cfg = get_smoke_config("qwen3_1_7b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(cfg)
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeLoop(cfg, params)
+    assert device_mod.resolve_device("cpu").type == "cpu"
+
+
+def test_wrappers_take_the_plain_version_only_on_cpu():
+    a = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="runs on cuda"):
+        sfc_matmul_cuda(a, torch.zeros(8, 4, device="meta"))
+    q = torch.zeros(2, 4, 8, device="meta")
+    pages = torch.zeros(3, 4, 2, 8, device="meta")
+    tab = torch.zeros(2, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="runs on cuda"):
+        paged_decode_attention_cuda(q, pages, pages, tab, 1)
+
+
+def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("sfc_matmul", {})
+    assert not list(tmp_path.iterdir())
+
+
+def test_build_keys_on_the_sources():
+    paths = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert len(set(paths.values())) == len(_build.SOURCES)
+    for name, path in paths.items():
+        assert path.name.startswith(name + "-") and path.suffix == ".so"
+        assert (_build.CSRC / f"{name}.cu").exists()
+    with pytest.raises(ValueError, match="unknown kernel source"):
+        _build.build(("nope",))
+
+
+def _run_smoke(cwd: Path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""     # no card, even on a GPU machine
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    here = _run_smoke(ROOT)
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = _run_smoke(tmp_path)
+    for out in (here, alone):
+        assert out.returncode != 0
+        for line in out.stdout.splitlines():
+            try:
+                result = json.loads(line)
+            except ValueError:
+                continue
+            assert "ok" not in result, out.stdout
