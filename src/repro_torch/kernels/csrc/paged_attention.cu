@@ -130,10 +130,14 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    cudaStream_t stream) {
   const int G = H / hkv;
   const size_t smem = sizeof(float) * (2 * G * dh + G * ps + 3 * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  // ~2 KB at the serving shapes: raise the limit only past the 48 KB
+  // default, so the common launch makes no extra CUDA API call.
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
   paged_attn_kernel<T><<<B * hkv, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), tables, pos, static_cast<T*>(out), H, hkv,

@@ -12,8 +12,6 @@ import math
 
 import torch
 
-from repro_torch.kernels.ref import apply_epilogue_ref
-
 __all__ = ["DotEngine", "rms_norm", "rope", "apply_rope", "swiglu_mlp",
            "init_linear", "init_rms", "init_swiglu"]
 
@@ -34,16 +32,8 @@ class DotEngine:
             residual=None, out_dtype=None):
         """x: (..., d_in) @ w: (d_in, d_out) -> (..., d_out), with the
         fused epilogue ``act(x @ w + bias) + residual`` and one cast to
-        ``out_dtype``."""
-        if self.schedule == "xla":
-            if bias is None and activation == "none" and residual is None:
-                out = torch.matmul(x, w)
-                return out.to(out_dtype) if out_dtype else out
-            # epilogue present: accumulate in f32 like the kernel path
-            acc = torch.matmul(x.float(), w.float())
-            return apply_epilogue_ref(
-                acc, bias, activation, residual,
-                out_dtype or torch.promote_types(x.dtype, w.dtype))
+        ``out_dtype``.  Every schedule, "xla" included, goes through
+        :func:`repro_torch.kernels.ops.sfc_matmul`."""
         from repro_torch.kernels.ops import sfc_matmul
 
         lead = x.shape[:-1]

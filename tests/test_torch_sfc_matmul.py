@@ -123,6 +123,30 @@ def test_xla_schedule_is_the_fused_reference_and_auto_raises():
         sfc_matmul(ta, tb, schedule="auto")
 
 
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_dot_engine_xla_matches_reference_engine(epilogue):
+    """DotEngine(schedule="xla") reaches the one library baseline in
+    ops.sfc_matmul; it agrees with the reference's xla engine on a
+    batched (B, S, d) input, with and without the fused epilogue."""
+    from repro.models.layers import DotEngine as JaxDotEngine
+    from repro_torch.models.layers import DotEngine
+
+    a, b, bias, res = _inputs(6, 24, 40, 8)
+    x = a.reshape(2, 3, 40)
+    kw = dict(bias=bias, activation="gelu", residual=res.reshape(2, 3, 24)) \
+        if epilogue else {}
+    ref = JaxDotEngine(schedule="xla").dot(
+        jnp.asarray(x), jnp.asarray(b),
+        **{k: jnp.asarray(v) if k != "activation" else v
+           for k, v in kw.items()})
+    mine = DotEngine(schedule="xla").dot(
+        torch.from_numpy(x), torch.from_numpy(b),
+        **{k: torch.from_numpy(v) if k != "activation" else v
+           for k, v in kw.items()})
+    assert mine.shape == (2, 3, 24)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **F32)
+
+
 def test_cpu_calls_do_not_count_as_launches():
     before = sfc_mod.launches
     a, b, _, _ = _inputs(16, 16, 16, 6)
