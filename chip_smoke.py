@@ -6,15 +6,25 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/
-csrc`` (one ``nvcc`` per source, all started together), holds each
-kernel against its plain PyTorch version at the serving path's shapes,
-serves full-width qwen3-1.7b (random weights from a seed) through
-``ServeLoop`` with the Morton-scheduled SFC GEMM and the paged decode
-attention kernel, checks the launch counts and the outputs, times each
-kernel beside its bound, its plain version and the library call, and
-prints as its last line ``{"ok": true, "device": {...}}``.  Any failed
-phase exits non-zero.  Without a CUDA device, or without the repository
-around it, it exits non-zero and prints no result.
+csrc`` (one ``nvcc`` per source, all started together) and holds each
+kernel against its plain PyTorch version at its main path's shapes.
+Two main paths follow, each driven with the launch counts set to 0
+just before it and read just after:
+
+* serving: full-width qwen3-1.7b (random weights from a seed) through
+  ``ServeLoop`` with the Morton-scheduled SFC GEMM (B1) and the paged
+  decode attention kernel (B2);
+* the paper's locality study (``configs/paper.py``, n = 2^10 and 2^12):
+  the batched SFC GEMM (B3) through ``DotEngine.dot_batched`` under
+  row-major, Morton and Hilbert order, and the software-cached SFC GEMM
+  (B4) through ``sfc_matmul_cached``, whose in-kernel fetch counts must
+  equal the direct-mapped cache's counts exactly.
+
+It checks the launch counts and the outputs, times each kernel beside
+its bound, its plain version and the library call, and prints as its
+last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
+non-zero.  Without a CUDA device, or without the repository around it,
+it exits non-zero and prints no result.
 
 Tolerances (kernel against plain version, on the card, TF32 off):
 
@@ -22,6 +32,10 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   order only (values O(1), K <= 6144).
 * B1 bf16 output: <= 1e-3 + 2**-7 |plain|: at most one bf16 rounding
   step apart (the two f32 sums may straddle a rounding boundary).
+* B3: B1's bounds, and each batch element equal bit for bit to B1 on
+  that element (the reference's batched-kernel == vmap claim).
+* B4 f32 output: B1's f32 bound (f32 summation order only); the fetch
+  counts exactly equal to the plain version's oracle and to B4_COUNTS.
 * B2 f32: <= 2e-5 absolute (O(1) outputs; online vs direct softmax).
 * B2 bf16: <= 3e-2 absolute: the plain version rounds the scores and
   the softmax weights to bf16 as the reference does; the kernel keeps
@@ -52,6 +66,25 @@ PAGE_SIZE = 16
 CACHE_LEN = 64
 MAX_NEW = 16
 N_REQUESTS = 6                 # > SLOTS: two requests wait in the queue
+
+# the locality study, f32 as in configs/paper.py
+PAPER_N = 1024                                  # the paper's 2^10
+B3_SHAPES = ((4, 1024, 1024, 1024),             # (batch, M, K, N)
+             (2, 4096, 4096, 4096))
+B4_SETTINGS = ((16, 16), (16, 64), (8, 256))    # (block edge, nslots)
+B4_SCHEDULES = ("rowmajor", "boustrophedon", "morton", "hilbert")
+# [A fetches, B fetches] at n = PAPER_N: the direct-mapped cache with the
+# kernel's slot mapping (tests/test_torch_sfc_matmul_cached.py)
+B4_COUNTS = {
+    (16, 16): {"rowmajor": (262144, 262144),
+               "boustrophedon": (262144, 262144),
+               "morton": (262144, 262144), "hilbert": (262144, 262144)},
+    (16, 64): {"rowmajor": (4096, 262144), "boustrophedon": (4096, 258112),
+               "morton": (131072, 262144), "hilbert": (131072, 131136)},
+    (8, 256): {"rowmajor": (16384, 2097152),
+               "boustrophedon": (16384, 2064640),
+               "morton": (524288, 1048576), "hilbert": (524288, 524544)},
+}
 
 
 def _smi() -> str:
@@ -215,7 +248,110 @@ def check_kernels(cfg) -> dict:
                     f"B2 {str(dtype)[6:]} ps={ps} pos {label}", got, want,
                     *tol))
     rep.raise_if_failed("B2 checks")
+    errs["B3"] = check_batched(gen)
+    errs["B4"] = check_cached(gen)
     return errs
+
+
+def check_batched(gen) -> float:
+    """B3 against its plain version and, element by element, against B1
+    (bit equality): the paper shapes under the paper's schedules, a
+    closed-form decode, a ragged bf16 case with the whole epilogue, and
+    a batch of decode-width products (the rows path)."""
+    import torch
+
+    from repro_torch.configs.paper import CONFIG as PAPER
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_batched_cuda, \
+        sfc_matmul_batched_plain, sfc_matmul_cuda, tile_schedule
+
+    rep = Report()
+    err = 0.0
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(shape, f32, False, s, True) for shape in B3_SHAPES
+             for s in PAPER.schedules]
+    cases += [((4, 1024, 1024, 1024), f32, False, "hilbert", False),
+              ((3, 1000, 1000, 1000), bf16, True, "hilbert", True),
+              ((8, 4, 2048, 2048), bf16, False, "morton", True)]
+    print("[kernels] B3 sfc_matmul_batched against its plain version and "
+          "per-element B1")
+    for (bsz, m, k, n), dtype, epilogue, sched, pf in cases:
+        a = torch.randn(bsz, m, k, generator=gen, device="cuda").to(dtype)
+        b = (torch.randn(bsz, k, n, generator=gen, device="cuda")
+             / k ** 0.5).to(dtype)
+        kw, res = {}, None
+        if epilogue:
+            res = torch.randn(bsz, m, n, generator=gen,
+                              device="cuda").to(dtype)
+            kw = dict(bias=torch.randn(n, generator=gen, device="cuda"),
+                      activation="gelu")
+        got = sfc_matmul_batched_cuda(a, b, schedule=sched, use_prefetch=pf,
+                                      residual=res, **kw)
+        tab = tile_schedule(sched, -(-m // 128), -(-n // 128),
+                            use_prefetch=pf, device="cuda")
+        want = sfc_matmul_batched_plain(a, b, sched=tab, bm=128, bn=128,
+                                        bk=128, residual=res, **kw)
+        same = [torch.equal(got[i], sfc_matmul_cuda(
+            a[i], b[i], schedule=sched, use_prefetch=pf,
+            residual=res[i] if res is not None else None, **kw))
+            for i in range(bsz)]
+        torch.cuda.synchronize()
+        tol = (1e-4, 1e-4) if dtype == f32 else (1e-3, 2.0 ** -7)
+        name = (f"B3 {bsz}x{m}x{k}x{n} {str(dtype)[6:]} {sched}"
+                f"{'' if pf else ' closed-form'}"
+                f"{' bias+gelu+res' if epilogue else ''}")
+        err = max(err, rep.check(name, got, want, *tol))
+        print(f"  {'ok  ' if all(same) else 'FAIL'} {name}: equal to B1 "
+              f"on {sum(same)}/{bsz} elements")
+        if not all(same):
+            rep.failures.append(f"{name} != per-element B1")
+        del a, b, got, want, res
+    rep.raise_if_failed("B3 checks")
+    return err
+
+
+def check_cached(gen) -> float:
+    """B4 against its plain version at n = PAPER_N for every setting and
+    schedule (C within f32 order bounds, counts exact and equal to
+    B4_COUNTS), and the reference's defaults refused on the card."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul import tile_schedule
+    from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached, \
+        sfc_matmul_cached_plain
+
+    rep = Report()
+    err = 0.0
+    n = PAPER_N
+    a = torch.randn(n, n, generator=gen, device="cuda")
+    b = torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5
+    print("[kernels] B4 sfc_matmul_cached against its plain version")
+    for blk, nslots in B4_SETTINGS:
+        for sched in B4_SCHEDULES:
+            got, cnt = sfc_matmul_cached(a, b, schedule=sched, bm=blk, bn=blk,
+                                         bk=blk, nslots=nslots)
+            tab = tile_schedule(sched, n // blk, n // blk, use_prefetch=True,
+                                device="cuda")
+            want, want_cnt = sfc_matmul_cached_plain(
+                a, b, sched=tab, bm=blk, bn=blk, bk=blk, nslots=nslots)
+            torch.cuda.synchronize()
+            name = f"B4 {n}^3 f32 {blk}^3 blocks x{nslots} slots {sched}"
+            err = max(err, rep.check(name, got, want, 1e-4, 1e-4))
+            counts = tuple(cnt.tolist())
+            table = B4_COUNTS[(blk, nslots)][sched]
+            ok = counts == tuple(want_cnt.tolist()) == table
+            print(f"  {'ok  ' if ok else 'FAIL'} {name}: fetches A+B "
+                  f"{counts[0]}+{counts[1]} (plain {tuple(want_cnt.tolist())}"
+                  f", table {table})")
+            if not ok:
+                rep.failures.append(f"{name} counts")
+    try:
+        sfc_matmul_cached(a, b)
+    except ValueError as e:
+        print(f"  ok   B4 reference defaults refused on the card: {e}")
+    else:
+        rep.failures.append("B4 defaults ran past the shared-memory limit")
+    rep.raise_if_failed("B4 checks")
+    return err
 
 
 # ------------------------------------------------------------- serving ----
@@ -545,6 +681,164 @@ def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
     ]
 
 
+# ------------------------------------------------------- locality study ----
+def locality_study():
+    """Phase 7, the slice's main path: the paper's experiment on the card
+    through the entry points a user calls.  B3 runs through
+    ``DotEngine.dot_batched`` at each paper shape under each paper
+    schedule, B4 through ``sfc_matmul_cached`` at n = PAPER_N for each
+    cache setting and schedule; the launch counts are set to 0 just
+    before and read just after.  Returns the counts and the inputs."""
+    import torch
+
+    import repro_torch.kernels.sfc_matmul as sfc_mod
+    import repro_torch.kernels.sfc_matmul_cached as cached_mod
+    from repro_torch.configs.paper import CONFIG as PAPER
+    from repro_torch.kernels.ref import matmul_batched_ref
+    from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached
+    from repro_torch.models import DotEngine
+
+    gen = torch.Generator(device="cuda").manual_seed(2016)
+    b3_in = {}
+    for bsz, m, k, n in B3_SHAPES:
+        b3_in[(bsz, m, k, n)] = (
+            torch.randn(bsz, m, k, generator=gen, device="cuda"),
+            torch.randn(bsz, k, n, generator=gen, device="cuda") / k ** 0.5)
+    n = PAPER_N
+    b4_in = (torch.randn(n, n, generator=gen, device="cuda"),
+             torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5)
+    torch.cuda.synchronize()
+
+    sfc_mod.launches = 0
+    sfc_mod.batched_launches = 0
+    cached_mod.launches = 0
+    b3_out = {(shape, sched): DotEngine(schedule=sched).dot_batched(*ab)
+              for sched in PAPER.schedules for shape, ab in b3_in.items()}
+    b4_out = {(blk, nslots, sched): sfc_matmul_cached(
+        *b4_in, schedule=sched, bm=blk, bn=blk, bk=blk, nslots=nslots)
+        for blk, nslots in B4_SETTINGS for sched in B4_SCHEDULES}
+    torch.cuda.synchronize()
+    launches = {"B1": sfc_mod.launches, "B3": sfc_mod.batched_launches,
+                "B4": cached_mod.launches}
+    want = {"B1": 0, "B3": len(PAPER.schedules) * len(B3_SHAPES),
+            "B4": len(B4_SETTINGS) * len(B4_SCHEDULES)}
+    print(f"[study] launches B1 {launches['B1']} (want 0: no per-element "
+          f"route), B3 {launches['B3']} (want {want['B3']}), B4 "
+          f"{launches['B4']} (want {want['B4']})")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: study launch counts {launches} != "
+                         f"{want}")
+
+    bad = []
+    for shape, ab in b3_in.items():
+        ref = matmul_batched_ref(*ab)
+        for sched in PAPER.schedules:
+            out = b3_out[(shape, sched)]
+            err = float((out - ref).abs().max())
+            ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) \
+                and err <= 1e-4 + 1e-4 * float(ref.abs().max())
+            print(f"  {'ok  ' if ok else 'FAIL'} B3 {'x'.join(map(str, shape))}"
+                  f" {sched}: max |out - torch.matmul| {err:.3e}")
+            if not ok:
+                bad.append(f"B3 {shape} {sched}")
+    c_ref = b4_in[0] @ b4_in[1]
+    print(f"[study] B4 fetches A+B, n = {n} f32 (no-reuse ceiling 2*T*kt):")
+    for blk, nslots in B4_SETTINGS:
+        t, kt = (n // blk) ** 2, n // blk
+        line = []
+        for sched in B4_SCHEDULES:
+            out, cnt = b4_out[(blk, nslots, sched)]
+            counts = tuple(cnt.tolist())
+            err = float((out - c_ref).abs().max())
+            if counts != B4_COUNTS[(blk, nslots)][sched] or err > 1e-3 or \
+                    not bool(torch.isfinite(out).all()):
+                bad.append(f"B4 {blk} {nslots} {sched}")
+            line.append(f"{sched} {counts[0]}+{counts[1]}")
+        print(f"  {blk}^3 blocks, {nslots} slots, ceiling {2 * t * kt}: "
+              + "; ".join(line))
+    if bad:
+        raise SystemExit(f"chip_smoke: locality study failed: {bad}")
+    return launches, b3_in, b4_in
+
+
+def time_study(b3_in, b4_in, smi: str) -> list[dict]:
+    """Phase 8: device times of the study's launches beside their bounds,
+    plain versions and library calls (CUDA events, L2 flushed)."""
+    import torch
+
+    from repro_torch.configs.paper import CONFIG as PAPER
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_batched_cuda, \
+        sfc_matmul_batched_plain, tile_schedule
+    from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached, \
+        sfc_matmul_cached_plain
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    def bound(flops, nbytes):
+        return max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+    b3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    print(f"[time] B3 sfc_matmul_batched per launch, f32, table ({smi})")
+    for (bsz, m, k, n), (a, b) in b3_in.items():
+        lib = _time_ms(lambda: torch.bmm(a, b), 5, flush)
+        bd = bound(2.0 * bsz * m * n * k, 4.0 * bsz * (m * k + k * n + m * n))
+        for sched in PAPER.schedules:
+            tab = tile_schedule(sched, m // 128, n // 128, use_prefetch=True,
+                                device="cuda")
+            ms = _time_ms(lambda: sfc_matmul_batched_cuda(a, b,
+                                                          schedule=sched),
+                          5, flush)
+            plain = _time_ms(lambda: sfc_matmul_batched_plain(
+                a, b, sched=tab, bm=128, bn=128, bk=128), 3, flush)
+            print(f"  {bsz}x{m}x{k}x{n} {sched:9s}: kernel {ms:.4f} ms "
+                  f"({2.0 * bsz * m * n * k / ms / 1e9:.2f} TFLOP/s), plain "
+                  f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound {bd:.4f} "
+                  f"ms (operations)")
+            b3["ms"] += ms
+            b3["plain_ms"] += plain
+            b3["library_ms"] += lib
+            b3["bound_ms"] += bd
+
+    a, b = b4_in
+    n = a.shape[0]
+    b4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    card = bound(2.0 * n ** 3, 4.0 * 3 * n * n)
+    lib = _time_ms(lambda: torch.matmul(a, b), 5, flush)
+    print(f"[time] B4 sfc_matmul_cached per launch, {n}^3 f32 ({smi}); bound "
+          f"{card:.4f} ms for the card (operations), {card * 132:.3f} ms for "
+          f"the one SM it uses; torch.matmul (C only, no counts) {lib:.4f} ms")
+    for blk, nslots in B4_SETTINGS:
+        for sched in B4_SCHEDULES:
+            kw = dict(bm=blk, bn=blk, bk=blk, nslots=nslots)
+            tab = tile_schedule(sched, n // blk, n // blk, use_prefetch=True,
+                                device="cuda")
+            ms = _time_ms(lambda: sfc_matmul_cached(a, b, schedule=sched,
+                                                    **kw), 3, flush)
+            plain = _time_ms(lambda: sfc_matmul_cached_plain(a, b, sched=tab,
+                                                             **kw), 3, flush)
+            fetched = sum(B4_COUNTS[(blk, nslots)][sched])
+            print(f"  {blk}^3 x{nslots:3d} {sched:13s}: kernel {ms:.3f} ms "
+                  f"({fetched} fetches, {ms * 1e6 / fetched:.1f} ns each), "
+                  f"plain {plain:.3f} ms")
+            b4["ms"] += ms
+            b4["plain_ms"] += plain
+            b4["library_ms"] += lib
+            b4["bound_ms"] += card
+    return [
+        {"name": "B3 sfc_matmul_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sfc_matmul.cu",
+         "replaces": "src/repro/kernels/sfc_matmul.py:302",
+         "bound_by": "operations", **b3},
+        {"name": "B4 sfc_matmul_cached", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sfc_matmul_cached.cu",
+         "replaces": "src/repro/kernels/sfc_matmul_cached.py:96",
+         "bound_by": "operations", **b4},
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -594,12 +888,16 @@ def main() -> int:
     del params32, state32
     rows = time_kernels(cfg, state, pos, smi)
     profile_steps(cfg, params, state, toks, pos, smi)
-    for row, kid in zip(rows, ("B1", "B2")):
-        row["launches"] = sv["launches"][kid]
+    del params, state
+    torch.cuda.empty_cache()
+    study, b3_in, b4_in = locality_study()
+    rows += time_study(b3_in, b4_in, smi)
+    launches = {**sv["launches"], "B3": study["B3"], "B4": study["B4"]}
+    for row, kid in zip(rows, ("B1", "B2", "B3", "B4")):
+        row["launches"] = launches[kid]
         row["max_abs_err"] = errs[kid]
-    print("kernels: [B1 sfc_matmul (cuda), B2 paged_decode_attention "
-          "(cuda)]; B3 sfc_matmul_batched_pallas and B4 sfc_matmul_cached "
-          "not ported (ROADMAP.md queue B)")
+    print("kernels: [B1 sfc_matmul, B2 paged_decode_attention, B3 "
+          "sfc_matmul_batched, B4 sfc_matmul_cached], all cuda")
     print(f"[summary] step logits max err {step['max_abs_err']:.4e}, "
           f"greedy agree {step['agree']}/{SLOTS}; serve "
           f"{sv['tok_per_s']:.2f} tok/s")

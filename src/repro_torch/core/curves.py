@@ -21,6 +21,7 @@ __all__ = [
     "hilbert_encode", "hilbert_decode",
     "morton_encode_py", "morton_decode_py",
     "hilbert_encode_py", "hilbert_decode_py",
+    "morton_index_cost_ops", "hilbert_index_cost_ops",
 ]
 
 
@@ -164,3 +165,21 @@ def hilbert_decode_py(d: int, order: int) -> tuple[int, int]:
         t //= 4
         s *= 2
     return x, y  # paper Table I orientation (see hilbert_encode)
+
+
+# ---------------------------------------------------------------------------
+# Index-computation cost (paper claim 1: curves trade index work for locality)
+# ---------------------------------------------------------------------------
+
+def morton_index_cost_ops() -> int:
+    """Static op count of one Morton (y,x)->d translation (paper Table cost).
+
+    Two dilations (4 shift + 5 mask + 4 or each) + 1 shift + 1 or.
+    """
+    return 2 * (4 + 5 + 4) + 2
+
+
+def hilbert_index_cost_ops(order: int) -> int:
+    """Approximate op count of one Hilbert translation: linear in bits."""
+    per_bit = 14  # cmp/mask/select/arith per bit-pair in the scan loop
+    return order * per_bit

@@ -18,7 +18,7 @@ __all__ = [
     "SCHEDULES", "is_pow2", "schedule_extra_kwargs", "grid_schedule",
     "schedule_rowmajor", "schedule_colmajor", "schedule_morton",
     "schedule_hilbert", "schedule_peano", "schedule_supertile",
-    "schedule_boustrophedon",
+    "schedule_boustrophedon", "matmul_block_trace",
 ]
 
 
@@ -158,3 +158,31 @@ def grid_schedule(name: str, rows: int, cols: int, **kw) -> np.ndarray:
         raise ValueError(
             f"unknown schedule {name!r}; choose from {sorted(SCHEDULES)}")
     return _grid_schedule_cached(name, rows, cols, tuple(sorted(kw.items())))
+
+
+def matmul_block_trace(
+    order: np.ndarray, kt: int, k_inner: bool = True
+) -> list[tuple[str, int, int]]:
+    """Expand an output-tile schedule into the full block access trace.
+
+    C[i,j] += A[i,k] @ B[k,j] for k in range(kt).  Returns a list of
+    ``(tensor, r, c)`` accesses, the input to the locality simulator
+    (:mod:`repro_torch.core.locality`).
+
+    k_inner=True matches the GEMM kernels (k innermost for each tile);
+    k_inner=False visits the full schedule per k slice (k outermost).
+    """
+    trace: list[tuple[str, int, int]] = []
+    if k_inner:
+        for (i, j) in order:
+            for k in range(kt):
+                trace.append(("A", int(i), int(k)))
+                trace.append(("B", int(k), int(j)))
+                trace.append(("C", int(i), int(j)))
+    else:
+        for k in range(kt):
+            for (i, j) in order:
+                trace.append(("A", int(i), int(k)))
+                trace.append(("B", int(k), int(j)))
+                trace.append(("C", int(i), int(j)))
+    return trace

@@ -1,3 +1,5 @@
-"""Hand-written CUDA kernels (``csrc/``), their wrappers (``sfc_matmul``,
-``paged_attention``) and their plain PyTorch versions (``ref``); the
-GEMM entry point is ``ops.sfc_matmul``.  Importing builds nothing."""
+"""Hand-written CUDA kernels (``csrc/``), their wrappers (``sfc_matmul``:
+B1 and the batched B3; ``paged_attention``: B2; ``sfc_matmul_cached``:
+B4) and their plain PyTorch versions (``ref``); the GEMM entry points
+are ``ops.sfc_matmul`` and ``ops.sfc_matmul_batched``.  Importing builds
+nothing."""

@@ -2,7 +2,9 @@
 //
 // Replaces: src/repro/kernels/sfc_matmul.py::sfc_matmul_pallas (the TPU
 // Pallas kernel _mm_kernel / _mm_kernel_prefetch, its flush _fused_flush
-// and its closed-form tile decode decode_step).
+// and its closed-form tile decode decode_step), and, batched, B3
+// src/repro/kernels/sfc_matmul.py::sfc_matmul_batched_pallas (_bmm_kernel
+// over a (batch, T, kt) grid, batch outermost).
 //
 //   C = act(A @ B + bias) + residual, one cast and one store per element.
 //   The output tile grid (mt x nt, with bm x bn tiles) is visited in the
@@ -37,6 +39,17 @@
 //    staged in shared memory; 256 threads each own an (bm/16) x (bn/16)
 //    register micro-tile; rows >= M are skipped.
 //
+// Batched (B3): the same kernels, instantiated with kBatched, take the
+// batch element from blockIdx.y and offset A (b, M, K), B (b, K, N), the
+// residual and the output (b, M, N) by it in 64-bit arithmetic; bias
+// (N,) is shared.  The grid is (mt*nt, batch), tile step in x, so blocks
+// are dispatched batch outermost with the curve inside each element, as
+// in the reference.  The per-element arithmetic is the one-GEMM kernel's,
+// so each element equals B1 on it bit for bit.  The one-GEMM
+// instantiations (kBatched false) compile without the offsets: moving
+// them in unconditionally made the rows path ~1.8x slower per launch on
+// the H100.  Batches beyond gridDim.y's 65535 are launched in chunks.
+//
 // Known limit: a 2048-wide output has only 16 tiles of 128 columns, so
 // the projections run on 16 of the 132 SMs; filling the card (split-K
 // across blocks, wgmma, TMA) is later work.
@@ -57,6 +70,7 @@ constexpr int kTileThreads = 256;  // tile path: a 16 x 16 thread grid
 constexpr int kRowsThreads = 512;  // rows path: 16 column groups x 32 k-slices
 constexpr int kRowsMaxM = 8;       // the rows path takes M <= 8
 constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
+constexpr int kMaxGridY = 65535;   // batch elements per launch (gridDim.y)
 
 enum Act : int { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3 };
 enum Mode : int { kTable = 0, kRowMajor = 1, kColMajor = 2, kMorton = 3,
@@ -140,10 +154,11 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
-// +bias -> act -> +residual on the f32 accumulator, then one cast + store
-__device__ __forceinline__ void finish(const Epilogue& ep, float v, int gm,
-                                       int gn, int N) {
-  const long o = static_cast<long>(gm) * N + gn;
+// +bias -> act -> +residual on the f32 accumulator, then one cast + store;
+// ``base`` is the batch element's offset into the residual and output
+__device__ __forceinline__ void finish(const Epilogue& ep, float v, long base,
+                                       int gm, int gn, int N) {
+  const long o = base + static_cast<long>(gm) * N + gn;
   if (ep.bias != nullptr) v += load_as_f32(ep.bias, gn, ep.bias_dt);
   v = activate(v, ep.act);
   if (ep.res != nullptr) v += load_as_f32(ep.res, o, ep.res_dt);
@@ -190,7 +205,7 @@ struct Raw8<__nv_bfloat16> {
 
 // ---------------------------------------------------------------- rows path
 // M <= R rows, bn = 128: thread = (column group cg of 8 columns, k-slice ks)
-template <typename TI, int R>
+template <typename TI, int R, bool kBatched>
 __global__ void __launch_bounds__(kRowsThreads)
 sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
                 const int* __restrict__ sched, int M, int N, int K, int mt,
@@ -199,6 +214,13 @@ sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
   constexpr int U = 16 / sizeof(TI);          // 128 bytes of B in flight
   extern __shared__ __align__(16) float red[];  // [16 warps][R][128]
 
+  long base = 0;  // the batch element's offset into residual and output
+  if constexpr (kBatched) {
+    const long bz = blockIdx.y;
+    a += bz * M * K;
+    b += bz * K * N;
+    base = bz * M * N;
+  }
   int ti, tj;
   decode_tile(blockIdx.x, mode, mt, nt, order, sched, &ti, &tj);
   const int col0 = tj * 128;
@@ -266,7 +288,7 @@ sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
       float v = 0.0f;
 #pragma unroll
       for (int w = 0; w < kRowsThreads / 32; ++w) v += red[(w * R + r) * 128 + c];
-      finish(ep, v, r, col0 + c, N);
+      finish(ep, v, base, r, col0 + c, N);
     }
   }
 }
@@ -274,7 +296,7 @@ sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
 // ---------------------------------------------------------------- tile path
 // bm, bn multiples of 16 up to 128; thread (ty, tx) owns rows ty + 16 i
 // and columns tx + 16 j of the tile
-template <typename TI, bool kVec>
+template <typename TI, bool kVec, bool kBatched>
 __global__ void __launch_bounds__(kTileThreads)
 sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
                 const int* __restrict__ sched, int M, int N, int K, int bm,
@@ -284,6 +306,13 @@ sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
   TI* As = reinterpret_cast<TI*>(smem_raw);  // bm x bk (live rows only)
   TI* Bs = As + bm * bk;                      // bk x bn
 
+  long base = 0;  // the batch element's offset into residual and output
+  if constexpr (kBatched) {
+    const long bz = blockIdx.y;
+    a += bz * M * K;
+    b += bz * K * N;
+    base = bz * M * N;
+  }
   int ti, tj;
   decode_tile(blockIdx.x, mode, mt, nt, order, sched, &ti, &tj);
   const int row0 = ti * bm;
@@ -368,7 +397,7 @@ sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int gn = col0 + tx + 16 * j;
-      if (i < mi && j < nj && r < rows && gn < N) finish(ep, acc[i][j], row0 + r, gn, N);
+      if (i < mi && j < nj && r < rows && gn < N) finish(ep, acc[i][j], base, row0 + r, gn, N);
     }
   }
 }
@@ -381,74 +410,126 @@ cudaError_t allow_smem() {
   return err;
 }
 
-template <typename TI>
-cudaError_t launch(const void* a, const void* b, const int* sched, int M,
-                   int N, int K, int bm, int bn, int bk, int mt, int nt,
-                   int order, int mode, int vec, const Epilogue& ep,
+template <typename TI, bool kB>
+cudaError_t launch(const void* a, const void* b, const int* sched, int batch,
+                   int M, int N, int K, int bm, int bn, int bk, int mt,
+                   int nt, int order, int mode, int vec, const Epilogue& ep,
                    cudaStream_t stream) {
   const TI* pa = static_cast<const TI*>(a);
   const TI* pb = static_cast<const TI*>(b);
+  const dim3 grid(mt * nt, batch);
   cudaError_t err;
   if (M <= kRowsMaxM && bn == 128 && N % 8 == 0 && vec) {
     if (M <= 4) {
       const size_t smem = sizeof(float) * (kRowsThreads / 32) * 4 * 128;
-      if ((err = allow_smem<sfc_matmul_rows<TI, 4>>()) != cudaSuccess) return err;
-      sfc_matmul_rows<TI, 4><<<mt * nt, kRowsThreads, smem, stream>>>(
+      if ((err = allow_smem<sfc_matmul_rows<TI, 4, kB>>()) != cudaSuccess) return err;
+      sfc_matmul_rows<TI, 4, kB><<<grid, kRowsThreads, smem, stream>>>(
           pa, pb, sched, M, N, K, mt, nt, order, mode, ep);
     } else {
       const size_t smem = sizeof(float) * (kRowsThreads / 32) * 8 * 128;
-      if ((err = allow_smem<sfc_matmul_rows<TI, 8>>()) != cudaSuccess) return err;
-      sfc_matmul_rows<TI, 8><<<mt * nt, kRowsThreads, smem, stream>>>(
+      if ((err = allow_smem<sfc_matmul_rows<TI, 8, kB>>()) != cudaSuccess) return err;
+      sfc_matmul_rows<TI, 8, kB><<<grid, kRowsThreads, smem, stream>>>(
           pa, pb, sched, M, N, K, mt, nt, order, mode, ep);
     }
     return cudaGetLastError();
   }
   const size_t smem = static_cast<size_t>(bm * bk + bk * bn) * sizeof(TI);
   if (vec) {
-    if ((err = allow_smem<sfc_matmul_tile<TI, true>>()) != cudaSuccess) return err;
-    sfc_matmul_tile<TI, true><<<mt * nt, kTileThreads, smem, stream>>>(
+    if ((err = allow_smem<sfc_matmul_tile<TI, true, kB>>()) != cudaSuccess) return err;
+    sfc_matmul_tile<TI, true, kB><<<grid, kTileThreads, smem, stream>>>(
         pa, pb, sched, M, N, K, bm, bn, bk, mt, nt, order, mode, ep);
   } else {
-    if ((err = allow_smem<sfc_matmul_tile<TI, false>>()) != cudaSuccess) return err;
-    sfc_matmul_tile<TI, false><<<mt * nt, kTileThreads, smem, stream>>>(
+    if ((err = allow_smem<sfc_matmul_tile<TI, false, kB>>()) != cudaSuccess) return err;
+    sfc_matmul_tile<TI, false, kB><<<grid, kTileThreads, smem, stream>>>(
         pa, pb, sched, M, N, K, bm, bn, bk, mt, nt, order, mode, ep);
   }
   return cudaGetLastError();
 }
 
+size_t dtype_size(int dt) { return dt == kF32 ? 4 : 2; }
+
+// One launch per chunk of at most kMaxGridY batch elements; ``batched``
+// picks the kBatched instantiations (B3), otherwise batch must be 1 (B1).
+cudaError_t launch_all(const void* a, const void* b, const void* bias,
+                       const void* res, void* out, const void* sched,
+                       bool batched, int batch, int M, int N, int K, int bm,
+                       int bn, int bk, int in_dt, int out_dt, int bias_dt,
+                       int res_dt, int act, int mode, int order, int vec,
+                       cudaStream_t stream) {
+  const size_t isz = dtype_size(in_dt);
+  if (batch <= 0 || (!batched && batch != 1) || M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 ||
+      bk <= 0 || bm % 16 != 0 || bn % 16 != 0 || bm > 128 || bn > 128 ||
+      static_cast<size_t>(bm * bk + bk * bn) * isz > kSmemMax ||
+      (mode == kTable && sched == nullptr) ||
+      (in_dt != kF32 && in_dt != kBF16)) {
+    return cudaErrorInvalidValue;
+  }
+  const int mt = (M + bm - 1) / bm;
+  const int nt = (N + bn - 1) / bn;
+  const int* tab = static_cast<const int*>(sched);
+  const size_t mk = static_cast<size_t>(M) * K;
+  const size_t kn = static_cast<size_t>(K) * N;
+  const size_t mn = static_cast<size_t>(M) * N;
+  for (int b0 = 0; b0 < batch; b0 += kMaxGridY) {
+    const int nb = batch - b0 < kMaxGridY ? batch - b0 : kMaxGridY;
+    const char* pa = static_cast<const char*>(a) + b0 * mk * isz;
+    const char* pb = static_cast<const char*>(b) + b0 * kn * isz;
+    const void* pr = res == nullptr ? nullptr
+                                    : static_cast<const char*>(res) +
+                                          b0 * mn * dtype_size(res_dt);
+    void* po = static_cast<char*>(out) + b0 * mn * dtype_size(out_dt);
+    const Epilogue ep{bias, pr, po, out_dt, bias_dt, res_dt, act};
+    cudaError_t err;
+    if (in_dt == kF32) {
+      err = batched ? launch<float, true>(pa, pb, tab, nb, M, N, K, bm, bn,
+                                          bk, mt, nt, order, mode, vec, ep,
+                                          stream)
+                    : launch<float, false>(pa, pb, tab, nb, M, N, K, bm, bn,
+                                           bk, mt, nt, order, mode, vec, ep,
+                                           stream);
+    } else {
+      err = batched ? launch<__nv_bfloat16, true>(pa, pb, tab, nb, M, N, K,
+                                                  bm, bn, bk, mt, nt, order,
+                                                  mode, vec, ep, stream)
+                    : launch<__nv_bfloat16, false>(pa, pb, tab, nb, M, N, K,
+                                                   bm, bn, bk, mt, nt, order,
+                                                   mode, vec, ep, stream);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// C entry bound by ctypes (kernels/sfc_matmul.py).  Returns a cudaError_t.
-// bias, res and sched may be null; order is log2(mt) for mode 4; vec says
-// that K and N are multiples of 16 bytes' worth of elements and a, b are
-// 16-byte aligned.  bm and bn must be multiples of 16 up to 128.
+// C entries bound by ctypes (kernels/sfc_matmul.py).  Each returns a
+// cudaError_t.  bias, res and sched may be null; order is log2(mt) for
+// mode 4; vec says that K and N are multiples of 16 bytes' worth of
+// elements and a, b are 16-byte aligned.  bm and bn must be multiples of
+// 16 up to 128.
+//
+// B1: one GEMM, a (M, K) @ b (K, N) -> out (M, N).
 extern "C" int sfc_matmul_launch(const void* a, const void* b,
                                  const void* bias, const void* res, void* out,
                                  const void* sched, int M, int N, int K,
                                  int bm, int bn, int bk, int in_dt, int out_dt,
                                  int bias_dt, int res_dt, int act, int mode,
                                  int order, int vec, void* stream) {
-  const size_t isz = in_dt == kF32 ? 4 : 2;
-  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      bm % 16 != 0 || bn % 16 != 0 || bm > 128 || bn > 128 ||
-      static_cast<size_t>(bm * bk + bk * bn) * isz > kSmemMax ||
-      (mode == kTable && sched == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int mt = (M + bm - 1) / bm;
-  const int nt = (N + bn - 1) / bn;
-  const int* tab = static_cast<const int*>(sched);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Epilogue ep{bias, res, out, out_dt, bias_dt, res_dt, act};
-  cudaError_t err;
-  if (in_dt == kF32) {
-    err = launch<float>(a, b, tab, M, N, K, bm, bn, bk, mt, nt, order, mode,
-                        vec, ep, st);
-  } else if (in_dt == kBF16) {
-    err = launch<__nv_bfloat16>(a, b, tab, M, N, K, bm, bn, bk, mt, nt, order,
-                                mode, vec, ep, st);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_all(
+      a, b, bias, res, out, sched, false, 1, M, N, K, bm, bn, bk, in_dt, out_dt,
+      bias_dt, res_dt, act, mode, order, vec,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B3: ``batch`` GEMMs, a (batch, M, K) @ b (batch, K, N) -> out (batch, M,
+// N); bias (N,) shared, res (batch, M, N).
+extern "C" int sfc_matmul_batched_launch(
+    const void* a, const void* b, const void* bias, const void* res,
+    void* out, const void* sched, int batch, int M, int N, int K, int bm,
+    int bn, int bk, int in_dt, int out_dt, int bias_dt, int res_dt, int act,
+    int mode, int order, int vec, void* stream) {
+  return static_cast<int>(launch_all(
+      a, b, bias, res, out, sched, true, batch, M, N, K, bm, bn, bk, in_dt, out_dt,
+      bias_dt, res_dt, act, mode, order, vec,
+      static_cast<cudaStream_t>(stream)));
 }

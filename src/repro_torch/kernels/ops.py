@@ -1,21 +1,34 @@
-"""Public GEMM entry point (port of ``repro.kernels.ops.sfc_matmul``).
+"""Public GEMM entry points (port of ``repro.kernels.ops``).
 
 ``sfc_matmul`` is the GEMM every model projection routes through
 (``repro_torch.models.layers.DotEngine``).  A curve schedule runs the
 hand-written SFC kernel (:func:`repro_torch.kernels.sfc_matmul.sfc_matmul_cuda`),
 which masks ragged edges itself, so nothing is padded or cropped here.
+``sfc_matmul_batched`` is the einsum-style ``bij,bjk->bik`` entry: any
+number of leading batch dims, flattened into one for the batched kernel
+(:func:`repro_torch.kernels.sfc_matmul.sfc_matmul_batched_cuda`), or
+run as one B1 launch per element with ``per_element=True`` (the
+reference's ``via_vmap=True``).
 ``schedule="xla"`` is the library baseline the reference leaves to XLA:
-:func:`repro_torch.kernels.ref.matmul_fused_ref` (``torch.matmul`` with
-the same f32 epilogue).  ``schedule="auto"`` waits for the tuner's port.
+:func:`repro_torch.kernels.ref.matmul_fused_ref` and
+``matmul_batched_fused_ref`` (``torch.matmul`` with the same f32
+epilogue).  ``schedule="auto"`` waits for the tuner's port.
 """
 from __future__ import annotations
 
 import torch
 
-from .ref import matmul_fused_ref
-from .sfc_matmul import sfc_matmul_cuda
+from .ref import matmul_batched_fused_ref, matmul_fused_ref
+from .sfc_matmul import sfc_matmul_batched_cuda, sfc_matmul_cuda
 
-__all__ = ["sfc_matmul"]
+__all__ = ["sfc_matmul", "sfc_matmul_batched"]
+
+
+def _no_auto(schedule: str):
+    if schedule == "auto":
+        raise NotImplementedError(
+            "schedule='auto' needs the tuner (repro.tune), which is not "
+            "ported yet (ROADMAP queue A); pass a curve schedule or 'xla'")
 
 
 def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
@@ -27,10 +40,7 @@ def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
     and ``residual`` (M, N) form the fused epilogue, applied to the f32
     accumulator before one cast to ``out_dtype`` (default ``a.dtype``).
     """
-    if schedule == "auto":
-        raise NotImplementedError(
-            "schedule='auto' needs the tuner (repro.tune), which is not "
-            "ported yet (ROADMAP queue A); pass a curve schedule or 'xla'")
+    _no_auto(schedule)
     if schedule == "xla":
         return matmul_fused_ref(a, b, bias=bias, activation=activation,
                                 residual=residual, out_dtype=out_dtype)
@@ -38,3 +48,52 @@ def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
                            out_dtype=out_dtype, use_prefetch=use_prefetch,
                            g=g, bias=bias, activation=activation,
                            residual=residual)
+
+
+def sfc_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
+                       schedule: str = "morton", bm: int = 128,
+                       bn: int = 128, bk: int = 128, out_dtype=None,
+                       use_prefetch: bool = True, per_element: bool = False,
+                       g: int = 0, bias=None, activation: str = "none",
+                       residual=None) -> torch.Tensor:
+    """Einsum ``bij,bjk->bik`` with SFC tile traversal per batch element.
+
+    ``a`` (..., M, K) and ``b`` (..., K, N) have identical leading dims,
+    flattened into one batch axis for the kernel and restored on return.
+    ``bias`` (N,) is shared across batch elements; ``residual`` matches
+    the (..., M, N) output; both ride the fused epilogue.
+    ``per_element=True`` runs one B1 launch per element instead of the
+    batched kernel; the two agree bit for bit on the card.
+    """
+    if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"bad batched GEMM operands {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    lead = a.shape[:-2]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if residual is not None and residual.shape != (*lead, m, n):
+        raise ValueError(f"residual shape {tuple(residual.shape)} != "
+                         f"{(*lead, m, n)}")
+    _no_auto(schedule)
+    if schedule == "xla":
+        return matmul_batched_fused_ref(a, b, bias=bias,
+                                        activation=activation,
+                                        residual=residual,
+                                        out_dtype=out_dtype)
+    a3 = a.reshape(-1, m, k)
+    b3 = b.reshape(-1, k, n)
+    res3 = residual.reshape(-1, m, n) if residual is not None else None
+    kw = dict(schedule=schedule, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+              use_prefetch=use_prefetch, g=g, bias=bias,
+              activation=activation)
+    if per_element:
+        if a3.shape[0] == 0:
+            raise ValueError(f"empty GEMM batch {tuple(a.shape)}")
+        out = torch.stack([
+            sfc_matmul_cuda(a3[i], b3[i],
+                            residual=res3[i] if res3 is not None else None,
+                            **kw)
+            for i in range(a3.shape[0])])
+    else:
+        out = sfc_matmul_batched_cuda(a3, b3, residual=res3, **kw)
+    return out.reshape(*lead, m, n)

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the SFC GEMM epilogue and of paged decode
-attention (port of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the SFC GEMMs, their epilogue and paged
+decode attention (port of ``repro.kernels.ref``).
 
 They are the CPU path of the kernel wrappers, the yardstick that
 ``chip_smoke.py`` holds each CUDA kernel against on the card, and, for
-``matmul_fused_ref``, the ``schedule="xla"`` library baseline.  On the
+``matmul_fused_ref`` and ``matmul_batched_fused_ref``, the
+``schedule="xla"`` library baselines.  On the
 card a float32 yardstick needs ``torch.backends.cuda.matmul.allow_tf32 =
 False`` (the PyTorch default, which ``chip_smoke.py`` sets explicitly).
 """
@@ -14,7 +15,9 @@ import math
 import torch
 
 __all__ = ["ACTIVATIONS", "apply_activation", "apply_epilogue_ref",
-           "matmul_fused_ref", "paged_decode_attention_ref"]
+           "matmul_ref", "matmul_batched_ref", "matmul_fused_ref",
+           "matmul_batched_fused_ref", "matmul_blocked_ref",
+           "paged_decode_attention_ref"]
 
 # epilogue activations the fused kernel supports
 ACTIVATIONS = ("none", "relu", "gelu", "silu")
@@ -50,6 +53,19 @@ def apply_epilogue_ref(acc: torch.Tensor, bias=None, activation: str = "none",
     return acc.to(out_dtype) if out_dtype is not None else acc
 
 
+def matmul_ref(a: torch.Tensor, b: torch.Tensor,
+               out_dtype=None) -> torch.Tensor:
+    """f32-accumulated matmul, the semantics every GEMM kernel matches."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
+
+
+def matmul_batched_ref(a: torch.Tensor, b: torch.Tensor,
+                       out_dtype=None) -> torch.Tensor:
+    """f32-accumulated batched matmul (``bij,bjk->bik`` over any leading
+    dims), the semantics ``sfc_matmul_batched`` matches."""
+    return matmul_ref(a, b, out_dtype)
+
+
 def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, bias=None,
                      activation: str = "none", residual=None,
                      out_dtype=None) -> torch.Tensor:
@@ -57,6 +73,38 @@ def matmul_fused_ref(a: torch.Tensor, b: torch.Tensor, bias=None,
     out_dtype = out_dtype or a.dtype
     acc = torch.matmul(a.float(), b.float())
     return apply_epilogue_ref(acc, bias, activation, residual, out_dtype)
+
+
+def matmul_batched_fused_ref(a: torch.Tensor, b: torch.Tensor, bias=None,
+                             activation: str = "none", residual=None,
+                             out_dtype=None) -> torch.Tensor:
+    """Batched ``matmul_fused_ref``; bias (N,) broadcasts over all leading
+    dims, residual matches the (..., M, N) output shape."""
+    return matmul_fused_ref(a, b, bias, activation, residual, out_dtype)
+
+
+def matmul_blocked_ref(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
+                       bk: int, order, out_dtype=None) -> torch.Tensor:
+    """Loop-nest oracle that accumulates block by block in the given
+    output tile ``order``: the schedule changes the result by f32
+    addition order at most (k order is fixed per tile)."""
+    out_dtype = out_dtype or a.dtype
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"bad GEMM operands {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    kt = k // bk
+    out = torch.zeros(m, n, dtype=torch.float32, device=a.device)
+    for (i, j) in order:
+        i, j = int(i), int(j)
+        acc = torch.zeros(bm, bn, dtype=torch.float32, device=a.device)
+        for kk in range(kt):
+            ab = a[i * bm:(i + 1) * bm, kk * bk:(kk + 1) * bk]
+            bb = b[kk * bk:(kk + 1) * bk, j * bn:(j + 1) * bn]
+            acc += torch.matmul(ab.float(), bb.float())
+        out[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn] = acc
+    return out.to(out_dtype)
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

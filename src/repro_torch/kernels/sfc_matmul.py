@@ -1,6 +1,8 @@
-"""SFC-ordered blocked GEMM with a fused epilogue: the wrapper of the
-CUDA kernel ``csrc/sfc_matmul.cu`` (port of
-``repro.kernels.sfc_matmul.sfc_matmul_pallas``) and its plain version.
+"""SFC-ordered blocked GEMM with a fused epilogue, one GEMM (B1) or a
+batch of them (B3): the wrappers of the CUDA kernels in
+``csrc/sfc_matmul.cu`` (ports of ``repro.kernels.sfc_matmul.
+sfc_matmul_pallas`` and ``sfc_matmul_batched_pallas``) and their plain
+version.
 
 The output tile grid of ``C = act(A @ B + bias) + residual`` is
 ``ceil(M/bm) x ceil(N/bn)``, the grid the reference builds for the
@@ -15,11 +17,14 @@ padded shape, visited in the order of a space-filling curve:
   locality; Morton and Hilbert need a square power-of-two grid.
 
 The kernel masks ragged M/N/K edges itself, so nothing is padded on the
-card.  On a CPU tensor :func:`sfc_matmul_cuda` runs
-:func:`sfc_matmul_plain`, which walks the same tiles from the same
-schedule and accumulates in f32 over bk-deep k blocks in k order (the
-kernel's path for M <= 8 splits K across threads instead: the two
-differ by f32 summation order only).
+card.  The batched kernel (:func:`sfc_matmul_batched_cuda`) runs the
+same code once per batch element (grid ``(T, batch)``, batch outermost,
+the curve on each element's tile plane), so each element equals
+:func:`sfc_matmul_cuda` on it bit for bit.  On a CPU tensor both
+wrappers run :func:`sfc_matmul_batched_plain`, which walks the same
+tiles from the same schedule and accumulates in f32 over bk-deep k
+blocks in k order (the kernel's path for M <= 8 splits K across
+threads instead: the two differ by f32 summation order only).
 """
 from __future__ import annotations
 
@@ -34,20 +39,28 @@ from repro_torch.core.schedule import grid_schedule, is_pow2, \
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
 
-__all__ = ["sfc_matmul_cuda", "sfc_matmul_plain", "decode_step",
-           "tile_schedule", "launches"]
+__all__ = ["sfc_matmul_cuda", "sfc_matmul_batched_cuda", "sfc_matmul_plain",
+           "sfc_matmul_batched_plain", "decode_step", "tile_schedule",
+           "launches", "batched_launches"]
 
-# kernel launches made by sfc_matmul_cuda (CPU calls are not counted)
+# kernel launches made by sfc_matmul_cuda (B1) and sfc_matmul_batched_cuda
+# (B3); CPU calls are not counted
 launches = 0
+batched_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _MODE_CODE = {"rowmajor": 1, "colmajor": 2, "morton": 3, "hilbert": 4}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
-_SIGNATURES = {"sfc_matmul_launch": (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
-    ctypes.c_int)}
+_SIGNATURES = {
+    "sfc_matmul_launch": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+        ctypes.c_int),
+    "sfc_matmul_batched_launch": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
+        ctypes.c_int),
+}
 
 # device copies of schedule tables, per (schedule, mt, nt, g, device)
 _DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
@@ -94,48 +107,65 @@ def _device_table(schedule: str, mt: int, nt: int, g: int,
     return tab
 
 
-def sfc_matmul_plain(a, b, *, sched: torch.Tensor, bm: int, bn: int, bk: int,
-                     out_dtype=None, bias=None, activation: str = "none",
-                     residual=None) -> torch.Tensor:
-    """The kernel's algorithm in plain PyTorch: tiles in the order of
+def sfc_matmul_batched_plain(a, b, *, sched: torch.Tensor, bm: int, bn: int,
+                             bk: int, out_dtype=None, bias=None,
+                             activation: str = "none",
+                             residual=None) -> torch.Tensor:
+    """The kernels' algorithm in plain PyTorch, a (batch, M, K) @ b
+    (batch, K, N): for each batch element, tiles in the order of
     ``sched`` (T, 2), each an f32 sum over bk-deep k blocks in k order,
-    then the fused epilogue and one cast."""
-    m, k = a.shape
-    n = b.shape[1]
+    then the fused epilogue (bias (N,) shared, residual (batch, M, N))
+    and one cast."""
+    bsz, m, k = a.shape
+    n = b.shape[2]
     out_dtype = out_dtype or a.dtype
     mt, nt, kt = -(-m // bm), -(-n // bn), -(-k // bk)
     ap = F.pad(a.float(), (0, kt * bk - k, 0, mt * bm - m))
     bp = F.pad(b.float(), (0, nt * bn - n, 0, kt * bk - k))
-    a_t = ap.view(mt, bm, kt, bk).permute(0, 2, 1, 3)   # (mt, kt, bm, bk)
-    b_t = bp.view(kt, bk, nt, bn).permute(0, 2, 1, 3)   # (kt, nt, bk, bn)
+    a_t = ap.view(bsz, mt, bm, kt, bk).permute(0, 1, 3, 2, 4)  # (., mt, kt, bm, bk)
+    b_t = bp.view(bsz, kt, bk, nt, bn).permute(0, 1, 3, 2, 4)  # (., kt, nt, bk, bn)
     ii, jj = sched[:, 0].long(), sched[:, 1].long()
-    acc = torch.zeros(len(sched), bm, bn, dtype=torch.float32,
-                      device=a.device)
+    t = len(sched)
+    acc = torch.zeros(bsz * t, bm, bn, dtype=torch.float32, device=a.device)
     for kk in range(kt):
-        acc += torch.bmm(a_t[ii, kk], b_t[kk, jj])
-    tiles = torch.empty(mt, nt, bm, bn, dtype=torch.float32, device=a.device)
-    tiles[ii, jj] = acc
-    c = tiles.permute(0, 2, 1, 3).reshape(mt * bm, nt * bn)[:m, :n]
-    return apply_epilogue_ref(c, bias, activation, residual, out_dtype)
+        acc += torch.bmm(a_t[:, ii, kk].reshape(bsz * t, bm, bk),
+                         b_t[:, kk, jj].reshape(bsz * t, bk, bn))
+    tiles = torch.empty(bsz, mt, nt, bm, bn, dtype=torch.float32,
+                        device=a.device)
+    tiles[:, ii, jj] = acc.view(bsz, t, bm, bn)
+    c = tiles.permute(0, 1, 3, 2, 4).reshape(bsz, mt * bm, nt * bn)
+    return apply_epilogue_ref(c[:, :m, :n], bias, activation, residual,
+                              out_dtype)
 
 
-def _check(a, b, bias, residual, activation, out_dtype):
+def sfc_matmul_plain(a, b, *, sched: torch.Tensor, bm: int, bn: int, bk: int,
+                     out_dtype=None, bias=None, activation: str = "none",
+                     residual=None) -> torch.Tensor:
+    """:func:`sfc_matmul_batched_plain` on one GEMM, a (M, K) @ b (K, N)."""
+    return sfc_matmul_batched_plain(
+        a[None], b[None], sched=sched, bm=bm, bn=bn, bk=bk,
+        out_dtype=out_dtype, bias=bias, activation=activation,
+        residual=residual[None] if residual is not None else None)[0]
+
+
+def _check(a, b, bias, residual, activation, out_dtype, ndim: int):
     if activation not in ACTIVATIONS:
         raise ValueError(
             f"unknown activation {activation!r}; choose from {ACTIVATIONS}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    if (a.dim() != ndim or b.dim() != ndim or a.shape[:-2] != b.shape[:-2]
+            or a.shape[-1] != b.shape[-2]):
         raise ValueError(f"bad GEMM operands {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
+                         f"{tuple(b.shape)} (want {ndim}-D operands)")
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
         raise TypeError(f"operands must share a float32/bfloat16 dtype, got "
                         f"{a.dtype} and {b.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
-    m, n = a.shape[0], b.shape[1]
+    m, n = a.shape[-2], b.shape[-1]
     if a.numel() == 0 or b.numel() == 0:
         raise ValueError(f"empty GEMM {tuple(a.shape)} @ {tuple(b.shape)}")
-    for name, t, shape in (("bias", bias, (n,)), ("residual", residual,
-                                                   (m, n))):
+    for name, t, shape in (("bias", bias, (n,)),
+                           ("residual", residual, (*a.shape[:-2], m, n))):
         if t is None:
             continue
         if tuple(t.shape) != shape:
@@ -144,6 +174,57 @@ def _check(a, b, bias, residual, activation, out_dtype):
             raise TypeError(f"{name} must be float32/bfloat16 on {a.device}")
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
+
+
+def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
+            use_prefetch, g, bias, activation, residual) -> torch.Tensor:
+    """Launch ``entry`` of csrc/sfc_matmul.cu on CUDA operands (2-D for
+    B1, 3-D for B3) or raise; returns the output."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{entry} runs on cuda (or the plain version on "
+                         f"cpu), got {a.device}")
+    if bm % 16 or bn % 16 or not (0 < bm <= 128 and 0 < bn <= 128):
+        raise ValueError(f"the kernel takes bm and bn in multiples of 16 up "
+                         f"to 128, got {bm}x{bn}")
+    itemsize = a.element_size()
+    if (bm * bk + bk * bn) * itemsize > _SMEM_LIMIT:
+        raise ValueError(f"tiles {bm}x{bk} + {bk}x{bn} exceed shared memory")
+    for name, t in (("a", a), ("b", b), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    mt, nt = -(-m // bm), -(-n // bn)
+    if use_prefetch:
+        sched_t = _device_table(schedule, mt, nt, g, a.device)
+        mode, order = 0, 0
+    else:
+        decode_step(torch.zeros(1, dtype=torch.int64), schedule, mt, nt)
+        sched_t, mode = None, _MODE_CODE[schedule]
+        order = mt.bit_length() - 1 if schedule == "hilbert" else 0
+    vec_el = 16 // itemsize
+    vec = int(k % vec_el == 0 and n % vec_el == 0 and bk % vec_el == 0
+              and bn % vec_el == 0 and a.data_ptr() % 16 == 0
+              and b.data_ptr() % 16 == 0)
+    out = torch.empty(*a.shape[:-2], m, n, dtype=out_dtype, device=a.device)
+    batch = [a.shape[0]] if a.dim() == 3 else []
+    lib = _build.load("sfc_matmul", _SIGNATURES)
+    err = getattr(lib, entry)(
+        a.data_ptr(), b.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        residual.data_ptr() if residual is not None else None,
+        out.data_ptr(),
+        sched_t.data_ptr() if sched_t is not None else None,
+        *batch, m, n, k, bm, bn, bk, _DTYPE_CODE[a.dtype],
+        _DTYPE_CODE[out_dtype],
+        _DTYPE_CODE[bias.dtype] if bias is not None else 0,
+        _DTYPE_CODE[residual.dtype] if residual is not None else 0,
+        _ACT_CODE[activation], mode, order, vec,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    return out
 
 
 def sfc_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
@@ -160,54 +241,46 @@ def sfc_matmul_cuda(a: torch.Tensor, b: torch.Tensor, *,
     :func:`sfc_matmul_plain`; other devices raise."""
     global launches
     out_dtype = out_dtype or a.dtype
-    _check(a, b, bias, residual, activation, out_dtype)
-    m, k = a.shape
-    n = b.shape[1]
-    mt, nt = -(-m // bm), -(-n // bn)
+    _check(a, b, bias, residual, activation, out_dtype, ndim=2)
+    kw = dict(bias=bias, activation=activation, residual=residual)
     if a.device.type == "cpu":
-        sched = tile_schedule(schedule, mt, nt, use_prefetch=use_prefetch,
-                              g=g)
+        sched = tile_schedule(schedule, -(-a.shape[0] // bm),
+                              -(-b.shape[1] // bn),
+                              use_prefetch=use_prefetch, g=g)
         return sfc_matmul_plain(a, b, sched=sched, bm=bm, bn=bn, bk=bk,
-                                out_dtype=out_dtype, bias=bias,
-                                activation=activation, residual=residual)
-    if a.device.type != "cuda":
-        raise ValueError(f"sfc_matmul_cuda runs on cuda (or the plain "
-                         f"version on cpu), got {a.device}")
-    if bm % 16 or bn % 16 or not (0 < bm <= 128 and 0 < bn <= 128):
-        raise ValueError(f"the kernel takes bm and bn in multiples of 16 up "
-                         f"to 128, got {bm}x{bn}")
-    itemsize = a.element_size()
-    if (bm * bk + bk * bn) * itemsize > _SMEM_LIMIT:
-        raise ValueError(f"tiles {bm}x{bk} + {bk}x{bn} exceed shared memory")
-    for name, t in (("a", a), ("b", b), ("bias", bias),
-                    ("residual", residual)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if use_prefetch:
-        sched_t = _device_table(schedule, mt, nt, g, a.device)
-        mode, order = 0, 0
-    else:
-        decode_step(torch.zeros(1, dtype=torch.int64), schedule, mt, nt)
-        sched_t, mode = None, _MODE_CODE[schedule]
-        order = mt.bit_length() - 1 if schedule == "hilbert" else 0
-    vec_el = 16 // itemsize
-    vec = int(k % vec_el == 0 and n % vec_el == 0 and bk % vec_el == 0
-              and bn % vec_el == 0 and a.data_ptr() % 16 == 0
-              and b.data_ptr() % 16 == 0)
-    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
-    lib = _build.load("sfc_matmul", _SIGNATURES)
-    err = lib.sfc_matmul_launch(
-        a.data_ptr(), b.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        residual.data_ptr() if residual is not None else None,
-        out.data_ptr(),
-        sched_t.data_ptr() if sched_t is not None else None,
-        m, n, k, bm, bn, bk, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype],
-        _DTYPE_CODE[bias.dtype] if bias is not None else 0,
-        _DTYPE_CODE[residual.dtype] if residual is not None else 0,
-        _ACT_CODE[activation], mode, order, vec,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sfc_matmul kernel launch failed: cudaError {err}")
+                                out_dtype=out_dtype, **kw)
+    out = _launch("sfc_matmul_launch", a, b, schedule=schedule, bm=bm, bn=bn,
+                  bk=bk, out_dtype=out_dtype, use_prefetch=use_prefetch, g=g,
+                  **kw)
     launches += 1
+    return out
+
+
+def sfc_matmul_batched_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                            schedule: str = "morton", bm: int = 128,
+                            bn: int = 128, bk: int = 128, out_dtype=None,
+                            use_prefetch: bool = True, g: int = 0, bias=None,
+                            activation: str = "none",
+                            residual=None) -> torch.Tensor:
+    """C[i] = act(A[i] @ B[i] + bias) + residual[i] for each batch element
+    i, SFC-ordered tiles, batch outermost.
+
+    a (batch, M, K) and b (batch, K, N) share a float32 or bfloat16
+    dtype; ``bias`` is (N,), shared; ``residual`` (batch, M, N).  Any
+    M/N/K.  CUDA tensors launch the kernel (or raise); CPU tensors run
+    :func:`sfc_matmul_batched_plain`; other devices raise."""
+    global batched_launches
+    out_dtype = out_dtype or a.dtype
+    _check(a, b, bias, residual, activation, out_dtype, ndim=3)
+    kw = dict(bias=bias, activation=activation, residual=residual)
+    if a.device.type == "cpu":
+        sched = tile_schedule(schedule, -(-a.shape[1] // bm),
+                              -(-b.shape[2] // bn),
+                              use_prefetch=use_prefetch, g=g)
+        return sfc_matmul_batched_plain(a, b, sched=sched, bm=bm, bn=bn,
+                                        bk=bk, out_dtype=out_dtype, **kw)
+    out = _launch("sfc_matmul_batched_launch", a, b, schedule=schedule, bm=bm,
+                  bn=bn, bk=bk, out_dtype=out_dtype,
+                  use_prefetch=use_prefetch, g=g, **kw)
+    batched_launches += 1
     return out

@@ -46,6 +46,20 @@ class DotEngine:
                          bias=bias, activation=activation, residual=res2)
         return out.reshape(*lead, w.shape[-1])
 
+    def dot_batched(self, x, w, *, bias=None, activation: str = "none",
+                    residual=None, out_dtype=None):
+        """Per-batch-element GEMM: x (..., M, K) @ w (..., K, N), through
+        :func:`repro_torch.kernels.ops.sfc_matmul_batched` under the same
+        schedule and the same fused epilogue as :meth:`dot` ("xla"
+        included)."""
+        from repro_torch.kernels.ops import sfc_matmul_batched
+
+        bm, bn, bk = self.block
+        return sfc_matmul_batched(
+            x, w, schedule=self.schedule, bm=bm, bn=bn, bk=bk,
+            use_prefetch=self.use_prefetch, out_dtype=out_dtype, bias=bias,
+            activation=activation, residual=residual)
+
 
 def init_linear(generator: torch.Generator, d_in: int, d_out: int,
                 dtype=torch.float32, scale=None, *, lead=(), device=None):

@@ -4,8 +4,9 @@
   anything of ``repro``;
 * on a machine without CUDA, asking for ``cuda`` raises: entry points
   never drop to the CPU, the kernel wrappers never run their plain
-  version for a non-CPU tensor, and a missing ``nvcc`` raises instead of
-  switching the path;
+  version for a non-CPU tensor, nothing in a kernel wrapper catches a
+  launch error, and a missing ``nvcc`` raises instead of switching the
+  path;
 * ``chip_smoke.py`` exits non-zero and prints no result without a card,
   and in a directory that holds nothing else of the repository.
 """
@@ -24,7 +25,12 @@ from repro_torch import device as device_mod
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
-from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda
+from repro_torch.kernels import ops, paged_attention, sfc_matmul, \
+    sfc_matmul_cached
+from repro_torch.kernels.sfc_matmul import sfc_matmul_batched_cuda, \
+    sfc_matmul_cuda
+from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached as \
+    sfc_matmul_cached_fn
 from repro_torch.launch.serve import ServeLoop
 from repro_torch.models import init_model
 
@@ -95,6 +101,28 @@ def test_wrappers_take_the_plain_version_only_on_cpu():
     tab = torch.zeros(2, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="runs on cuda"):
         paged_decode_attention_cuda(q, pages, pages, tab, 1)
+
+
+@pytest.mark.parametrize("wrapper,shapes", [
+    (sfc_matmul_batched_cuda, ((2, 4, 8), (2, 8, 16))),
+    (sfc_matmul_cached_fn, ((128, 128), (128, 128))),
+    (ops.sfc_matmul_batched, ((2, 3, 4, 8), (2, 3, 8, 16))),
+], ids=["sfc_matmul_batched_cuda", "sfc_matmul_cached", "ops_batched"])
+def test_new_wrappers_take_the_plain_version_only_on_cpu(wrapper, shapes):
+    a = torch.zeros(*shapes[0], device="meta")
+    b = torch.zeros(*shapes[1], device="meta")
+    with pytest.raises(ValueError, match="runs on cuda"):
+        wrapper(a, b)
+
+
+@pytest.mark.parametrize("module", [sfc_matmul, sfc_matmul_cached,
+                                    paged_attention, ops, _build],
+                         ids=lambda m: m.__name__)
+def test_kernel_wrappers_catch_no_launch_error(module):
+    """No try/except in a wrapper module: a failed launch or build
+    reaches the caller, and nothing switches to the plain version."""
+    tree = ast.parse(Path(module.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
 
 def test_missing_nvcc_raises_instead_of_falling_back(monkeypatch, tmp_path):
