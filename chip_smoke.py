@@ -67,14 +67,15 @@ CACHE_LEN = 64
 MAX_NEW = 16
 N_REQUESTS = 6                 # > SLOTS: two requests wait in the queue
 
-# the locality study, f32 as in configs/paper.py
-PAPER_N = 1024                                  # the paper's 2^10
-B3_SHAPES = ((4, 1024, 1024, 1024),             # (batch, M, K, N)
-             (2, 4096, 4096, 4096))
+# the locality study: sizes, schedules, dtype and tile edge come from
+# configs/paper.py (see paper_study); B3 runs the smallest and the largest
+# paper size with these batches, B4 the smallest
+B3_BATCHES = (4, 2)
 B4_SETTINGS = ((16, 16), (16, 64), (8, 256))    # (block edge, nslots)
 B4_SCHEDULES = ("rowmajor", "boustrophedon", "morton", "hilbert")
-# [A fetches, B fetches] at n = PAPER_N: the direct-mapped cache with the
-# kernel's slot mapping (tests/test_torch_sfc_matmul_cached.py)
+# [A fetches, B fetches] at the paper's n = 2^10: the direct-mapped cache
+# with the kernel's slot mapping; tests/test_torch_sfc_matmul_cached.py
+# holds this table to the reference's schedules
 B4_COUNTS = {
     (16, 16): {"rowmajor": (262144, 262144),
                "boustrophedon": (262144, 262144),
@@ -85,6 +86,15 @@ B4_COUNTS = {
                "boustrophedon": (16384, 2064640),
                "morton": (524288, 1048576), "hilbert": (524288, 524544)},
 }
+
+
+def paper_study():
+    """(config, B4's n, B3's (batch, M, K, N) shapes) of the paper's
+    study, from ``configs/paper.py``."""
+    from repro_torch.configs.paper import CONFIG
+    lo, hi = 2 ** CONFIG.sizes[0], 2 ** CONFIG.sizes[-1]
+    return CONFIG, lo, ((B3_BATCHES[0], lo, lo, lo),
+                        (B3_BATCHES[1], hi, hi, hi))
 
 
 def _smi() -> str:
@@ -257,21 +267,23 @@ def check_batched(gen) -> float:
     """B3 against its plain version and, element by element, against B1
     (bit equality): the paper shapes under the paper's schedules, a
     closed-form decode, a ragged bf16 case with the whole epilogue, and
-    a batch of decode-width products (the rows path)."""
+    a batch of decode-width products with the whole epilogue (the rows
+    path)."""
     import torch
 
-    from repro_torch.configs.paper import CONFIG as PAPER
     from repro_torch.kernels.sfc_matmul import sfc_matmul_batched_cuda, \
         sfc_matmul_batched_plain, sfc_matmul_cuda, tile_schedule
 
+    paper, _, shapes = paper_study()
+    blk = paper.block
     rep = Report()
     err = 0.0
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(shape, f32, False, s, True) for shape in B3_SHAPES
-             for s in PAPER.schedules]
-    cases += [((4, 1024, 1024, 1024), f32, False, "hilbert", False),
+    f32, bf16 = getattr(torch, paper.dtype), torch.bfloat16
+    cases = [(shape, f32, False, s, True) for shape in shapes
+             for s in paper.schedules]
+    cases += [(shapes[0], f32, False, "hilbert", False),
               ((3, 1000, 1000, 1000), bf16, True, "hilbert", True),
-              ((8, 4, 2048, 2048), bf16, False, "morton", True)]
+              ((8, 4, 2048, 2048), bf16, True, "morton", True)]
     print("[kernels] B3 sfc_matmul_batched against its plain version and "
           "per-element B1")
     for (bsz, m, k, n), dtype, epilogue, sched, pf in cases:
@@ -285,14 +297,15 @@ def check_batched(gen) -> float:
             kw = dict(bias=torch.randn(n, generator=gen, device="cuda"),
                       activation="gelu")
         got = sfc_matmul_batched_cuda(a, b, schedule=sched, use_prefetch=pf,
-                                      residual=res, **kw)
-        tab = tile_schedule(sched, -(-m // 128), -(-n // 128),
+                                      bm=blk, bn=blk, bk=blk, residual=res,
+                                      **kw)
+        tab = tile_schedule(sched, -(-m // blk), -(-n // blk),
                             use_prefetch=pf, device="cuda")
-        want = sfc_matmul_batched_plain(a, b, sched=tab, bm=128, bn=128,
-                                        bk=128, residual=res, **kw)
+        want = sfc_matmul_batched_plain(a, b, sched=tab, bm=blk, bn=blk,
+                                        bk=blk, residual=res, **kw)
         same = [torch.equal(got[i], sfc_matmul_cuda(
-            a[i], b[i], schedule=sched, use_prefetch=pf,
-            residual=res[i] if res is not None else None, **kw))
+            a[i], b[i], schedule=sched, use_prefetch=pf, bm=blk, bn=blk,
+            bk=blk, residual=res[i] if res is not None else None, **kw))
             for i in range(bsz)]
         torch.cuda.synchronize()
         tol = (1e-4, 1e-4) if dtype == f32 else (1e-3, 2.0 ** -7)
@@ -310,9 +323,10 @@ def check_batched(gen) -> float:
 
 
 def check_cached(gen) -> float:
-    """B4 against its plain version at n = PAPER_N for every setting and
-    schedule (C within f32 order bounds, counts exact and equal to
-    B4_COUNTS), and the reference's defaults refused on the card."""
+    """B4 against its plain version at the paper's n = 2^10 for every
+    setting and schedule (C within f32 order bounds, counts exact and
+    equal to B4_COUNTS), and the reference's defaults refused on the
+    card."""
     import torch
 
     from repro_torch.kernels.sfc_matmul import tile_schedule
@@ -321,9 +335,10 @@ def check_cached(gen) -> float:
 
     rep = Report()
     err = 0.0
-    n = PAPER_N
-    a = torch.randn(n, n, generator=gen, device="cuda")
-    b = torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5
+    paper, n, _ = paper_study()
+    dtype = getattr(torch, paper.dtype)
+    a = torch.randn(n, n, generator=gen, device="cuda").to(dtype)
+    b = (torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5).to(dtype)
     print("[kernels] B4 sfc_matmul_cached against its plain version")
     for blk, nslots in B4_SETTINGS:
         for sched in B4_SCHEDULES:
@@ -686,41 +701,44 @@ def locality_study():
     """Phase 7, the slice's main path: the paper's experiment on the card
     through the entry points a user calls.  B3 runs through
     ``DotEngine.dot_batched`` at each paper shape under each paper
-    schedule, B4 through ``sfc_matmul_cached`` at n = PAPER_N for each
+    schedule, B4 through ``sfc_matmul_cached`` at n = 2^10 for each
     cache setting and schedule; the launch counts are set to 0 just
     before and read just after.  Returns the counts and the inputs."""
     import torch
 
     import repro_torch.kernels.sfc_matmul as sfc_mod
     import repro_torch.kernels.sfc_matmul_cached as cached_mod
-    from repro_torch.configs.paper import CONFIG as PAPER
     from repro_torch.kernels.ref import matmul_batched_ref
     from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached
     from repro_torch.models import DotEngine
 
+    paper, n, shapes = paper_study()
+    dtype = getattr(torch, paper.dtype)
     gen = torch.Generator(device="cuda").manual_seed(2016)
     b3_in = {}
-    for bsz, m, k, n in B3_SHAPES:
-        b3_in[(bsz, m, k, n)] = (
-            torch.randn(bsz, m, k, generator=gen, device="cuda"),
-            torch.randn(bsz, k, n, generator=gen, device="cuda") / k ** 0.5)
-    n = PAPER_N
-    b4_in = (torch.randn(n, n, generator=gen, device="cuda"),
-             torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5)
+    for bsz, m, k, n3 in shapes:
+        b3_in[(bsz, m, k, n3)] = (
+            torch.randn(bsz, m, k, generator=gen, device="cuda").to(dtype),
+            (torch.randn(bsz, k, n3, generator=gen, device="cuda")
+             / k ** 0.5).to(dtype))
+    b4_in = (torch.randn(n, n, generator=gen, device="cuda").to(dtype),
+             (torch.randn(n, n, generator=gen, device="cuda")
+              / n ** 0.5).to(dtype))
     torch.cuda.synchronize()
 
     sfc_mod.launches = 0
     sfc_mod.batched_launches = 0
     cached_mod.launches = 0
-    b3_out = {(shape, sched): DotEngine(schedule=sched).dot_batched(*ab)
-              for sched in PAPER.schedules for shape, ab in b3_in.items()}
+    b3_out = {(shape, sched): DotEngine(
+        schedule=sched, block=(paper.block,) * 3).dot_batched(*ab)
+        for sched in paper.schedules for shape, ab in b3_in.items()}
     b4_out = {(blk, nslots, sched): sfc_matmul_cached(
         *b4_in, schedule=sched, bm=blk, bn=blk, bk=blk, nslots=nslots)
         for blk, nslots in B4_SETTINGS for sched in B4_SCHEDULES}
     torch.cuda.synchronize()
     launches = {"B1": sfc_mod.launches, "B3": sfc_mod.batched_launches,
                 "B4": cached_mod.launches}
-    want = {"B1": 0, "B3": len(PAPER.schedules) * len(B3_SHAPES),
+    want = {"B1": 0, "B3": len(paper.schedules) * len(shapes),
             "B4": len(B4_SETTINGS) * len(B4_SCHEDULES)}
     print(f"[study] launches B1 {launches['B1']} (want 0: no per-element "
           f"route), B3 {launches['B3']} (want {want['B3']}), B4 "
@@ -732,7 +750,7 @@ def locality_study():
     bad = []
     for shape, ab in b3_in.items():
         ref = matmul_batched_ref(*ab)
-        for sched in PAPER.schedules:
+        for sched in paper.schedules:
             out = b3_out[(shape, sched)]
             err = float((out - ref).abs().max())
             ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) \
@@ -742,7 +760,8 @@ def locality_study():
             if not ok:
                 bad.append(f"B3 {shape} {sched}")
     c_ref = b4_in[0] @ b4_in[1]
-    print(f"[study] B4 fetches A+B, n = {n} f32 (no-reuse ceiling 2*T*kt):")
+    print(f"[study] B4 fetches A+B, n = {n} {paper.dtype} (no-reuse ceiling "
+          f"2*T*kt):")
     for blk, nslots in B4_SETTINGS:
         t, kt = (n // blk) ** 2, n // blk
         line = []
@@ -766,11 +785,13 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
     plain versions and library calls (CUDA events, L2 flushed)."""
     import torch
 
-    from repro_torch.configs.paper import CONFIG as PAPER
     from repro_torch.kernels.sfc_matmul import sfc_matmul_batched_cuda, \
         sfc_matmul_batched_plain, tile_schedule
     from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached, \
         sfc_matmul_cached_plain
+
+    paper, _, _ = paper_study()
+    tile = paper.block
 
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
 
@@ -781,18 +802,19 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
         return max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
 
     b3 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    print(f"[time] B3 sfc_matmul_batched per launch, f32, table ({smi})")
+    print(f"[time] B3 sfc_matmul_batched per launch, {paper.dtype}, "
+          f"{tile}^3 tiles, table ({smi})")
     for (bsz, m, k, n), (a, b) in b3_in.items():
         lib = _time_ms(lambda: torch.bmm(a, b), 5, flush)
-        bd = bound(2.0 * bsz * m * n * k, 4.0 * bsz * (m * k + k * n + m * n))
-        for sched in PAPER.schedules:
-            tab = tile_schedule(sched, m // 128, n // 128, use_prefetch=True,
+        bd = bound(2.0 * bsz * m * n * k,
+                   a.element_size() * bsz * (m * k + k * n + m * n))
+        for sched in paper.schedules:
+            tab = tile_schedule(sched, m // tile, n // tile, use_prefetch=True,
                                 device="cuda")
-            ms = _time_ms(lambda: sfc_matmul_batched_cuda(a, b,
-                                                          schedule=sched),
-                          5, flush)
+            ms = _time_ms(lambda: sfc_matmul_batched_cuda(
+                a, b, schedule=sched, bm=tile, bn=tile, bk=tile), 5, flush)
             plain = _time_ms(lambda: sfc_matmul_batched_plain(
-                a, b, sched=tab, bm=128, bn=128, bk=128), 3, flush)
+                a, b, sched=tab, bm=tile, bn=tile, bk=tile), 3, flush)
             print(f"  {bsz}x{m}x{k}x{n} {sched:9s}: kernel {ms:.4f} ms "
                   f"({2.0 * bsz * m * n * k / ms / 1e9:.2f} TFLOP/s), plain "
                   f"{plain:.4f} ms, torch.bmm {lib:.4f} ms, bound {bd:.4f} "
@@ -805,9 +827,10 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
     a, b = b4_in
     n = a.shape[0]
     b4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    card = bound(2.0 * n ** 3, 4.0 * 3 * n * n)
+    card = bound(2.0 * n ** 3, a.element_size() * 3 * n * n)
     lib = _time_ms(lambda: torch.matmul(a, b), 5, flush)
-    print(f"[time] B4 sfc_matmul_cached per launch, {n}^3 f32 ({smi}); bound "
+    print(f"[time] B4 sfc_matmul_cached per launch, {n}^3 {paper.dtype} "
+          f"({smi}); bound "
           f"{card:.4f} ms for the card (operations), {card * 132:.3f} ms for "
           f"the one SM it uses; torch.matmul (C only, no counts) {lib:.4f} ms")
     for blk, nslots in B4_SETTINGS:

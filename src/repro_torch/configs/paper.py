@@ -1,7 +1,10 @@
 """The paper's own workload (port of ``repro.configs.paper``): dense
 square matmuls of 2^n elements per side, n in {10, 11, 12}, under
 row-major / Morton / Hilbert orderings.  Imported directly, as in the
-reference; it is not an architecture of the ``ARCHS`` registry."""
+reference; it is not an architecture of the ``ARCHS`` registry.  The
+reference's CPU settings (DVFS frequencies, thread counts) mean nothing
+on the card and are not kept; ``chip_smoke.py``'s locality study reads
+every field here."""
 import dataclasses
 
 
@@ -9,9 +12,6 @@ import dataclasses
 class PaperConfig:
     sizes: tuple = (10, 11, 12)           # log2 matrix dim
     schedules: tuple = ("rowmajor", "morton", "hilbert")
-    freqs_ghz: tuple = (1.2, 1.8, 2.6, 0.0)  # 0.0 == "ondemand"
-    nominal_ghz: float = 2.6
-    threads: tuple = (1, 4, 8, 16)
     dtype: str = "float32"                # the paper's doubles, in f32
     block: int = 128                      # tile granularity
 

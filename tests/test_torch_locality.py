@@ -154,8 +154,13 @@ def test_element_layout_rejects_bad_input():
 
 
 def test_paper_config_matches():
-    assert dataclasses.asdict(paper.CONFIG) == \
-        dataclasses.asdict(jax_paper.CONFIG)
+    """The port keeps the reference's sizes, schedules, dtype and block;
+    its CPU-only settings (frequencies, threads) are dropped."""
+    for field in dataclasses.fields(paper.CONFIG):
+        assert getattr(paper.CONFIG, field.name) == \
+            getattr(jax_paper.CONFIG, field.name), field.name
+    assert {f.name for f in dataclasses.fields(paper.CONFIG)} == \
+        {"sizes", "schedules", "dtype", "block"}
     assert paper.CONFIG.sizes == (10, 11, 12)
     assert paper.CONFIG.schedules == ("rowmajor", "morton", "hilbert")
 

@@ -6,20 +6,24 @@ mapping) against ``repro``'s ``sfc_matmul_cached`` run in interpret mode.
 
 Bounds: C agrees within atol = rtol = 1e-5 (f32 summation order only).
 The fetch counts are equal exactly: to the reference kernel's own
-counter, to a loop over the walk with the kernel's slot mapping (the
-reference's ``_expected_dma``), and to the counts of the paper-size
-(n = 1024) settings that ``chip_smoke.py`` holds the CUDA kernel to.
+counter, to a loop over the reference's walk with the kernel's slot
+mapping (the reference's ``_expected_dma``), and, at the paper-size
+(n = 1024) settings, to the table ``B4_COUNTS`` that ``chip_smoke.py``
+holds the CUDA kernel to.
 They are not held against ``core.locality.simulate_direct``, which
 keys its sets by a per-process string hash."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from repro.core.schedule import grid_schedule
 from repro.kernels.sfc_matmul_cached import \
     sfc_matmul_cached as jax_sfc_matmul_cached
-from repro_torch.core.schedule import grid_schedule
 from repro_torch.kernels import sfc_matmul_cached as cached_mod
 from repro_torch.kernels.sfc_matmul import tile_schedule
 from repro_torch.kernels.sfc_matmul_cached import SMEM_LIMIT, dma_counts, \
@@ -28,18 +32,18 @@ from repro_torch.kernels.sfc_matmul_cached import SMEM_LIMIT, dma_counts, \
 F32 = dict(rtol=1e-5, atol=1e-5)
 BLK = dict(bm=16, bn=16, bk=16)
 
-# [A fetches, B fetches] of square f32 n = 1024 GEMMs: (block edge,
-# nslots) -> schedule -> counts; the settings chip_smoke.py runs
-PAPER_COUNTS = {
-    (16, 16): {"rowmajor": (262144, 262144),
-               "boustrophedon": (262144, 262144),
-               "morton": (262144, 262144), "hilbert": (262144, 262144)},
-    (16, 64): {"rowmajor": (4096, 262144), "boustrophedon": (4096, 258112),
-               "morton": (131072, 262144), "hilbert": (131072, 131136)},
-    (8, 256): {"rowmajor": (16384, 2097152),
-               "boustrophedon": (16384, 2064640),
-               "morton": (524288, 1048576), "hilbert": (524288, 524544)},
-}
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository's root, loaded as a module (it
+    imports only the standard library at module level)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+B4_COUNTS = _chip_smoke().B4_COUNTS
 
 
 def _rand(shape, seed):
@@ -48,7 +52,8 @@ def _rand(shape, seed):
 
 
 def _expected_dma(schedule, mt, nt, kt, nslots):
-    """Direct-mapped loop oracle with the kernel's slot mapping."""
+    """Direct-mapped loop oracle with the kernel's slot mapping, over the
+    reference's schedule."""
     a_tags = [-1] * nslots
     b_tags = [-1] * nslots
     a_cnt = b_cnt = 0
@@ -116,15 +121,18 @@ def test_curves_fetch_less_with_a_multi_slot_cache():
     assert total["hilbert"] <= total["morton"] * 1.05, total
 
 
-@pytest.mark.parametrize("setting", sorted(PAPER_COUNTS))
+@pytest.mark.parametrize("setting", sorted(B4_COUNTS))
 def test_paper_size_counts(setting):
-    """The counts of the n = 1024 settings, from the oracle alone (C at
-    that size is the card's work)."""
+    """The counts of the n = 1024 settings (C at that size is the card's
+    work): the port's oracle, the reference's loop and chip_smoke.py's
+    table agree for every schedule."""
     blk, nslots = setting
     t = 1024 // blk
-    for schedule, want in PAPER_COUNTS[setting].items():
+    for schedule, want in B4_COUNTS[setting].items():
         sched = tile_schedule(schedule, t, t, use_prefetch=True)
-        assert tuple(dma_counts(sched, t, nslots).tolist()) == want, schedule
+        counts = tuple(dma_counts(sched, t, nslots).tolist())
+        assert counts == _expected_dma(schedule, t, t, t, nslots) == want, \
+            schedule
 
 
 def test_shared_memory_limit():
