@@ -32,6 +32,9 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   order only (values O(1), K <= 6144).
 * B1 bf16 output: <= 1e-3 + 2**-7 |plain|: at most one bf16 rounding
   step apart (the two f32 sums may straddle a rounding boundary).
+* B1 run to run: two launches on the same inputs equal bit for bit at
+  every main-path shape, bf16 and f32 (the rows path's cluster
+  reduction adds in a fixed order).
 * B3: B1's bounds, and each batch element equal bit for bit to B1 on
   that element (the reference's batched-kernel == vmap claim).
 * B4 f32 output: B1's f32 bound (f32 summation order only); the fetch
@@ -225,6 +228,20 @@ def check_kernels(cfg) -> dict:
               schedule="morton")
     gemm_case("ragged-blk64", 70, 200, 150, torch.float32, "silu",
               schedule="peano", blk=(64, 64, 64))
+    # the rows path's cluster reduction adds in a fixed order: two
+    # launches on the same inputs must agree bit for bit
+    for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b, kw = _gemm_inputs(m, k, n, dtype, gen, ep)
+            out_dtype = torch.float32 if f32 else None
+            one = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
+            two = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
+            same = torch.equal(one, two)
+            label = f"B1 {name} {m}x{k}x{n} {str(dtype)[6:]}"
+            print(f"  {'ok  ' if same else 'FAIL'} {label}: two launches "
+                  f"equal bit for bit")
+            if not same:
+                rep.failures.append(f"{label} run to run")
     rep.raise_if_failed("B1 checks")
 
     print("[kernels] B2 paged_decode_attention against its plain version")
@@ -624,7 +641,7 @@ def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
         paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
     from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
-        sfc_matmul_plain, tile_schedule
+        sfc_matmul_plain, split_plan, tile_schedule
     from repro_torch.serve.paged_kv import physical_rows, zero_row_index
 
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -633,6 +650,7 @@ def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
         scratch.zero_()
 
     gen = torch.Generator(device="cuda").manual_seed(99)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     print(f"[time] B1 sfc_matmul per launch at the main-path shapes, bf16, "
           f"morton table ({smi})")
@@ -652,9 +670,12 @@ def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
             (m * n * 2 if ep == "residual" else 0)
         bound = max(nbytes / HBM_BYTES_PER_S,
                     2.0 * m * n * k / BF16_FLOPS_PER_S) * 1e3
+        split = split_plan(m, n, k, 128, torch.bfloat16, sms)
         print(f"  {name:10s} {m}x{k}x{n}: kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
-              f"{bound:.4f} ms (bytes), x{count} per step")
+              f"{bound:.4f} ms (bytes), x{count} per step; split {split}, "
+              f"{-(-n // 128) * split} blocks, {nbytes / ms / 1e6:.0f} GB/s "
+              f"(torch.matmul {nbytes / lib / 1e6:.0f} GB/s)")
         b1["ms"] += count * ms
         b1["plain_ms"] += count * plain
         b1["library_ms"] += count * lib
@@ -808,6 +829,7 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
         lib = _time_ms(lambda: torch.bmm(a, b), 5, flush)
         bd = bound(2.0 * bsz * m * n * k,
                    a.element_size() * bsz * (m * k + k * n + m * n))
+        by_sched = {}
         for sched in paper.schedules:
             tab = tile_schedule(sched, m // tile, n // tile, use_prefetch=True,
                                 device="cuda")
@@ -823,6 +845,15 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
             b3["plain_ms"] += plain
             b3["library_ms"] += lib
             b3["bound_ms"] += bd
+            by_sched[sched] = ms
+        fast, slow = min(by_sched.values()), max(by_sched.values())
+        flops = 2.0 * bsz * m * n * k
+        print(f"  {bsz}x{m}x{k}x{n}: {flops / slow / 1e9:.2f}-"
+              f"{flops / fast / 1e9:.2f} TFLOP/s (torch.bmm "
+              f"{flops / lib / 1e9:.2f}); schedules spread "
+              f"{(slow - fast) / fast:.2%} ("
+              + ", ".join(f"{k_} {v:.4f}" for k_, v in by_sched.items())
+              + " ms)")
 
     a, b = b4_in
     n = a.shape[0]

@@ -8,67 +8,106 @@
 //
 //   C = act(A @ B + bias) + residual, one cast and one store per element.
 //   The output tile grid (mt x nt, with bm x bn tiles) is visited in the
-//   order of a space-filling curve: block t of the launch maps to tile
-//   (i, j) through the (T, 2) int32 schedule table the host builds with
+//   order of a space-filling curve: unit of work t maps to tile (i, j)
+//   through the (T, 2) int32 schedule table the host builds with
 //   core/schedule.py::grid_schedule (mode 0, the table variant), or
 //   through a closed-form decode of t inside the kernel (modes 1-4:
 //   rowmajor, colmajor, morton, hilbert; morton and hilbert need a
 //   square power-of-two grid, as decode_step asserts).  The closed form
-//   is the paper's trade of index computation for locality.
+//   is the paper's trade of index computation for locality.  The
+//   epilogue (bias -> act -> residual) runs on the f32 accumulator, then
+//   one cast and one store; ragged M/N/K edges are masked here, so the
+//   wrapper never pads.  The launcher picks one of two paths from the
+//   shapes.
 //
-// What bounds it on the H100: at the serving path's shapes A has S = 4
-// rows (one per decode slot), so the work is ~4 FLOP per weight byte
-// and the kernel is bound by reading B (the weights) from HBM: one
-// qwen3-1.7b decode step reads ~3.44 GB of bf16 weights through this
-// kernel, a bound of ~1.03 ms at 3.35 TB/s.
+// Rows path (M <= 8, bn = 128, N % 8 == 0, 16-byte aligned rows): every
+// serving-path GEMM (M = 4 decode slots).  The work is ~4 FLOP per weight
+// byte, so the bound is reading B from HBM: one qwen3-1.7b decode step
+// reads ~3.44 GB of bf16 weights here, ~1.03 ms at 3.35 TB/s.  What the
+// design does about it:
 //
-// What the design does about it: one thread block per output tile
-// (the grid and schedule the JAX wrapper builds for the padded shape),
-// an f32 accumulator in registers and the epilogue applied in registers
-// before the single store; ragged M/N/K edges are masked here, so the
-// wrapper never pads.  The block takes one of two paths, chosen from
-// the shapes by the launcher:
+//  * Fill the card.  An output tile of 128 columns is a thread-block
+//    cluster of `split` blocks (1, 2, 4 or 8, chosen on the host from the
+//    element's shape: kernels/sfc_matmul.py::split_plan; refused here if
+//    it is not one of those or leaves a rank empty), so a 2048-wide
+//    output runs 128 blocks instead of 16.  Rank r sums the contiguous K
+//    range [r * klen, min(K, (r + 1) * klen)), klen = ceil(K / split)
+//    rounded up to 16 bytes of elements.
+//  * Keep bytes in flight.  B streams through a 6-stage shared-memory
+//    ring filled by 16-byte cp.async, five stages in flight while one is
+//    multiplied; A's rows for the rank's range are staged once per chunk
+//    with cp.async, and the epilogue's bias and residual are fetched
+//    before the loop.  Six stages (64 KB a bf16 block) let three
+//    blocks share an SM, which the 1187-block vocab head needs: on the
+//    H100 it ran faster than with four or eight.
+//  * bf16 (the serving path): tensor cores, so the multiply does not
+//    hold back the stream.  Each warp owns 16 of the 128 columns for the
+//    rank's whole range and runs mma.sync.m16n8k16 (bf16 in, f32
+//    accumulate) on C^T = B^T A^T, B^T by ldmatrix.trans from the ring;
+//    the block fills each 8 KB stage in whole 256-byte rows of B.
+//  * f32: SIMT FFMA, 16 column groups of 8 x 16 k-slices, each thread
+//    reading back only the ring slots it filled; the k-slice partials are
+//    added by warp shuffle, then warp by warp in warp order.
+//  * The cluster reduction: each rank leaves its [M][128] f32 partial in
+//    its own shared memory; after cluster.sync() rank 0 reads ranks 1, 2,
+//    ..., split - 1 through cluster.map_shared_rank and adds them to its
+//    own in that rank order, applies the epilogue and stores; a second
+//    cluster.sync() keeps the partials alive until it has read them.
+//    Every sum has a fixed order, so results are identical run to run;
+//    no atomics.
 //
-//  * rows path (M <= 8, bn = 128, 16-byte aligned rows): a 128-row tile
-//    holds at most 8 live rows, so staging B in shared memory buys no
-//    reuse.  512 threads stream B straight from HBM with 16-byte loads,
-//    each thread owning 8 columns and a strided 1/32 slice of K with
-//    eight loads in flight; the 32 k-slice partials are reduced through
-//    warp shuffles and shared memory.  All serving-path GEMMs take it.
-//  * tile path (everything else): a k-loop over bk-deep tiles of A and B
-//    staged in shared memory; 256 threads each own an (bm/16) x (bn/16)
-//    register micro-tile; rows >= M are skipped.
+// Tile path (everything else; the study's f32 GEMMs, bound by the f32
+// FFMA rate, 67 TFLOP/s): one 256-thread block per bm x bn tile (up to
+// 128 x 128), each thread an 8 x 8 register micro-tile in the 2 x 2
+// quadrant placement (rows 4ty..4ty+3 and 64+4ty.., columns likewise by
+// tx).  k advances in slices 16 deep in f32, 32 in bf16, through a ring
+// of 4 shared-memory stages: B arrives by 16-byte cp.async (zero-filled
+// past the ragged edge), A through registers so it can be stored k-major
+// (transposed, rows padded to 132), and the inner loop reads each
+// thread's 8 A and 8 B values as four vector loads without bank
+// conflicts.  Three slices are in flight while one is multiplied; 66,560
+// bytes of shared memory and <= 128 registers a thread let two blocks
+// share an SM.  Each element is still summed by sequential FMAs in k
+// order into one f32 accumulator.  bf16 operands are widened to f32 in
+// registers (no tensor cores on this path yet).  `bk` sets neither
+// path's shared memory any more: it names only the plain version's k
+// blocking, and the entry refuses the bm/bn/bk it refused before.
 //
 // Batched (B3): the same kernels, instantiated with kBatched, take the
 // batch element from blockIdx.y and offset A (b, M, K), B (b, K, N), the
 // residual and the output (b, M, N) by it in 64-bit arithmetic; bias
-// (N,) is shared.  The grid is (mt*nt, batch), tile step in x, so blocks
-// are dispatched batch outermost with the curve inside each element, as
-// in the reference.  The per-element arithmetic is the one-GEMM kernel's,
-// so each element equals B1 on it bit for bit.  The one-GEMM
+// (N,) is shared.  The grid is (T * split, batch), tile step in x, so
+// blocks are dispatched batch outermost with the curve inside each
+// element, as in the reference.  The split is the one-GEMM one for the
+// element's shape, and the per-element arithmetic is the one-GEMM
+// kernel's, so each element equals B1 on it bit for bit.  The one-GEMM
 // instantiations (kBatched false) compile without the offsets: moving
-// them in unconditionally made the rows path ~1.8x slower per launch on
-// the H100.  Batches beyond gridDim.y's 65535 are launched in chunks.
-//
-// Known limit: a 2048-wide output has only 16 tiles of 128 columns, so
-// the projections run on 16 of the 132 SMs; filling the card (split-K
-// across blocks, wgmma, TMA) is later work.
+// them in unconditionally made the old rows path ~1.8x slower per launch
+// on the H100.  Batches beyond gridDim.y's 65535 are launched in chunks.
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
 
-using repro_torch::from_f32;
+namespace cg = cooperative_groups;
+
 using repro_torch::kBF16;
 using repro_torch::kF32;
 using repro_torch::load_as_f32;
 using repro_torch::store_from_f32;
-using repro_torch::to_f32;
 
 constexpr int kTileThreads = 256;  // tile path: a 16 x 16 thread grid
-constexpr int kRowsThreads = 512;  // rows path: 16 column groups x 32 k-slices
+constexpr int kTileStages = 4;     // tile path: k slices in the ring
+constexpr int kTileLd = 132;       // tile path: row stride of k-major A
+constexpr int kRowsThreads = 256;  // rows path: 8 warps
+constexpr int kRowsSlices = kRowsThreads / 16;  // f32 rows: k-slices of 16 column groups
 constexpr int kRowsMaxM = 8;       // the rows path takes M <= 8
+constexpr int kRowsStages = 6;     // rows path: stages of the ring of B
+constexpr int kRowsABytes = 32768; // f32 rows: A staged per chunk
+constexpr int kMaxSplit = 8;       // portable cluster size
 constexpr int kSmemMax = 232448;   // bytes of shared memory one block may use
 constexpr int kMaxGridY = 65535;   // batch elements per launch (gridDim.y)
 
@@ -92,7 +131,7 @@ __device__ __forceinline__ unsigned contract32(unsigned x) {
   return x;
 }
 
-// block t -> tile (i, j), the device twin of kernels/sfc_matmul.py::decode_step
+// tile step t -> tile (i, j), the device twin of kernels/sfc_matmul.py::decode_step
 __device__ __forceinline__ void decode_tile(int t, int mode, int mt, int nt,
                                             int order, const int* sched,
                                             int* i, int* j) {
@@ -165,54 +204,155 @@ __device__ __forceinline__ void finish(const Epilogue& ep, float v, long base,
   store_from_f32(ep.out, o, ep.out_dt, v);
 }
 
-// 8 consecutive elements of B, loaded raw from a 16-byte-aligned address
-// (kept raw so a thread holds many loads in flight in few registers)
-template <typename TI>
-struct Raw8;
-template <>
-struct Raw8<float> {
-  float4 x, y;
-  __device__ __forceinline__ void load(const float* p) {
-    x = __ldg(reinterpret_cast<const float4*>(p));
-    y = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  }
-  __device__ __forceinline__ void zero() {
-    x = make_float4(0.f, 0.f, 0.f, 0.f);
-    y = x;
-  }
-  __device__ __forceinline__ void widen(float* v) const {
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
-  }
-};
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 u;
-  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
-    u = __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
-  __device__ __forceinline__ void widen(float* v) const {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared that bypasses registers; zero-fills when
+// ``pred`` is false (then nothing is read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 consecutive elements from 16-byte (f32) or 8-byte (bf16) aligned
+// shared memory, widened to f32
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+// 16 bytes of elements from ``p``, of which the first ``valid`` exist
+// (kVec: all or none, from a 16-byte-aligned address); the rest are zero
+template <typename TI, bool kVec>
+__device__ __forceinline__ uint4 load16(const TI* p, int valid) {
+  constexpr int VEC = 16 / sizeof(TI);
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kVec) {
+    if (valid > 0) u = __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    TI* e = reinterpret_cast<TI*>(&u);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      v[2 * q] = f.x;
-      v[2 * q + 1] = f.y;
-    }
+    for (int i = 0; i < VEC; ++i)
+      if (i < valid) e[i] = p[i];
   }
-};
+  return u;
+}
+
+// K range length of one cluster rank (the host's split_ranges)
+__host__ __device__ __forceinline__ int split_len(int K, int split, int vec) {
+  const int per = (K + split - 1) / split;
+  return (per + vec - 1) / vec * vec;
+}
 
 // ---------------------------------------------------------------- rows path
-// M <= R rows, bn = 128: thread = (column group cg of 8 columns, k-slice ks)
-template <typename TI, int R, bool kBatched>
-__global__ void __launch_bounds__(kRowsThreads)
-sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
-                const int* __restrict__ sched, int M, int N, int K, int mt,
-                int nt, int order, int mode, Epilogue ep) {
-  constexpr int kSlices = kRowsThreads / 16;  // 32 k-slices
-  constexpr int U = 16 / sizeof(TI);          // 128 bytes of B in flight
-  extern __shared__ __align__(16) float red[];  // [16 warps][R][128]
+// Both rows kernels stream B through a ring of kRowsStages stages in
+// shared memory, filled by 16-byte cp.async (zero-filled past the ragged
+// edge), with kRowsStages - 1 stages of copies in flight while one is
+// multiplied.  A's rows for the rank's K range are staged once per chunk
+// with cp.async and read from shared memory.
+
+// The epilogue's bias and residual for the elements e = tid + i * threads
+// of the [M][128] tile a thread finishes, fetched while B streams.
+template <int kEpi>
+__device__ __forceinline__ void rows_prefetch(const Epilogue& ep, bool live,
+                                              int M, int N, int col0,
+                                              long base, float (&bias)[kEpi],
+                                              float (&res)[kEpi]) {
+#pragma unroll
+  for (int i = 0; i < kEpi; ++i) {
+    const int e = threadIdx.x + i * kRowsThreads;
+    const int gn = col0 + e % 128;
+    const bool in = live && e < M * 128 && gn < N;
+    bias[i] = in && ep.bias != nullptr ? load_as_f32(ep.bias, gn, ep.bias_dt) : 0.0f;
+    res[i] = in && ep.res != nullptr
+                 ? load_as_f32(ep.res, base + static_cast<long>(e / 128) * N + gn, ep.res_dt)
+                 : 0.0f;
+  }
+}
+
+// The block's [M][128] partial is in red[0, M * 128), element e of it in
+// part[i] of thread e % threads.  With a cluster, rank 0 reads the
+// partials of ranks 1, ..., split - 1 through distributed shared memory
+// and adds them to its own in that rank order; then the epilogue and one
+// store per element.
+template <int kEpi>
+__device__ __forceinline__ void rows_tail(float* red, float (&part)[kEpi],
+                                          const float (&bias)[kEpi],
+                                          const float (&res)[kEpi], int M,
+                                          int N, int col0, long base, int rank,
+                                          int split, const Epilogue& ep) {
+  const int tid = threadIdx.x;
+  if (split > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every rank's partial is in its red
+    if (rank == 0) {
+#pragma unroll
+      for (int i = 0; i < kEpi; ++i) {
+        const int e = tid + i * kRowsThreads;
+        if (e < M * 128)
+          for (int q = 1; q < split; ++q) part[i] += cluster.map_shared_rank(red, q)[e];
+      }
+    }
+    cluster.sync();  // every rank's partial stays until rank 0 has read it
+    if (rank != 0) return;
+  }
+#pragma unroll
+  for (int i = 0; i < kEpi; ++i) {
+    const int e = tid + i * kRowsThreads;
+    const int gn = col0 + e % 128;
+    if (e < M * 128 && gn < N) {
+      const float v = activate(part[i] + bias[i], ep.act) + res[i];
+      store_from_f32(ep.out, base + static_cast<long>(e / 128) * N + gn, ep.out_dt, v);
+    }
+  }
+}
+
+// f32 (SIMT): thread = (column group cg of 8 columns, k-slice ks); a
+// stage is one k row of the thread's 8 columns, 32 bytes in two copies
+// that only this thread reads back, so it waits for its own copies and
+// needs no block barrier; the 16 k-slice partials are added by warp
+// shuffle and then warp by warp in warp order.
+template <int R>
+struct RowsF32 {
+  static constexpr int kDepth = kRowsSlices;              // k rows a stage
+  static constexpr int kPass = kDepth * kRowsStages;      // k rows a ring
+  static constexpr int kChunk = kRowsABytes / (R * 4);    // A's k per chunk
+  static constexpr int kRing = kRowsStages * kRowsThreads * 32;
+  static constexpr size_t kSmem = kRing + kRowsABytes;
+  static_assert(4 * (kRowsThreads / 32) * R * 128 <= kRing,
+                "the warps' partials reuse the ring");
+};
+
+// block = rank (blockIdx.x % split) of the cluster of tile step
+// blockIdx.x / split; M <= R rows, bn = 128
+template <int R, bool kBatched>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+sfc_matmul_rows_f32(const float* __restrict__ a, const float* __restrict__ b,
+                    const int* __restrict__ sched, int M, int N, int K, int mt,
+                    int nt, int order, int mode, int split, Epilogue ep) {
+  using C = RowsF32<R>;
+  constexpr int S = kRowsStages;
+  constexpr int kEpi = R * 128 / kRowsThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);  // [S][2][threads]
+  float* red = reinterpret_cast<float*>(smem_raw);   // after the loop: [8 warps][R][128]
+  float* as = reinterpret_cast<float*>(smem_raw + C::kRing);  // [R][kChunk]
 
   long base = 0;  // the batch element's offset into residual and output
   if constexpr (kBatched) {
@@ -221,16 +361,42 @@ sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
     b += bz * K * N;
     base = bz * M * N;
   }
-  int ti, tj;
-  decode_tile(blockIdx.x, mode, mt, nt, order, sched, &ti, &tj);
-  const int col0 = tj * 128;
   const int tid = threadIdx.x;
+  const int rank = blockIdx.x % split;
+  const int klen = split_len(K, split, 4);
+  const int k0 = rank * klen;
+  const int k1 = min(K, k0 + klen);
+  auto stage_a = [&](int kc0) {  // needs no tile index
+    const int vpr = (min(k1, kc0 + C::kChunk) - kc0) / 4;
+    for (int e = tid; e < M * vpr; e += kRowsThreads) {
+      const int r = e / vpr;
+      const int c = (e % vpr) * 4;
+      cp_async16(as + r * C::kChunk + c, a + static_cast<long>(r) * K + kc0 + c, true);
+    }
+    cp_async_commit();
+  };
+  stage_a(k0);
+
+  int ti, tj;
+  decode_tile(blockIdx.x / split, mode, mt, nt, order, sched, &ti, &tj);
+  const int col0 = tj * 128;  // mt == 1: M <= 8 < bm
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int cg = lane % 16;
+  const int cgi = lane % 16;
   const int ks = warp * 2 + lane / 16;
-  const int c0 = col0 + cg * 8;
+  const int c0 = col0 + cgi * 8;
   const bool col_ok = c0 < N;  // N % 8 == 0: a group is wholly in or out
+  float pre_bias[kEpi], pre_res[kEpi];
+  rows_prefetch(ep, split == 1 || rank == 0, M, N, col0, base, pre_bias, pre_res);
+
+  auto fill = [&](int g) {  // stage g: k row k0 + g * kDepth + ks
+    const int kk = k0 + g * C::kDepth + ks;
+    const bool in = col_ok && kk < k1;
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      cp_async16(ring + ((g % S) * 2 + q) * kRowsThreads + tid,
+                 in ? b + static_cast<long>(kk) * N + c0 + 4 * q : b, in);
+  };
 
   float acc[R][8];
 #pragma unroll
@@ -238,37 +404,44 @@ sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
 
-  for (int k = ks; k < K; k += kSlices * U) {
-    Raw8<TI> raw[U];
+  const int nst = (k1 - k0 + C::kDepth - 1) / C::kDepth;
+  constexpr int kStagesPerChunk = C::kChunk / C::kDepth;
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int kk = k + u * kSlices;
-      if (col_ok && kk < K) {
-        raw[u].load(b + static_cast<long>(kk) * N + c0);
-      } else {
-        raw[u].zero();
-      }
+  for (int g = 0; g < S - 1; ++g) {
+    if (g < nst) fill(g);
+    cp_async_commit();
+  }
+  for (int g = 0; g < nst; ++g) {
+    const int kc0 = k0 + (g / kStagesPerChunk) * C::kChunk;
+    if (g > 0 && g % kStagesPerChunk == 0) {  // the next chunk of A
+      __syncthreads();
+      stage_a(kc0);
+      cp_async_wait<0>();
+      __syncthreads();
     }
+    cp_async_wait<S - 2>();  // this thread's stage g has landed
+    if (g == 0) __syncthreads();  // ... and A's first chunk, from every thread
+    if (g + S - 1 < nst) fill(g + S - 1);  // into the slot stage g - 1 used
+    cp_async_commit();
+    const int kk = k0 + g * C::kDepth + ks;
+    if (kk < k1) {
+      const uint4* slot = ring + (g % S) * 2 * kRowsThreads + tid;
+      const float4 lo = *reinterpret_cast<const float4*>(slot);
+      const float4 hi = *reinterpret_cast<const float4*>(slot + kRowsThreads);
+      const float bv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int kk = k + u * kSlices;
-      if (kk < K) {
-        float bv[8];
-        raw[u].widen(bv);
+      for (int r = 0; r < R; ++r) {
+        if (r < M) {
+          const float av = as[r * C::kChunk + kk - kc0];
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (r < M) {
-            const float av = to_f32(a[static_cast<long>(r) * K + kk]);
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av, bv[c], acc[r][c]);
-          }
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(av, bv[c], acc[r][c]);
         }
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring: red reuses it
 
-  // reduce the two k-slices of a warp by shuffle, then the 16 warps
-  // through shared memory
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -278,33 +451,195 @@ sfc_matmul_rows(const TI* __restrict__ a, const TI* __restrict__ b,
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) red[(warp * R + r) * 128 + cg * 8 + c] = acc[r][c];
+      for (int c = 0; c < 8; ++c) red[(warp * R + r) * 128 + cgi * 8 + c] = acc[r][c];
   }
   __syncthreads();
-  for (int e = tid; e < M * 128; e += kRowsThreads) {
-    const int r = e / 128;
-    const int c = e % 128;
-    if (col0 + c < N) {
-      float v = 0.0f;
+  float part[kEpi];
 #pragma unroll
-      for (int w = 0; w < kRowsThreads / 32; ++w) v += red[(w * R + r) * 128 + c];
-      finish(ep, v, base, r, col0 + c, N);
+  for (int i = 0; i < kEpi; ++i) {
+    const int e = tid + i * kRowsThreads;
+    part[i] = 0.0f;
+    if (e < M * 128) {
+#pragma unroll
+      for (int w = 0; w < kRowsThreads / 32; ++w) part[i] += red[(w * R + e / 128) * 128 + e % 128];
+      red[e] = part[i];  // plane 0: only this thread reads element e there
     }
   }
+  rows_tail(red, part, pre_bias, pre_res, M, N, col0, base, rank, split, ep);
+}
+
+// bf16 (tensor cores): warp w owns columns 16w..16w+15 of the tile for
+// the rank's whole K range, so no k partials meet inside a block.  Per 16
+// k rows it runs one mma.sync.m16n8k16 (bf16 in, f32 accumulate) on
+// C^T[16 columns][8 rows] += B^T[16 x 16] A^T[16 x 8]: B^T comes from the
+// ring by ldmatrix.trans, A^T from staged A (rows >= M are zero).  The
+// block fills a stage together, 32 k rows of the tile's 128 columns
+// (8 KB), each warp copying whole 256-byte rows (full 128-byte lines of
+// B); one barrier a stage hands the stage to the warps that read it.  The
+// sixteen 16-byte chunks of a stage row are stored in the order chunk ^
+// (row & 7), so ldmatrix reads 8 rows of one chunk without bank
+// conflicts.
+constexpr int kMmaDepth = 32;                        // k rows a stage
+constexpr int kMmaStage = kMmaDepth * 256;           // bytes a stage
+constexpr int kMmaChunk = 1024;                      // A's k per chunk
+constexpr int kMmaLdA = kMmaChunk + 8;               // padded A row
+constexpr int kMmaRing = kRowsStages * kMmaStage;
+constexpr size_t kMmaSmem = kMmaRing + kRowsMaxM * kMmaLdA * 2;
+
+// byte offset of (row, 16-byte chunk) in a stage
+__device__ __forceinline__ int mma_slot(int row, int chunk) {
+  return row * 256 + ((chunk ^ (row & 7)) << 4);
+}
+
+template <bool kBatched>
+__global__ void __launch_bounds__(kRowsThreads, 2)
+sfc_matmul_rows_bf16(const __nv_bfloat16* __restrict__ a,
+                     const __nv_bfloat16* __restrict__ b,
+                     const int* __restrict__ sched, int M, int N, int K,
+                     int mt, int nt, int order, int mode, int split,
+                     Epilogue ep) {
+  constexpr int S = kRowsStages;
+  constexpr int kEpi = kRowsMaxM * 128 / kRowsThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* red = reinterpret_cast<float*>(smem_raw);  // after the loop: [M][128]
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw + kMmaRing);  // [M][kMmaLdA]
+
+  long base = 0;  // the batch element's offset into residual and output
+  if constexpr (kBatched) {
+    const long bz = blockIdx.y;
+    a += bz * M * K;
+    b += bz * K * N;
+    base = bz * M * N;
+  }
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int rank = blockIdx.x % split;
+  const int klen = split_len(K, split, 8);
+  const int k0 = rank * klen;
+  const int k1 = min(K, k0 + klen);
+  auto stage_a = [&](int kc0) {  // needs no tile index
+    const int vpr = (min(k1, kc0 + kMmaChunk) - kc0) / 8;
+    for (int e = tid; e < M * vpr; e += kRowsThreads) {
+      const int r = e / vpr;
+      const int c = (e % vpr) * 8;
+      cp_async16(as + r * kMmaLdA + c, a + static_cast<long>(r) * K + kc0 + c, true);
+    }
+    cp_async_commit();
+  };
+  stage_a(k0);
+
+  int ti, tj;
+  decode_tile(blockIdx.x / split, mode, mt, nt, order, sched, &ti, &tj);
+  const int col0 = tj * 128;  // mt == 1: M <= 8 < bm
+  float pre_bias[kEpi], pre_res[kEpi];
+  rows_prefetch(ep, split == 1 || rank == 0, M, N, col0, base, pre_bias, pre_res);
+
+  auto fill = [&](int g) {  // stage g: k rows k0 + kMmaDepth g ..
+#pragma unroll
+    for (int i = 0; i < kMmaDepth * 16 / kRowsThreads; ++i) {
+      const int c = tid + kRowsThreads * i;
+      const int row = c >> 4;
+      const int chunk = c & 15;
+      const int kk = k0 + g * kMmaDepth + row;
+      const int gn = col0 + 8 * chunk;
+      const bool in = kk < k1 && gn < N;  // N % 8 == 0: a chunk is in or out
+      cp_async16(smem_raw + (g % S) * kMmaStage + mma_slot(row, chunk),
+                 in ? b + static_cast<long>(kk) * N + gn : b, in);
+    }
+  };
+
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int nst = (k1 - k0 + kMmaDepth - 1) / kMmaDepth;
+  constexpr int kStagesPerChunk = kMmaChunk / kMmaDepth;
+  const int m = lane >> 2;  // A^T column (a row of A) this lane feeds
+#pragma unroll
+  for (int g = 0; g < S - 1; ++g) {
+    if (g < nst) fill(g);
+    cp_async_commit();
+  }
+  for (int g = 0; g < nst; ++g) {
+    const int kc0 = k0 + (g / kStagesPerChunk) * kMmaChunk;
+    if (g > 0 && g % kStagesPerChunk == 0) {  // the next chunk of A
+      __syncthreads();
+      stage_a(kc0);
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    cp_async_wait<S - 2>();  // this thread's copies of stage g have landed
+    __syncthreads();  // ... everyone's (A's first chunk too), and stage g - 1 is read
+    if (g + S - 1 < nst) fill(g + S - 1);  // into the slot stage g - 1 used
+    cp_async_commit();
+    const unsigned st = smem_u32(smem_raw + (g % S) * kMmaStage);
+#pragma unroll
+    for (int h = 0; h < kMmaDepth / 16; ++h) {  // 16 k rows each
+      const int j = lane >> 3;     // the 8 x 8 matrix whose row this lane names
+      const int row = h * 16 + (j >> 1) * 8 + (lane & 7);
+      unsigned a0, a1, a2, a3;
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+          : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+          : "r"(st + mma_slot(row, 2 * warp + (j & 1))));
+      const int kk = k0 + g * kMmaDepth + h * 16 + (lane & 3) * 2;
+      unsigned b0 = 0u, b1 = 0u;
+      if (m < M) {
+        const __nv_bfloat16* ar = as + m * kMmaLdA + (kk - kc0);
+        if (kk < k1) b0 = *reinterpret_cast<const unsigned*>(ar);
+        if (kk + 8 < k1) b1 = *reinterpret_cast<const unsigned*>(ar + 8);
+      }
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: red reuses it
+
+  // d[i] is C[row (lane & 3) * 2 + (i & 1)][column 16 w + lane / 4 + 8 (i / 2)]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = (lane & 3) * 2 + (i & 1);
+    if (r < M) red[r * 128 + 16 * warp + (lane >> 2) + 8 * (i >> 1)] = d[i];
+  }
+  __syncthreads();
+  float part[kEpi];
+#pragma unroll
+  for (int i = 0; i < kEpi; ++i) {
+    const int e = tid + i * kRowsThreads;
+    part[i] = e < M * 128 ? red[e] : 0.0f;
+  }
+  rows_tail(red, part, pre_bias, pre_res, M, N, col0, base, rank, split, ep);
 }
 
 // ---------------------------------------------------------------- tile path
-// bm, bn multiples of 16 up to 128; thread (ty, tx) owns rows ty + 16 i
-// and columns tx + 16 j of the tile
+template <typename TI>
+struct TileCfg {
+  static constexpr int VEC = 16 / sizeof(TI);  // elements per 16 bytes
+  static constexpr int BK = 4 * VEC;           // k slice: 16 f32, 32 bf16
+  static constexpr int kA = BK * kTileLd;      // one A stage, k-major
+  static constexpr int kB = BK * 128;          // one B stage, k rows
+  static constexpr size_t kSmem = sizeof(TI) * kTileStages * (kA + kB);
+};
+
+// bm, bn multiples of 16 up to 128; thread (ty, tx) owns rows 4ty + i and
+// 64 + 4ty + i and columns 4tx + j and 64 + 4tx + j (i, j < 4) of the
+// tile; rows and columns past the tile or the matrix are zero-filled and
+// not stored
 template <typename TI, bool kVec, bool kBatched>
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileThreads, 2)
 sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
                 const int* __restrict__ sched, int M, int N, int K, int bm,
-                int bn, int bk, int mt, int nt, int order, int mode,
-                Epilogue ep) {
+                int bn, int mt, int nt, int order, int mode, Epilogue ep) {
+  using C = TileCfg<TI>;
+  constexpr int VEC = C::VEC;
+  constexpr int BK = C::BK;
+  constexpr int S = kTileStages;
+  constexpr int BV = 128 / VEC;  // 16-byte vectors per B row of a stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TI* As = reinterpret_cast<TI*>(smem_raw);  // bm x bk (live rows only)
-  TI* Bs = As + bm * bk;                      // bk x bn
+  TI* As = reinterpret_cast<TI*>(smem_raw);  // [S][BK][kTileLd]
+  TI* Bs = As + S * C::kA;                    // [S][BK][128]
 
   long base = 0;  // the batch element's offset into residual and output
   if constexpr (kBatched) {
@@ -317,13 +652,17 @@ sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
   decode_tile(blockIdx.x, mode, mt, nt, order, sched, &ti, &tj);
   const int row0 = ti * bm;
   const int col0 = tj * bn;
-  const int rows = min(bm, M - row0);  // rows >= M are skipped
+  const int rows = min(bm, M - row0);
+  const int cols = min(bn, N - col0);
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const int mi = bm / 16;
-  const int nj = bn / 16;
-  const TI zero = from_f32<TI>(0.0f);
+  // this thread's share of a slice: A rows ar, ar + 64 at k offset ak;
+  // B k rows bq, bq + 256 / BV at column bc
+  const int ar = tid / 4;
+  const int ak = (tid % 4) * VEC;
+  const int bq = tid / BV;
+  const int bc = (tid % BV) * VEC;
 
   float acc[8][8];
 #pragma unroll
@@ -331,122 +670,173 @@ sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  const int kt = (K + bk - 1) / bk;
-  for (int kk = 0; kk < kt; ++kk) {
-    const int k0 = kk * bk;
-    if (kVec) {
-      // K, N, bk, bn are multiples of VEC: a vector is wholly in or out
-      constexpr int VEC = 16 / sizeof(TI);
-      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-      const int cpa = bk / VEC;
-      for (int e = tid; e < rows * cpa; e += kTileThreads) {
-        const int r = e / cpa;
-        const int c = (e % cpa) * VEC;
-        const int gk = k0 + c;
-        *reinterpret_cast<uint4*>(As + r * bk + c) =
-            gk < K ? *reinterpret_cast<const uint4*>(
-                         a + static_cast<long>(row0 + r) * K + gk)
-                   : z;
-      }
-      const int cpb = bn / VEC;
-#pragma unroll 4
-      for (int e = tid; e < bk * cpb; e += kTileThreads) {
-        const int r = e / cpb;
-        const int c = (e % cpb) * VEC;
-        const int gk = k0 + r;
-        const int gn = col0 + c;
-        *reinterpret_cast<uint4*>(Bs + r * bn + c) =
-            (gk < K && gn < N) ? *reinterpret_cast<const uint4*>(
-                                     b + static_cast<long>(gk) * N + gn)
-                               : z;
-      }
-    } else {
-      for (int e = tid; e < rows * bk; e += kTileThreads) {
-        const int r = e / bk;
-        const int gk = k0 + e % bk;
-        As[e] = gk < K ? a[static_cast<long>(row0 + r) * K + gk] : zero;
-      }
-#pragma unroll 4
-      for (int e = tid; e < bk * bn; e += kTileThreads) {
-        const int gk = k0 + e / bn;
-        const int gn = col0 + e % bn;
-        Bs[e] = (gk < K && gn < N) ? b[static_cast<long>(gk) * N + gn] : zero;
+  uint4 ra[2], rb[2];  // A (and, without kVec, B) in flight through registers
+  auto load = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ar + 64 * h;
+      const int gk = k0 + ak;
+      ra[h] = load16<TI, kVec>(a + static_cast<long>(row0 + r) * K + gk,
+                               r < rows ? K - gk : 0);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = bq + h * (kTileThreads / BV);
+      const int gk = k0 + q;
+      const TI* src = b + static_cast<long>(gk) * N + col0 + bc;
+      if constexpr (kVec) {
+        const bool in = gk < K && bc < cols;
+        cp_async16(Bs + stage * C::kB + q * 128 + bc, in ? src : b, in);
+      } else {
+        rb[h] = load16<TI, false>(src, gk < K ? cols - bc : 0);
       }
     }
-    __syncthreads();
-    for (int q = 0; q < bk; ++q) {
-      float av[8], bv[8];
+  };
+  auto store = [&](int stage) {
+    TI* as = As + stage * C::kA;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = ty + 16 * i;
-        av[i] = (i < mi && r < rows) ? to_f32(As[r * bk + q]) : 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      const TI* v = reinterpret_cast<const TI*>(&ra[h]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) as[(ak + i) * kTileLd + ar + 64 * h] = v[i];
+    }
+    if constexpr (!kVec) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = bq + h * (kTileThreads / BV);
+        *reinterpret_cast<uint4*>(Bs + stage * C::kB + q * 128 + bc) = rb[h];
       }
+    }
+  };
+
+  const int kt = (K + BK - 1) / BK;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = j < nj ? to_f32(Bs[q * bn + tx + 16 * j]) : 0.0f;
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < kt) {
+      load(s, s);
+      store(s);
+    }
+    cp_async_commit();
+  }
+  for (int kk = 0; kk < kt; ++kk) {
+    cp_async_wait<S - 2>();  // slice kk's B has landed
+    __syncthreads();         // ... for every thread, and stage kk - 1 is free
+    const int nxt = kk + S - 1;
+    if (nxt < kt) load(nxt, nxt % S);
+    cp_async_commit();
+    const TI* as = As + (kk % S) * C::kA;
+    const TI* bs = Bs + (kk % S) * C::kB;
+#pragma unroll
+    for (int q = 0; q < BK; ++q) {
+      float av[8], bv[8];
+      load4(as + q * kTileLd + 4 * ty, av);
+      load4(as + q * kTileLd + 64 + 4 * ty, av + 4);
+      load4(bs + q * 128 + 4 * tx, bv);
+      load4(bs + q * 128 + 64 + 4 * tx, bv + 4);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
+    if (nxt < kt) store(nxt % S);  // stage kk - 1: read by no one now
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int r = ty + 16 * i;
+    const int r = 4 * ty + (i & 3) + 64 * (i >> 2);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int gn = col0 + tx + 16 * j;
-      if (i < mi && j < nj && r < rows && gn < N) finish(ep, acc[i][j], base, row0 + r, gn, N);
+      const int c = 4 * tx + (j & 3) + 64 * (j >> 2);
+      if (r < rows && c < cols) finish(ep, acc[i][j], base, row0 + r, col0 + c, N);
     }
   }
 }
 
-// Raise a kernel's dynamic shared memory limit, once per kernel.
+// Raise a kernel's dynamic shared memory limit to the ``bytes`` it
+// always asks for, once per kernel.
 template <auto Kernel>
-cudaError_t allow_smem() {
+cudaError_t allow_smem(size_t bytes) {
   static const cudaError_t err = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   return err;
+}
+
+bool rows_path(int M, int N, int bn, int vec) {
+  return M <= kRowsMaxM && bn == 128 && N % 8 == 0 && vec;
+}
+
+// a rows kernel over (T * split, batch) blocks, clusters of ``split``
+template <auto Kernel, typename TI>
+cudaError_t launch_rows(size_t smem, const TI* a, const TI* b,
+                        const int* sched, int batch, int M, int N, int K,
+                        int nt, int order, int mode, int split,
+                        const Epilogue& ep, cudaStream_t stream) {
+  cudaError_t err = allow_smem<Kernel>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nt * split, batch);
+  cfg.blockDim = dim3(kRowsThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = split;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, Kernel, a, b, sched, M, N, K, 1, nt, order,
+                           mode, split, ep);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename TI, bool kB>
 cudaError_t launch(const void* a, const void* b, const int* sched, int batch,
-                   int M, int N, int K, int bm, int bn, int bk, int mt,
-                   int nt, int order, int mode, int vec, const Epilogue& ep,
+                   int M, int N, int K, int bm, int bn, int mt, int nt,
+                   int order, int mode, int vec, int split, const Epilogue& ep,
                    cudaStream_t stream) {
   const TI* pa = static_cast<const TI*>(a);
   const TI* pb = static_cast<const TI*>(b);
-  const dim3 grid(mt * nt, batch);
-  cudaError_t err;
-  if (M <= kRowsMaxM && bn == 128 && N % 8 == 0 && vec) {
-    if (M <= 4) {
-      const size_t smem = sizeof(float) * (kRowsThreads / 32) * 4 * 128;
-      if ((err = allow_smem<sfc_matmul_rows<TI, 4, kB>>()) != cudaSuccess) return err;
-      sfc_matmul_rows<TI, 4, kB><<<grid, kRowsThreads, smem, stream>>>(
-          pa, pb, sched, M, N, K, mt, nt, order, mode, ep);
+  if (rows_path(M, N, bn, vec)) {
+    if constexpr (sizeof(TI) == 2) {
+      return launch_rows<sfc_matmul_rows_bf16<kB>>(
+          kMmaSmem, pa, pb, sched, batch, M, N, K, nt, order, mode, split, ep, stream);
+    } else if (M <= 4) {
+      return launch_rows<sfc_matmul_rows_f32<4, kB>>(
+          RowsF32<4>::kSmem, pa, pb, sched, batch, M, N, K, nt, order, mode, split, ep,
+          stream);
     } else {
-      const size_t smem = sizeof(float) * (kRowsThreads / 32) * 8 * 128;
-      if ((err = allow_smem<sfc_matmul_rows<TI, 8, kB>>()) != cudaSuccess) return err;
-      sfc_matmul_rows<TI, 8, kB><<<grid, kRowsThreads, smem, stream>>>(
-          pa, pb, sched, M, N, K, mt, nt, order, mode, ep);
+      return launch_rows<sfc_matmul_rows_f32<8, kB>>(
+          RowsF32<8>::kSmem, pa, pb, sched, batch, M, N, K, nt, order, mode, split, ep,
+          stream);
     }
-    return cudaGetLastError();
   }
-  const size_t smem = static_cast<size_t>(bm * bk + bk * bn) * sizeof(TI);
+  const dim3 grid(mt * nt, batch);
+  const size_t smem = TileCfg<TI>::kSmem;
+  cudaError_t err;
   if (vec) {
-    if ((err = allow_smem<sfc_matmul_tile<TI, true, kB>>()) != cudaSuccess) return err;
+    if ((err = allow_smem<sfc_matmul_tile<TI, true, kB>>(smem)) != cudaSuccess) return err;
     sfc_matmul_tile<TI, true, kB><<<grid, kTileThreads, smem, stream>>>(
-        pa, pb, sched, M, N, K, bm, bn, bk, mt, nt, order, mode, ep);
+        pa, pb, sched, M, N, K, bm, bn, mt, nt, order, mode, ep);
   } else {
-    if ((err = allow_smem<sfc_matmul_tile<TI, false, kB>>()) != cudaSuccess) return err;
+    if ((err = allow_smem<sfc_matmul_tile<TI, false, kB>>(smem)) != cudaSuccess) return err;
     sfc_matmul_tile<TI, false, kB><<<grid, kTileThreads, smem, stream>>>(
-        pa, pb, sched, M, N, K, bm, bn, bk, mt, nt, order, mode, ep);
+        pa, pb, sched, M, N, K, bm, bn, mt, nt, order, mode, ep);
   }
   return cudaGetLastError();
 }
 
 size_t dtype_size(int dt) { return dt == kF32 ? 4 : 2; }
+
+// ``split`` is a cluster size the rows path can take: 1, 2, 4 or 8, and
+// above 1 only on the rows path with a non-empty K range on every rank
+bool split_ok(int split, int M, int N, int K, int bn, int vec, size_t isz) {
+  if (split != 1 && split != 2 && split != 4 && split != kMaxSplit) return false;
+  if (split == 1) return true;
+  const int v = static_cast<int>(16 / isz);
+  return rows_path(M, N, bn, vec) && (split - 1) * split_len(K, split, v) < K;
+}
 
 // One launch per chunk of at most kMaxGridY batch elements; ``batched``
 // picks the kBatched instantiations (B3), otherwise batch must be 1 (B1).
@@ -455,13 +845,16 @@ cudaError_t launch_all(const void* a, const void* b, const void* bias,
                        bool batched, int batch, int M, int N, int K, int bm,
                        int bn, int bk, int in_dt, int out_dt, int bias_dt,
                        int res_dt, int act, int mode, int order, int vec,
-                       cudaStream_t stream) {
+                       int split, cudaStream_t stream) {
   const size_t isz = dtype_size(in_dt);
+  // bk sizes no buffer of the kernels any more; the bm x bk + bk x bn
+  // bound is kept so the entry refuses what it always refused
   if (batch <= 0 || (!batched && batch != 1) || M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 ||
       bk <= 0 || bm % 16 != 0 || bn % 16 != 0 || bm > 128 || bn > 128 ||
       static_cast<size_t>(bm * bk + bk * bn) * isz > kSmemMax ||
       (mode == kTable && sched == nullptr) ||
-      (in_dt != kF32 && in_dt != kBF16)) {
+      (in_dt != kF32 && in_dt != kBF16) ||
+      !split_ok(split, M, N, K, bn, vec, isz)) {
     return cudaErrorInvalidValue;
   }
   const int mt = (M + bm - 1) / bm;
@@ -482,18 +875,18 @@ cudaError_t launch_all(const void* a, const void* b, const void* bias,
     cudaError_t err;
     if (in_dt == kF32) {
       err = batched ? launch<float, true>(pa, pb, tab, nb, M, N, K, bm, bn,
-                                          bk, mt, nt, order, mode, vec, ep,
+                                          mt, nt, order, mode, vec, split, ep,
                                           stream)
                     : launch<float, false>(pa, pb, tab, nb, M, N, K, bm, bn,
-                                           bk, mt, nt, order, mode, vec, ep,
+                                           mt, nt, order, mode, vec, split, ep,
                                            stream);
     } else {
       err = batched ? launch<__nv_bfloat16, true>(pa, pb, tab, nb, M, N, K,
-                                                  bm, bn, bk, mt, nt, order,
-                                                  mode, vec, ep, stream)
+                                                  bm, bn, mt, nt, order, mode,
+                                                  vec, split, ep, stream)
                     : launch<__nv_bfloat16, false>(pa, pb, tab, nb, M, N, K,
-                                                   bm, bn, bk, mt, nt, order,
-                                                   mode, vec, ep, stream);
+                                                   bm, bn, mt, nt, order, mode,
+                                                   vec, split, ep, stream);
     }
     if (err != cudaSuccess) return err;
   }
@@ -506,7 +899,9 @@ cudaError_t launch_all(const void* a, const void* b, const void* bias,
 // cudaError_t.  bias, res and sched may be null; order is log2(mt) for
 // mode 4; vec says that K and N are multiples of 16 bytes' worth of
 // elements and a, b are 16-byte aligned.  bm and bn must be multiples of
-// 16 up to 128.
+// 16 up to 128.  split is the rows path's cluster size (1, 2, 4 or 8;
+// kernels/sfc_matmul.py::split_plan); anything else is refused with
+// cudaErrorInvalidValue.
 //
 // B1: one GEMM, a (M, K) @ b (K, N) -> out (M, N).
 extern "C" int sfc_matmul_launch(const void* a, const void* b,
@@ -514,22 +909,22 @@ extern "C" int sfc_matmul_launch(const void* a, const void* b,
                                  const void* sched, int M, int N, int K,
                                  int bm, int bn, int bk, int in_dt, int out_dt,
                                  int bias_dt, int res_dt, int act, int mode,
-                                 int order, int vec, void* stream) {
+                                 int order, int vec, int split, void* stream) {
   return static_cast<int>(launch_all(
       a, b, bias, res, out, sched, false, 1, M, N, K, bm, bn, bk, in_dt, out_dt,
-      bias_dt, res_dt, act, mode, order, vec,
+      bias_dt, res_dt, act, mode, order, vec, split,
       static_cast<cudaStream_t>(stream)));
 }
 
 // B3: ``batch`` GEMMs, a (batch, M, K) @ b (batch, K, N) -> out (batch, M,
-// N); bias (N,) shared, res (batch, M, N).
+// N); bias (N,) shared, res (batch, M, N); split as for one element.
 extern "C" int sfc_matmul_batched_launch(
     const void* a, const void* b, const void* bias, const void* res,
     void* out, const void* sched, int batch, int M, int N, int K, int bm,
     int bn, int bk, int in_dt, int out_dt, int bias_dt, int res_dt, int act,
-    int mode, int order, int vec, void* stream) {
+    int mode, int order, int vec, int split, void* stream) {
   return static_cast<int>(launch_all(
       a, b, bias, res, out, sched, true, batch, M, N, K, bm, bn, bk, in_dt, out_dt,
-      bias_dt, res_dt, act, mode, order, vec,
+      bias_dt, res_dt, act, mode, order, vec, split,
       static_cast<cudaStream_t>(stream)));
 }

@@ -18,13 +18,18 @@ padded shape, visited in the order of a space-filling curve:
 
 The kernel masks ragged M/N/K edges itself, so nothing is padded on the
 card.  The batched kernel (:func:`sfc_matmul_batched_cuda`) runs the
-same code once per batch element (grid ``(T, batch)``, batch outermost,
-the curve on each element's tile plane), so each element equals
-:func:`sfc_matmul_cuda` on it bit for bit.  On a CPU tensor both
+same code once per batch element (grid ``(T * split, batch)``, batch
+outermost, the curve on each element's tile plane), so each element
+equals :func:`sfc_matmul_cuda` on it bit for bit.  On a CPU tensor both
 wrappers run :func:`sfc_matmul_batched_plain`, which walks the same
 tiles from the same schedule and accumulates in f32 over bk-deep k
-blocks in k order (the kernel's path for M <= 8 splits K across
-threads instead: the two differ by f32 summation order only).
+blocks in k order.  For M <= 8 (every decode-step GEMM) the kernel
+takes its rows path: each 128-column tile is a thread-block cluster of
+:func:`split_plan` blocks, each summing a contiguous K range
+(:func:`split_ranges`), whose partials rank 0 adds in rank order; a
+block multiplies bf16 on tensor cores (f32 accumulate) and f32 with
+FFMA over 16 k-slices.  Either differs from the plain version by f32
+summation order only, and gives the same bits run to run.
 """
 from __future__ import annotations
 
@@ -41,7 +46,8 @@ from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
 
 __all__ = ["sfc_matmul_cuda", "sfc_matmul_batched_cuda", "sfc_matmul_plain",
            "sfc_matmul_batched_plain", "decode_step", "tile_schedule",
-           "launches", "batched_launches"]
+           "split_plan", "split_ranges", "launch_plan", "launches",
+           "batched_launches"]
 
 # kernel launches made by sfc_matmul_cuda (B1) and sfc_matmul_batched_cuda
 # (B3); CPU calls are not counted
@@ -52,18 +58,87 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
 _MODE_CODE = {"rowmajor": 1, "colmajor": 2, "morton": 3, "hilbert": 4}
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+_MAX_SPLIT = 8        # the portable thread-block cluster size
+_ROWS_SLICES = 16     # k-slices of a rows-path block (csrc: kRowsSlices)
+_ROWS_STAGES = 6      # stages of the rows path's ring of B (kRowsStages)
 
 _SIGNATURES = {
     "sfc_matmul_launch": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
         ctypes.c_int),
     "sfc_matmul_batched_launch": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 + [ctypes.c_void_p],
         ctypes.c_int),
 }
 
 # device copies of schedule tables, per (schedule, mt, nt, g, device)
 _DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
+# streaming multiprocessors per device
+_SM_COUNT: dict[str, int] = {}
+
+
+def _rows_path(m: int, n: int, k: int, bn: int, itemsize: int) -> bool:
+    """Whether the kernel takes its rows path at this shape (given
+    16-byte-aligned operands): M <= 8, bn = 128, N a multiple of 8 and K
+    of a 16-byte vector."""
+    return m <= 8 and bn == 128 and n % 8 == 0 and k % (16 // itemsize) == 0
+
+
+def split_plan(m: int, n: int, k: int, bn: int, dtype: torch.dtype,
+               sms: int) -> int:
+    """Cluster size of the rows path: the blocks that share one
+    128-column output tile, each summing a contiguous K range.
+
+    The smallest power of two ``s <= 8`` with ``nt * s >= sms``, such
+    that every rank keeps at least one full pass of its k-slices
+    (``K // s`` >= the k rows one pass of the ring of B covers); 1 off
+    the rows path.  A pure function of one element's shape, so a batch
+    of GEMMs (B3) splits each element as one GEMM (B1) does."""
+    itemsize = dtype.itemsize
+    if not _rows_path(m, n, k, bn, itemsize):
+        return 1
+    nt = -(-n // bn)
+    # k rows one pass of the ring covers: 6 stages of 32 k rows (bf16,
+    # each warp its 16 columns), or of one k row for each of 16 k-slices
+    # (f32) (csrc: kMmaDepth, RowsF32::kPass)
+    depth = _ROWS_STAGES * (32 if itemsize == 2 else _ROWS_SLICES)
+    s = 1
+    while s < _MAX_SPLIT and nt * s < sms and k // (2 * s) >= depth:
+        s *= 2
+    return s
+
+
+def split_ranges(k: int, split: int, itemsize: int) -> list[tuple[int, int]]:
+    """[start, end) of K for each rank of a rows-path cluster: ceil(K /
+    split) rounded up to a whole 16-byte vector, the last range cut at
+    K (csrc: split_len)."""
+    vec_el = 16 // itemsize
+    per = -(-k // split)
+    klen = -(-per // vec_el) * vec_el
+    return [(r * klen, min(k, (r + 1) * klen)) for r in range(split)]
+
+
+def launch_plan(a: torch.Tensor, b: torch.Tensor, *, bk: int, bn: int,
+                sms: int) -> tuple[int, int]:
+    """(vec, split) that the C entry gets for operands ``a`` and ``b``
+    (2-D for B1, 3-D for B3): whether K, N, bk, bn and both pointers
+    are whole 16-byte vectors, and the rows path's cluster size, planned
+    from one element's shape."""
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    vec_el = 16 // a.element_size()
+    vec = int(k % vec_el == 0 and n % vec_el == 0 and bk % vec_el == 0
+              and bn % vec_el == 0 and a.data_ptr() % 16 == 0
+              and b.data_ptr() % 16 == 0)
+    return vec, split_plan(m, n, k, bn, a.dtype, sms) if vec else 1
+
+
+def _sm_count(device: torch.device) -> int:
+    key = str(device)
+    if key not in _SM_COUNT:
+        _SM_COUNT[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[key]
 
 
 def decode_step(t: torch.Tensor, schedule: str, mt: int, nt: int):
@@ -188,6 +263,8 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
                          f"to 128, got {bm}x{bn}")
     itemsize = a.element_size()
     if (bm * bk + bk * bn) * itemsize > _SMEM_LIMIT:
+        # bk sizes no buffer of the kernel (it names the plain version's k
+        # blocking); the bound stays so the wrapper refuses what it did
         raise ValueError(f"tiles {bm}x{bk} + {bk}x{bn} exceed shared memory")
     for name, t in (("a", a), ("b", b), ("bias", bias),
                     ("residual", residual)):
@@ -203,10 +280,7 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
         decode_step(torch.zeros(1, dtype=torch.int64), schedule, mt, nt)
         sched_t, mode = None, _MODE_CODE[schedule]
         order = mt.bit_length() - 1 if schedule == "hilbert" else 0
-    vec_el = 16 // itemsize
-    vec = int(k % vec_el == 0 and n % vec_el == 0 and bk % vec_el == 0
-              and bn % vec_el == 0 and a.data_ptr() % 16 == 0
-              and b.data_ptr() % 16 == 0)
+    vec, split = launch_plan(a, b, bk=bk, bn=bn, sms=_sm_count(a.device))
     out = torch.empty(*a.shape[:-2], m, n, dtype=out_dtype, device=a.device)
     batch = [a.shape[0]] if a.dim() == 3 else []
     lib = _build.load("sfc_matmul", _SIGNATURES)
@@ -220,7 +294,7 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
         _DTYPE_CODE[out_dtype],
         _DTYPE_CODE[bias.dtype] if bias is not None else 0,
         _DTYPE_CODE[residual.dtype] if residual is not None else 0,
-        _ACT_CODE[activation], mode, order, vec,
+        _ACT_CODE[activation], mode, order, vec, split,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
