@@ -39,6 +39,9 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   that element (the reference's batched-kernel == vmap claim).
 * B4 f32 output: B1's f32 bound (f32 summation order only); the fetch
   counts exactly equal to the plain version's oracle and to B4_COUNTS.
+  B4's hazard phase (1-3 slots at n = 256, one bf16 case with B1's bf16
+  bound, one 32^3-block case, one odd block edge): counts equal to the
+  oracle, C within bound, and two launches equal bit for bit.
 * B2 f32: <= 2e-5 absolute (O(1) outputs; online vs direct softmax).
 * B2 bf16: <= 3e-2 absolute: the plain version rounds the scores and
   the softmax weights to bf16 as the reference does; the kernel keeps
@@ -89,6 +92,14 @@ B4_COUNTS = {
                "boustrophedon": (16384, 2064640),
                "morton": (524288, 1048576), "hilbert": (524288, 524544)},
 }
+
+
+# B4's hazard phase: with 1-3 slots every fill reuses a slot that a step
+# in flight may still read.  16^3 blocks take the study's consumer path,
+# 32^3 the general one, and the odd edge (24-byte rows) the plain copies
+HAZARD_N, HAZARD_BLOCK, HAZARD_SLOTS = 256, 16, (1, 2, 3)
+HAZARD_WIDE_BLOCK = 32
+HAZARD_ODD_N, HAZARD_ODD_BLOCK = 192, 6
 
 
 def paper_study():
@@ -339,17 +350,67 @@ def check_batched(gen) -> float:
     return err
 
 
-def check_cached(gen) -> float:
-    """B4 against its plain version at the paper's n = 2^10 for every
-    setting and schedule (C within f32 order bounds, counts exact and
-    equal to B4_COUNTS), and the reference's defaults refused on the
-    card."""
+def check_cached_hazards(gen):
+    """B4 where every fill collides: 1-3 slots, so the producer warp's
+    copy into a slot must wait for the consumers' last read of its old
+    block (the slot-lifetime rule).  A copy that lands too early gives a
+    wrong C here even when the counts are right.  Per case: counts equal
+    to ``dma_counts`` exactly, C within B1's bound of the plain version,
+    and two launches equal bit for bit (C and counts)."""
     import torch
 
     from repro_torch.kernels.sfc_matmul import tile_schedule
     from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached, \
         sfc_matmul_cached_plain
 
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(HAZARD_N, f32, HAZARD_BLOCK, nslots, sched)
+             for nslots in HAZARD_SLOTS for sched in B4_SCHEDULES]
+    cases += [(HAZARD_N, bf16, HAZARD_BLOCK, 2, "hilbert"),
+              (HAZARD_N, f32, HAZARD_WIDE_BLOCK, 2, "morton"),
+              (HAZARD_ODD_N, f32, HAZARD_ODD_BLOCK, 2, "hilbert")]
+    rep = Report()
+    print("[kernels] B4 hazard phase: 1-3 slots, every fill collides")
+    for n, dtype, blk, nslots, sched in cases:
+        a = torch.randn(n, n, generator=gen, device="cuda").to(dtype)
+        b = (torch.randn(n, n, generator=gen, device="cuda") / n ** 0.5
+             ).to(dtype)
+        kw = dict(bm=blk, bn=blk, bk=blk, nslots=nslots)
+        got, cnt = sfc_matmul_cached(a, b, schedule=sched, **kw)
+        again, cnt2 = sfc_matmul_cached(a, b, schedule=sched, **kw)
+        tab = tile_schedule(sched, n // blk, n // blk, use_prefetch=True,
+                            device="cuda")
+        want, want_cnt = sfc_matmul_cached_plain(a, b, sched=tab, **kw)
+        torch.cuda.synchronize()
+        name = (f"B4 hazard {n}^3 {str(dtype)[6:]} {blk}^3 blocks "
+                f"x{nslots} slots {sched}")
+        tol = (1e-4, 1e-4) if dtype == f32 else (1e-3, 2.0 ** -7)
+        rep.check(name, got, want, *tol)
+        counts = tuple(cnt.tolist())
+        ok = counts == tuple(want_cnt.tolist()) == tuple(cnt2.tolist())
+        same = torch.equal(got, again)
+        print(f"  {'ok  ' if ok and same else 'FAIL'} {name}: fetches A+B "
+              f"{counts[0]}+{counts[1]} (plain {tuple(want_cnt.tolist())}), "
+              f"two launches {'equal' if same else 'DIFFER'} bit for bit")
+        if not ok:
+            rep.failures.append(f"{name} counts")
+        if not same:
+            rep.failures.append(f"{name} not repeatable")
+    rep.raise_if_failed("B4 hazard phase")
+
+
+def check_cached(gen) -> float:
+    """B4's hazard phase (``check_cached_hazards``), then B4 against its
+    plain version at the paper's n = 2^10 for every setting and schedule
+    (C within f32 order bounds, counts exact and equal to B4_COUNTS), and
+    the reference's defaults refused on the card."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul import tile_schedule
+    from repro_torch.kernels.sfc_matmul_cached import sfc_matmul_cached, \
+        sfc_matmul_cached_plain
+
+    check_cached_hazards(gen)
     rep = Report()
     err = 0.0
     paper, n, _ = paper_study()
@@ -874,8 +935,10 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
             plain = _time_ms(lambda: sfc_matmul_cached_plain(a, b, sched=tab,
                                                              **kw), 3, flush)
             fetched = sum(B4_COUNTS[(blk, nslots)][sched])
+            steps = (n // blk) ** 3     # T tiles x kt k blocks
             print(f"  {blk}^3 x{nslots:3d} {sched:13s}: kernel {ms:.3f} ms "
-                  f"({fetched} fetches, {ms * 1e6 / fetched:.1f} ns each), "
+                  f"({fetched} fetches, {ms * 1e6 / fetched:.1f} ns each; "
+                  f"{steps} steps, {ms * 1e6 / steps:.1f} ns each), "
                   f"plain {plain:.3f} ms")
             b4["ms"] += ms
             b4["plain_ms"] += plain

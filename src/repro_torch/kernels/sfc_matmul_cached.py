@@ -11,9 +11,12 @@ operand: block A(i, k) has id ``i*kt + k``, block B(k, j) has id
 block fetched from device memory; the result is ``(C, counts)`` with
 ``counts = [A fetches, B fetches]`` (int32, on C's device).  The counts
 are those of one sequential walk, so the kernel is one persistent
-thread block (one SM of the H100) with its slots in shared memory; the
-slots must fit the block's 232,448 bytes, and the wrapper raises rather
-than shrink the cache.
+thread block (one SM of the H100) with its slots in shared memory: a
+producer warp walks the schedule 32 steps at a time, keeps the tags,
+counts the misses and starts each missing block's copy (TMA) ahead of
+consumer warps that compute on them, through a ring of ``RING`` steps.
+The slots and the walk's bookkeeping must fit the block's 232,448
+bytes, and the wrapper raises rather than shrink the cache.
 
 On a CPU tensor the wrapper runs :func:`sfc_matmul_cached_plain`: C from
 the SFC GEMM's plain version (the same tile walk, f32 over bk-deep k
@@ -32,12 +35,14 @@ from repro_torch.kernels.sfc_matmul import _DTYPE_CODE, _device_table, \
 from repro_torch.kernels.sfc_matmul import _SMEM_LIMIT as SMEM_LIMIT
 
 __all__ = ["sfc_matmul_cached", "sfc_matmul_cached_plain", "dma_counts",
-           "shared_bytes", "SMEM_LIMIT", "launches"]
+           "shared_bytes", "SMEM_LIMIT", "RING", "launches"]
 
 # kernel launches made by sfc_matmul_cached (CPU calls are not counted)
 launches = 0
 
-_MAX_TILE = 256 * 64  # bm * bn: 256 threads x 64 f32 accumulators
+_MAX_TILE = 256 * 64  # bm * bn: 256 consumer threads x 64 f32 accumulators
+RING = 128            # the kernel's kRing: ring entries (steps in flight)
+_RING_BYTES = RING * (16 + 2 * 8)  # per entry: a 16-byte step, two mbarriers
 _SIGNATURES = {"sfc_matmul_cached_launch": (
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     ctypes.c_int)}
@@ -46,9 +51,11 @@ _SIGNATURES = {"sfc_matmul_cached_launch": (
 def shared_bytes(bm: int, bn: int, bk: int, nslots: int,
                  itemsize: int) -> int:
     """Shared memory the kernel needs: ``nslots`` A slots (bm x bk) and B
-    slots (bk x bn), padded to 16 bytes, then two int32 tags per slot."""
+    slots (bk x bn), padded to 16 bytes; the ring (``RING`` entries of one
+    16-byte step and two 8-byte mbarriers); then four int32 per slot (the
+    tag and the last step that used it, for A and for B)."""
     slots = nslots * (bm * bk + bk * bn) * itemsize
-    return -(-slots // 16) * 16 + 2 * 4 * nslots
+    return -(-slots // 16) * 16 + _RING_BYTES + 4 * 4 * nslots
 
 
 def _misses(ids: torch.Tensor, nslots: int) -> torch.Tensor:
@@ -129,6 +136,9 @@ def sfc_matmul_cached(a: torch.Tensor, b: torch.Tensor, *,
     if bm * bn > _MAX_TILE:
         raise ValueError(f"the kernel takes bm*bn <= {_MAX_TILE}, got "
                          f"{bm}x{bn}")
+    if mt * nt * (k // bk) >= 2 ** 30:
+        raise ValueError(f"the walk's {mt * nt * (k // bk)} steps must be "
+                         f"fewer than 2^30")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     sched_t = _device_table(schedule, mt, nt, 0, a.device)

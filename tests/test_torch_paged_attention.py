@@ -10,7 +10,7 @@ P.V), so it agrees with the reference within one bf16 rounding of the
 output: atol = rtol = 1e-2."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 

@@ -4,7 +4,7 @@ tables, free lists, refcounts and state_dicts; the Morton page
 permutation and the physical-row mapping are equal."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 

@@ -19,7 +19,7 @@ import sys
 from pathlib import Path
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch import device as device_mod
 from repro_torch.configs import get_smoke_config

@@ -3,6 +3,8 @@ on fixed text (the toolkit that produces it runs only beside the
 card)."""
 import pytest
 
+pytest.importorskip("torch")  # the repro_torch package imports torch
+
 from repro_torch.kernels.sass import _short, parse_ptxas, summarize
 
 PTXAS = """\

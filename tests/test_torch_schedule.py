@@ -2,7 +2,7 @@
 equal ``repro``'s exactly (tables, encode/decode on integer tensors)."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import curves as jcurves
 from repro.core.schedule import grid_schedule as jax_grid_schedule

@@ -13,7 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax
 import jax.numpy as jnp

@@ -5,7 +5,7 @@ lockstep paged ``ServeLoop`` with a Morton ``DotEngine``, on shared
 weights at the qwen3_1_7b SMOKE width (f32)."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax
 

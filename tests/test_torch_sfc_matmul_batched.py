@@ -15,7 +15,7 @@ route and the per-element B1 route are equal exactly: both walk the
 same tiles with the same f32 arithmetic."""
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 

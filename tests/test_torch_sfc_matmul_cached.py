@@ -17,7 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
 
@@ -26,8 +26,8 @@ from repro.kernels.sfc_matmul_cached import \
     sfc_matmul_cached as jax_sfc_matmul_cached
 from repro_torch.kernels import sfc_matmul_cached as cached_mod
 from repro_torch.kernels.sfc_matmul import tile_schedule
-from repro_torch.kernels.sfc_matmul_cached import SMEM_LIMIT, dma_counts, \
-    sfc_matmul_cached, shared_bytes
+from repro_torch.kernels.sfc_matmul_cached import RING, SMEM_LIMIT, \
+    dma_counts, sfc_matmul_cached, shared_bytes
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BLK = dict(bm=16, bn=16, bk=16)
@@ -84,7 +84,7 @@ def test_output_matches_reference_kernel(schedule):
 
 
 @pytest.mark.parametrize("schedule", ["rowmajor", "morton", "hilbert"])
-@pytest.mark.parametrize("nslots", [4, 16])
+@pytest.mark.parametrize("nslots", [1, 2, 4, 16])
 def test_counts_match_reference_kernel_and_loop_oracle(schedule, nslots):
     a, b = _rand((64, 64), 2), _rand((64, 64), 3)
     _, ref = jax_sfc_matmul_cached(jnp.asarray(a), jnp.asarray(b),
@@ -137,12 +137,18 @@ def test_paper_size_counts(setting):
 
 def test_shared_memory_limit():
     """The paper-size settings fit one block's shared memory; the
-    reference's defaults (128^3 blocks, 8 slots) do not, in f32 or bf16."""
-    assert shared_bytes(16, 16, 16, 64, 4) == 131072 + 512
-    assert shared_bytes(8, 8, 8, 256, 4) == 131072 + 2048
-    assert shared_bytes(128, 128, 128, 8, 4) == 1048576 + 64
-    assert shared_bytes(128, 128, 128, 8, 2) == 524288 + 64
-    assert shared_bytes(16, 16, 16, 64, 4) <= SMEM_LIMIT
+    reference's defaults (128^3 blocks, 8 slots) do not, in f32 or bf16.
+    Layout: the slots, the ring (128 entries of a 16-byte step and two
+    8-byte mbarriers: 4096 bytes), then four int32 per slot (tags and
+    last use of A and B)."""
+    assert RING == 128
+    assert shared_bytes(16, 16, 16, 16, 4) == 32768 + 4096 + 256
+    assert shared_bytes(16, 16, 16, 64, 4) == 131072 + 4096 + 1024
+    assert shared_bytes(8, 8, 8, 256, 4) == 131072 + 4096 + 4096
+    assert shared_bytes(128, 128, 128, 8, 4) == 1048576 + 4096 + 128
+    assert shared_bytes(128, 128, 128, 8, 2) == 524288 + 4096 + 128
+    for blk, nslots in B4_COUNTS:
+        assert shared_bytes(blk, blk, blk, nslots, 4) <= SMEM_LIMIT
     assert shared_bytes(128, 128, 128, 8, 2) > SMEM_LIMIT
     assert SMEM_LIMIT == 232448
 

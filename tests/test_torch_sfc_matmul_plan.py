@@ -5,7 +5,7 @@ functions, held here with the H100's 132 SMs passed in; the kernel
 that runs the plan is checked on the card by ``chip_smoke.py``.
 """
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.sfc_matmul import launch_plan, split_plan, \
     split_ranges
