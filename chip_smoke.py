@@ -21,10 +21,13 @@ just before it and read just after:
   equal the direct-mapped cache's counts exactly.
 
 It checks the launch counts and the outputs, times each kernel beside
-its bound, its plain version and the library call, and prints as its
-last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
-non-zero.  Without a CUDA device, or without the repository around it,
-it exits non-zero and prints no result.
+its bound, its plain version and the library call, and prints one JSON
+line of them (per serving step or per study), then B2 per launch at
+512, 4096 and 32768 tokens per slot on a JSON line of its own
+(``b2_long_context``), and as its last line ``{"ok": true, "device":
+{...}}``.  Any failed phase exits non-zero.  Without a CUDA device, or
+without the repository around it, it exits non-zero and prints no
+result.
 
 Tolerances (kernel against plain version, on the card, TF32 off):
 
@@ -42,10 +45,24 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   B4's hazard phase (1-3 slots at n = 256, one bf16 case with B1's bf16
   bound, one 32^3-block case, one odd block edge): counts equal to the
   oracle, C within bound, and two launches equal bit for bit.
-* B2 f32: <= 2e-5 absolute (O(1) outputs; online vs direct softmax).
-* B2 bf16: <= 3e-2 absolute: the plain version rounds the scores and
-  the softmax weights to bf16 as the reference does; the kernel keeps
-  both in f32.
+* B2 f32: <= 2e-5 absolute (O(1) outputs; online vs direct softmax,
+  the cluster's rank merge), in every case: empty and partly filled
+  tables at ps 4/8/16, the serving shape, qwen3-1.7b widths at
+  LONG_CONTEXTS (full, ragged one-long-three-short, past the table), a
+  split larger than the live pages, and ranks of more than 1024 pages
+  (32768 tokens with split 1 or 2, which restage their table).
+* B2 bf16: <= 3e-2 absolute, the same cases: the plain version rounds
+  the scores and the softmax weights to bf16 as the reference does; the
+  kernel keeps both in f32.
+* B2, both dtypes, every case: per slot, max |kernel - plain| <=
+  B2_SLOT_REL x the slot's largest |plain| output.  A full slot's
+  outputs shrink as 1/sqrt(tokens) (~0.009 at 32768), below the
+  absolute bf16 bound; this one holds them to their own scale.  At each
+  long context the script also shows that it refuses an output of
+  zeros and one from rank 0's pages only.
+* B2 run to run: two launches on the same inputs equal bit for bit at
+  the serving shape, at 32768 tokens and where ranks restage their
+  table, bf16 and f32 (the cluster's ranks are merged in a fixed order).
 * One full-width decode step, kernels against plain versions from an
   identical state: max |logit difference| <= LOGIT_BOUND with bf16
   weights, <= LOGIT_BOUND_F32 with the same weights in f32 (below).
@@ -65,6 +82,7 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 LOGIT_BOUND = 0.25             # one bf16 decode step, see the docstring
 LOGIT_BOUND_F32 = 1e-3         # the same step with f32 weights
+B2_SLOT_REL = 3e-2             # B2 per slot, against its largest output
 SLEEP_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz boost clock
 
 SLOTS = 4
@@ -72,6 +90,9 @@ PAGE_SIZE = 16
 CACHE_LEN = 64
 MAX_NEW = 16
 N_REQUESTS = 6                 # > SLOTS: two requests wait in the queue
+# B2 is also checked and timed at these contexts (tokens per slot, 4
+# slots): 32768 is qwen3-1.7b's native context
+LONG_CONTEXTS = (512, 4096, 32768)
 
 # the locality study: sizes, schedules, dtype and tile edge come from
 # configs/paper.py (see paper_study); B3 runs the smallest and the largest
@@ -183,15 +204,12 @@ def check_kernels(cfg) -> dict:
     shapes (and the variants around them).  Returns max errors."""
     import torch
 
-    from repro_torch.kernels.paged_attention import \
-        paged_decode_attention_cuda
-    from repro_torch.kernels.ref import paged_decode_attention_ref
     from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
         sfc_matmul_plain, tile_schedule
 
     rep = Report()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    errs = {"B1": 0.0, "B2": 0.0}
+    errs = {"B1": 0.0}
 
     def gemm_case(label, m, k, n, dtype, epilogue, out_f32=False,
                   schedule="morton", use_prefetch=True, blk=(128, 128, 128)):
@@ -255,6 +273,110 @@ def check_kernels(cfg) -> dict:
                 rep.failures.append(f"{label} run to run")
     rep.raise_if_failed("B1 checks")
 
+    errs.update(check_paged(cfg, gen))
+    errs["B3"] = check_batched(gen)
+    errs["B4"] = check_cached(gen)
+    return errs
+
+
+def long_context_inputs(cfg, ctx: int, dtype, gen, ps: int = PAGE_SIZE,
+                        d_head: int | None = None):
+    """(q, k_pages, v_pages, tables) of SLOTS slots with room for ``ctx``
+    tokens each, in ``ps``-token pages at qwen3-1.7b widths (``d_head``
+    overrides the head width): every slot's pages distinct rows of one
+    pool, in random order, the last row the reserved zero row."""
+    import torch
+    dh = d_head or cfg.d_head
+    maxp = -(-ctx // ps)
+    rows = SLOTS * maxp + 1
+    shape = (rows, ps, cfg.n_kv_heads, dh)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    kp[-1] = 0
+    vp[-1] = 0
+    tab = torch.randperm(rows - 1, generator=gen, device="cuda")
+    tab = tab.to(torch.int32).view(SLOTS, maxp).contiguous()
+    q = torch.randn(SLOTS, cfg.n_heads, dh, generator=gen,
+                    device="cuda").to(dtype)
+    return q, kp, vp, tab
+
+
+def serving_positions():
+    """Positions of the serving shape's timed step (build_state's)."""
+    import torch
+    return torch.tensor([24, 29, 35, 41], dtype=torch.int32, device="cuda")
+
+
+def slot_scaled_err(got, want) -> float:
+    """Largest over slots of max |got - want| / max |want| in the slot
+    (0 where both are all zero, inf where only ``want`` is)."""
+    import torch
+    diff = (got.float() - want.float()).abs().flatten(1).amax(1)
+    top = want.float().abs().flatten(1).amax(1)
+    ratio = torch.where(top > 0, diff / top.clamp_min(1e-30),
+                        torch.where(diff > 0, float("inf"), 0.0))
+    return float(ratio.max())
+
+
+def check_paged(cfg, gen) -> dict:
+    """B2 against its plain version: empty and partly filled tables at
+    ps 4/8/16; the serving shape; qwen3-1.7b widths at LONG_CONTEXTS
+    with 4 slots (full, ragged one-long-three-short, past the table); a
+    split larger than the slots' live pages; ranks of more than the
+    kernel's 1024 staged table entries; and two launches equal bit for
+    bit at the serving shape, at the longest context and where ranks
+    restage their table.  Every case also holds each slot to
+    B2_SLOT_REL of its own largest output.  Returns the max absolute
+    errors: "B2" over every case, and per long context."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import attn_split_plan, \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    rep = Report()
+    errs = {"B2": 0.0, **{f"B2@{ctx}": 0.0 for ctx in LONG_CONTEXTS}}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def case(label, q, kp, vp, tab, pos, key="B2", split=None):
+        got = paged_decode_attention_cuda(q, kp, vp, tab, pos, split=split)
+        want = paged_decode_attention_ref(q, kp, vp, tab, pos)
+        torch.cuda.synchronize()
+        tol = (2e-5, 0.0) if q.dtype == torch.float32 else (3e-2, 0.0)
+        name = (f"B2 {str(q.dtype)[6:]} {label}"
+                f"{'' if split is None else f' split={split}'}")
+        err = rep.check(name, got, want, *tol)
+        scaled = slot_scaled_err(got, want)
+        ok = scaled <= B2_SLOT_REL
+        print(f"  {'ok  ' if ok else 'FAIL'} {name}: per slot {scaled:.3e} "
+              f"of its largest output {float(want.float().abs().max()):.3e} "
+              f"(bound {B2_SLOT_REL:g})")
+        if not ok:
+            rep.failures.append(f"{name} per slot")
+        errs["B2"] = max(errs["B2"], err)
+        errs[key] = max(errs[key], err)
+        return want
+
+    def refuses(label, bad, want):
+        """The per-slot bound must refuse ``bad``, a wrong output."""
+        scaled = slot_scaled_err(bad, want)
+        err = float((bad.float() - want.float()).abs().max())
+        ok = scaled > B2_SLOT_REL
+        print(f"  {'ok  ' if ok else 'FAIL'} B2 {str(want.dtype)[6:]} {label}: "
+              f"refused, per slot {scaled:.3e} (absolute error {err:.3e})")
+        if not ok:
+            rep.failures.append(f"B2 {label} not refused")
+
+    def same_twice(label, q, kp, vp, tab, pos, split=None):
+        one = paged_decode_attention_cuda(q, kp, vp, tab, pos, split=split)
+        two = paged_decode_attention_cuda(q, kp, vp, tab, pos, split=split)
+        same = torch.equal(one, two)
+        print(f"  {'ok  ' if same else 'FAIL'} B2 {str(q.dtype)[6:]} {label}"
+              f"{'' if split is None else f' split={split}'}: two launches "
+              f"equal bit for bit")
+        if not same:
+            rep.failures.append(f"B2 {label} run to run")
+
     print("[kernels] B2 paged_decode_attention against its plain version")
     hkv, dh, h = cfg.n_kv_heads, cfg.d_head, cfg.n_heads
     for dtype in (torch.bfloat16, torch.float32):
@@ -277,17 +399,80 @@ def check_kernels(cfg) -> dict:
                     torch.tensor([span - 1, ps + 1, 3, 2 * ps],
                                  dtype=torch.int32, device="cuda")]
             for pos in poss:
-                got = paged_decode_attention_cuda(q, kp, vp, tab, pos)
-                want = paged_decode_attention_ref(q, kp, vp, tab, pos)
-                torch.cuda.synchronize()
-                tol = (2e-5, 0.0) if dtype == torch.float32 else (3e-2, 0.0)
                 label = "vector" if torch.is_tensor(pos) else f"scalar {pos}"
-                errs["B2"] = max(errs["B2"], rep.check(
-                    f"B2 {str(dtype)[6:]} ps={ps} pos {label}", got, want,
-                    *tol))
+                case(f"ps={ps} pos {label}", q, kp, vp, tab, pos)
+            # every slot has fewer live pages than the cluster has ranks
+            few = torch.tensor([3, ps + 2, 0, 2 * ps], dtype=torch.int32,
+                               device="cuda")
+            case(f"ps={ps} pos {few.tolist()}", q, kp, vp, tab, few, split=8)
+        # head shapes off the serving path: one query head per kv-head, a
+        # group of 7 (two chunks), d_head 64 and 256, and d_head 100 (rows
+        # of 200 or 400 bytes: plain loads in place of TMA)
+        for hh, kvh, d in ((8, 8, 64), (14, 2, 128), (8, 2, 256),
+                           (16, 8, 100)):
+            rows, maxp, ps = 33, 6, 16
+            kp = torch.randn(rows, ps, kvh, d, generator=gen,
+                             device="cuda").to(dtype)
+            vp = torch.randn(rows, ps, kvh, d, generator=gen,
+                             device="cuda").to(dtype)
+            kp[-1] = 0
+            vp[-1] = 0
+            q = torch.randn(SLOTS, hh, d, generator=gen,
+                            device="cuda").to(dtype)
+            tab = torch.randint(0, rows - 1, (SLOTS, maxp), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            pos = torch.tensor([95, 17, 0, 60], dtype=torch.int32,
+                               device="cuda")
+            case(f"H={hh} Hkv={kvh} d_head={d} pos {pos.tolist()}", q, kp,
+                 vp, tab, pos)
+        # the serving shape: 64-token cache, positions of the timed step
+        q, kp, vp, tab = long_context_inputs(cfg, CACHE_LEN, dtype, gen)
+        pos = serving_positions()
+        case(f"serving {pos.tolist()}", q, kp, vp, tab, pos)
+        case(f"serving {pos.tolist()}", q, kp, vp, tab, pos, split=8)
+        same_twice(f"serving {pos.tolist()}", q, kp, vp, tab, pos)
+        for ctx in LONG_CONTEXTS:
+            q, kp, vp, tab = long_context_inputs(cfg, ctx, dtype, gen)
+            key = f"B2@{ctx}"
+            want = case(f"ctx {ctx} pos {ctx - 1}", q, kp, vp, tab, ctx - 1,
+                        key)
+            # what the per-slot bound is for: a kernel that wrote zeros,
+            # or merged only rank 0's share of the pages
+            split = attn_split_plan(SLOTS, kp.shape[2], tab.shape[1], sms)
+            part = tab.shape[1] // split * PAGE_SIZE - 1
+            refuses(f"ctx {ctx} zeros", torch.zeros_like(want), want)
+            refuses(f"ctx {ctx} rank 0's {part + 1} tokens of {split} ranks",
+                    paged_decode_attention_ref(q, kp, vp, tab, part), want)
+            ragged = torch.tensor([ctx - 1, 5, 100, min(700, ctx - 2)],
+                                  dtype=torch.int32, device="cuda")
+            case(f"ctx {ctx} pos {ragged.tolist()}", q, kp, vp, tab, ragged,
+                 key)
+            case(f"ctx {ctx} pos {ctx + 50} (past the table)", q, kp, vp,
+                 tab, ctx + 50, key)
+            if ctx == LONG_CONTEXTS[-1]:
+                same_twice(f"ctx {ctx} pos {ctx - 1}", q, kp, vp, tab,
+                           ctx - 1)
+            del q, kp, vp, tab, want
+        # ranks of more than kTab = 1024 pages restage their table as
+        # they go: 32768 tokens in 16-token pages on one rank (2048
+        # pages), in 8-token pages on two and on one (2048 and 4096),
+        # and d_head 100 (plain loads) on one rank of 1100 pages
+        ctx = LONG_CONTEXTS[-1]
+        for ps, d, c, split in ((16, None, ctx, 1), (8, None, ctx, 2),
+                                (8, None, ctx, 1), (16, 100, 1100 * 16, 1)):
+            q, kp, vp, tab = long_context_inputs(cfg, c, dtype, gen, ps, d)
+            label = f"ctx {c} ps={ps} d_head={kp.shape[3]}"
+            ragged = torch.tensor([c - 1, 17000, 100, 1100 * ps - 3],
+                                  dtype=torch.int32, device="cuda")
+            for pos in (c - 1, ragged):
+                shown = pos.tolist() if torch.is_tensor(pos) else pos
+                case(f"{label} pos {shown}", q, kp, vp, tab, pos,
+                     split=split)
+            same_twice(f"{label} pos {ragged.tolist()}", q, kp, vp, tab,
+                       ragged, split=split)
+            del q, kp, vp, tab
+        torch.cuda.empty_cache()
     rep.raise_if_failed("B2 checks")
-    errs["B3"] = check_batched(gen)
-    errs["B4"] = check_cached(gen)
     return errs
 
 
@@ -693,13 +878,15 @@ def _time_ms(fn, iters: int, flush) -> float:
     return times[len(times) // 2]
 
 
-def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
+def time_kernels(cfg, state, pos, smi: str) -> tuple[list, list]:
     """Phase 5: per-kernel times at the main-path shapes, aggregated per
-    decode step (launch count x per-launch time)."""
+    decode step (launch count x per-launch time), and B2's host time per
+    wrapper call; then B2 per launch at LONG_CONTEXTS.  Returns (the
+    kernels line's B1 and B2 rows, the long-context rows)."""
     import torch
 
-    from repro_torch.kernels.paged_attention import \
-        paged_decode_attention_cuda
+    from repro_torch.kernels.paged_attention import attn_launch_plan, \
+        attn_split_plan, paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
     from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
         sfc_matmul_plain, split_plan, tile_schedule
@@ -752,18 +939,37 @@ def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
                   50, flush)
     plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, phys, pos),
                      20, flush)
-    ps, hkv, dh = kp.shape[1], kp.shape[2], kp.shape[3]
-    pages = sum(min(int(p) // ps + 1, phys.shape[1]) for p in pos.tolist())
-    nbytes = (2 * pages * ps * hkv * dh * 2 + 2 * q.numel() * 2
-              + phys.numel() * 4 + pos.numel() * 4)
-    flops = 4.0 * cfg.n_heads * dh * pages * ps
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
+    nbytes, bound = b2_bound(q, kp, phys, pos)
     n_l = cfg.n_layers
+    split = attn_split_plan(SLOTS, kp.shape[2], phys.shape[1], sms)
     print(f"[time] B2 paged_decode_attention per launch, {SLOTS} slots at "
-          f"positions {pos.tolist()}, ps={ps}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bound:.5f} ms (bytes), x{n_l} per step "
-          f"({smi})")
-    return [
+          f"positions {pos.tolist()}, ps={kp.shape[1]}: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {bound:.5f} ms (bytes), x{n_l} per "
+          f"step; split {split}, {nbytes / ms / 1e6:.0f} GB/s, "
+          f"{bound / ms:.1%} of the bound ({smi})")
+    # the wrapper's host time: wall clock over many calls in a row (each
+    # checks its operands, looks up its shape's plan and launches), with
+    # the plan worked out afresh as a comparison
+    plan = (SLOTS, q.shape[1], kp.shape[2], q.shape[2], kp.shape[1],
+            phys.shape[1], kp.element_size(), sms)
+    host = {}
+    for name, fn in (
+            ("wrapper call", lambda: paged_decode_attention_cuda(
+                q, kp, vp, phys, pos)),
+            ("plan, not cached", lambda: attn_launch_plan.__wrapped__(
+                *plan)),
+            ("plan, cached", lambda: attn_launch_plan(*plan))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        host[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print("[time] B2 host time per call (wall clock, 2000 calls): "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in host.items())
+          + f"; x{n_l} per step = {n_l * host['wrapper call'] / 1e3:.3f} "
+          f"ms of wrapper calls per decode step")
+    rows = [
         {"name": "B1 sfc_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sfc_matmul.cu",
          "replaces": "src/repro/kernels/sfc_matmul.py:148",
@@ -776,6 +982,84 @@ def time_kernels(cfg, state, pos, smi: str) -> list[dict]:
          "ms": n_l * ms, "plain_ms": n_l * plain, "bound_ms": n_l * bound,
          "bound_by": "bytes", "library_ms": None},
     ]
+    del q, kp, vp
+    return rows, time_long_contexts(cfg, flush, smi)
+
+
+def b2_bound(q, kp, phys, pos) -> tuple[int, float]:
+    """(bytes, bound ms) of one B2 launch on these inputs: the live
+    pages' K and V rows read once (this run's positions), q read and the
+    output written once, the tables and positions; against the bytes,
+    4 * d_head FLOP per query head and live token at the f32 rate."""
+    import torch
+    ps, hkv, dh = kp.shape[1:]
+    es = kp.element_size()
+    b = q.shape[0]
+    poss = torch.as_tensor(pos).reshape(-1).expand(b).tolist()
+    pages = sum(min(p // ps + 1, phys.shape[1]) for p in poss if p >= 0)
+    nbytes = (2 * pages * ps * hkv * dh * es + 2 * q.numel() * es
+              + phys.numel() * 4 + b * 4)
+    flops = 4.0 * q.shape[1] * dh * pages * ps
+    return nbytes, max(nbytes / HBM_BYTES_PER_S,
+                       flops / F32_FLOPS_PER_S) * 1e3
+
+
+def time_long_contexts(cfg, flush, smi: str) -> list[dict]:
+    """B2 per launch at LONG_CONTEXTS (4 slots, every slot at its last
+    token, bf16): kernel, plain version, bound, GB/s and split, and as a
+    yardstick PyTorch's scaled_dot_product_attention (enable_gqa) on the
+    same K/V gathered beforehand into contiguous (B, Hkv, L, dh) tensors:
+    not the same function, and the gather is not timed.  One row each for
+    the ``b2_long_context`` line: every time in it is per launch."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import attn_split_plan, \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(512)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    print(f"[time] B2 paged_decode_attention per launch at long contexts, "
+          f"{SLOTS} slots, ps={PAGE_SIZE}, bf16, L2 flushed ({smi})")
+    for ctx in LONG_CONTEXTS:
+        q, kp, vp, tab = long_context_inputs(cfg, ctx, torch.bfloat16, gen)
+        # on the device already: a host int would be copied inside the
+        # timed window, behind the device sleep
+        pos = torch.full((SLOTS,), ctx - 1, dtype=torch.int32, device="cuda")
+        ms = _time_ms(lambda: paged_decode_attention_cuda(q, kp, vp, tab,
+                                                          pos), 20, flush)
+        plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, tab,
+                                                            pos), 3, flush)
+        nbytes, bound = b2_bound(q, kp, tab, pos)
+        split = attn_split_plan(SLOTS, kp.shape[2], tab.shape[1], sms)
+        hkv, dh = kp.shape[2], kp.shape[3]
+        kc = kp[tab.long()].reshape(SLOTS, -1, hkv, dh)[:, :ctx]
+        vc = vp[tab.long()].reshape(SLOTS, -1, hkv, dh)[:, :ctx]
+        kc = kc.transpose(1, 2).contiguous()
+        vc = vc.transpose(1, 2).contiguous()
+        qs = q[:, :, None, :]
+        sdpa = _time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, enable_gqa=True), 20, flush)
+        print(f"  ctx {ctx:6d}: kernel {ms:.4f} ms, {nbytes / ms / 1e6:.0f} "
+              f"GB/s, {bound / ms:.1%} of the bound {bound:.4f} ms (bytes, "
+              f"{nbytes / 1e6:.1f} MB); split {split}, "
+              f"{SLOTS * hkv * split} blocks; plain {plain:.4f} ms; "
+              f"scaled_dot_product_attention {sdpa:.4f} ms (yardstick: not "
+              f"the same function; gather not timed)")
+        rows.append({
+            "name": "B2 paged_decode_attention",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "slots": SLOTS,
+            "tokens_per_slot": ctx, "split": split,
+            "ms_per_launch": ms, "plain_ms_per_launch": plain,
+            "bound_ms_per_launch": bound, "bound_by": "bytes",
+            "share_of_bound": bound / ms, "gb_per_s": nbytes / ms / 1e6,
+            "sdpa_ms_per_launch": sdpa})
+        del q, kp, vp, tab, kc, vc, qs
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------- locality study ----
@@ -1003,7 +1287,7 @@ def main() -> int:
     cfg32, params32, state32 = to_f32(cfg, params, state)
     compare_step(cfg32, params32, state32, toks, pos, LOGIT_BOUND_F32)
     del params32, state32
-    rows = time_kernels(cfg, state, pos, smi)
+    rows, long_rows = time_kernels(cfg, state, pos, smi)
     profile_steps(cfg, params, state, toks, pos, smi)
     del params, state
     torch.cuda.empty_cache()
@@ -1013,6 +1297,8 @@ def main() -> int:
     for row, kid in zip(rows, ("B1", "B2", "B3", "B4")):
         row["launches"] = launches[kid]
         row["max_abs_err"] = errs[kid]
+    for row in long_rows:
+        row["max_abs_err"] = errs[f"B2@{row['tokens_per_slot']}"]
     print("kernels: [B1 sfc_matmul, B2 paged_decode_attention, B3 "
           "sfc_matmul_batched, B4 sfc_matmul_cached], all cuda")
     print(f"[summary] step logits max err {step['max_abs_err']:.4e}, "
@@ -1021,6 +1307,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    print(json.dumps({"b2_long_context": long_rows}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the SFC GEMMs, their epilogue and paged
-decode attention (port of ``repro.kernels.ref``).
+decode attention (port of ``repro.kernels.ref``), and a plain mirror of
+the paged attention kernel's cluster split.
 
 They are the CPU path of the kernel wrappers, the yardstick that
 ``chip_smoke.py`` holds each CUDA kernel against on the card, and, for
@@ -17,7 +18,8 @@ import torch
 __all__ = ["ACTIVATIONS", "apply_activation", "apply_epilogue_ref",
            "matmul_ref", "matmul_batched_ref", "matmul_fused_ref",
            "matmul_batched_fused_ref", "matmul_blocked_ref",
-           "paged_decode_attention_ref"]
+           "paged_decode_attention_ref", "attn_live_pages",
+           "attn_page_ranges", "paged_decode_attention_split_ref"]
 
 # epilogue activations the fused kernel supports
 ACTIVATIONS = ("none", "relu", "gelu", "silu")
@@ -139,3 +141,79 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", w, v)
     return out.reshape(b, h, dh)
+
+
+def attn_live_pages(pos: int, page_size: int, max_pages: int) -> int:
+    """Pages of a slot the paged attention kernel reads: those with
+    ``p * page_size <= pos``, at most the table's ``max_pages`` (a stale
+    position past the table reads every page); none for ``pos < 0``."""
+    return 0 if pos < 0 else min(pos // page_size + 1, max_pages)
+
+
+def attn_page_ranges(live: int, split: int) -> list[tuple[int, int]]:
+    """[lo, hi) of the live pages each cluster rank of the paged attention
+    kernel takes: contiguous, in rank order, sizes differing by at most
+    one; ranks past ``live`` pages get an empty range (csrc: lo, hi)."""
+    return [(r * live // split, (r + 1) * live // split) for r in range(split)]
+
+
+def paged_decode_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor,
+                                     phys_tables: torch.Tensor, cur_pos,
+                                     split: int) -> torch.Tensor:
+    """The paged attention kernel's split in plain PyTorch.
+
+    Arguments as :func:`paged_decode_attention_ref`.  Each of ``split``
+    ranks runs an f32 online softmax, page by page, over its
+    :func:`attn_page_ranges` share of the slot's :func:`attn_live_pages`
+    (scores and weights in f32, masked positions weight 0; an empty rank
+    keeps m = -1e30, l = 0, acc = 0); then the ranks are merged in rank
+    order (global max, rescale, sum) and ``acc / l`` is cast once to the
+    value dtype.  Tests hold it to the reference; the card's path never
+    calls it."""
+    b, h, dh = q.shape
+    _, page_size, hkv, _ = k_pages.shape
+    g = h // hkv
+    max_pages = phys_tables.shape[1]
+    pos = torch.as_tensor(cur_pos, device=q.device).to(torch.int64)
+    pos = pos.reshape(-1).expand(b)
+    ranges = torch.tensor(
+        [attn_page_ranges(attn_live_pages(p, page_size, max_pages), split)
+         for p in pos.tolist()], device=q.device)      # (b, split, 2)
+    qg = q.float().reshape(b, hkv, g, dh)
+    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+    offs = torch.arange(page_size, device=q.device)
+    ranks = []
+    for r in range(split):
+        lo, hi = ranges[:, r, 0], ranges[:, r, 1]
+        m = torch.full((b, hkv, g), -1e30, device=q.device)
+        l = torch.zeros(b, hkv, g, device=q.device)
+        acc = torch.zeros(b, hkv, g, dh, device=q.device)
+        for i in range(int((hi - lo).max())):
+            p = lo + i
+            rows = phys_tables.gather(
+                1, p.clamp(max=max_pages - 1)[:, None])[:, 0].long()
+            kk = k_pages[rows].float()                 # (b, ps, hkv, dh)
+            vv = v_pages[rows].float()
+            s = torch.einsum("bhgd,bthd->bhgt", qg, kk) * scale
+            ok = (p < hi)[:, None] & (p[:, None] * page_size + offs
+                                      <= pos[:, None])
+            ok = ok[:, None, None, :]
+            s = torch.where(ok, s, torch.full_like(s, -1e30))
+            mn = torch.maximum(m, s.amax(-1))
+            a = torch.exp(m - mn)
+            w = torch.where(ok, torch.exp(s - mn[..., None]),
+                            torch.zeros_like(s))
+            l = l * a + w.sum(-1)
+            acc = acc * a[..., None] + torch.einsum("bhgt,bthd->bhgd", w, vv)
+            m = mn
+        ranks.append((m, l, acc))
+    big_m = torch.stack([m for m, _, _ in ranks]).amax(0)
+    big_l = torch.zeros_like(big_m)
+    big_a = torch.zeros_like(ranks[0][2])
+    for m, l, acc in ranks:
+        f = torch.exp(m - big_m)
+        big_l = big_l + l * f
+        big_a = big_a + acc * f[..., None]
+    out = big_a / big_l[..., None]
+    return out.reshape(b, h, dh).to(v_pages.dtype)

@@ -46,8 +46,8 @@ from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
 
 __all__ = ["sfc_matmul_cuda", "sfc_matmul_batched_cuda", "sfc_matmul_plain",
            "sfc_matmul_batched_plain", "decode_step", "tile_schedule",
-           "split_plan", "split_ranges", "launch_plan", "launches",
-           "batched_launches"]
+           "split_plan", "split_ranges", "launch_plan", "sm_count",
+           "launches", "batched_launches"]
 
 # kernel launches made by sfc_matmul_cuda (B1) and sfc_matmul_batched_cuda
 # (B3); CPU calls are not counted
@@ -133,7 +133,8 @@ def launch_plan(a: torch.Tensor, b: torch.Tensor, *, bk: int, bn: int,
     return vec, split_plan(m, n, k, bn, a.dtype, sms) if vec else 1
 
 
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
     key = str(device)
     if key not in _SM_COUNT:
         _SM_COUNT[key] = torch.cuda.get_device_properties(
@@ -280,7 +281,7 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
         decode_step(torch.zeros(1, dtype=torch.int64), schedule, mt, nt)
         sched_t, mode = None, _MODE_CODE[schedule]
         order = mt.bit_length() - 1 if schedule == "hilbert" else 0
-    vec, split = launch_plan(a, b, bk=bk, bn=bn, sms=_sm_count(a.device))
+    vec, split = launch_plan(a, b, bk=bk, bn=bn, sms=sm_count(a.device))
     out = torch.empty(*a.shape[:-2], m, n, dtype=out_dtype, device=a.device)
     batch = [a.shape[0]] if a.dim() == 3 else []
     lib = _build.load("sfc_matmul", _SIGNATURES)
