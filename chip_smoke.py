@@ -13,7 +13,11 @@ just before it and read just after:
 
 * serving: full-width qwen3-1.7b (random weights from a seed) through
   ``ServeLoop`` with the Morton-scheduled SFC GEMM (B1) and the paged
-  decode attention kernel (B2);
+  decode attention kernel (B2), the same 6 requests in lockstep and in
+  continuous mode (chunked prefill under a 32-token budget, prefix
+  sharing on), then a prefix-sharing run (a 64-token shared prefix with
+  ragged tails and a duplicate prompt that arrives while its source
+  decodes: prefix hits, shared pages, copy-on-write forks);
 * the paper's locality study (``configs/paper.py``, n = 2^10 and 2^12):
   the batched SFC GEMM (B3) through ``DotEngine.dot_batched`` under
   row-major, Morton and Hilbert order, and the software-cached SFC GEMM
@@ -22,9 +26,12 @@ just before it and read just after:
 
 It checks the launch counts and the outputs, times each kernel beside
 its bound, its plain version and the library call, and prints one JSON
-line of them (per serving step or per study), then B2 per launch at
-512, 4096 and 32768 tokens per slot on a JSON line of its own
-(``b2_long_context``), and as its last line ``{"ok": true, "device":
+line of them (per serving decode step or per study; B1's and B2's
+launches are the continuous run's), then B2 per launch at 512, 4096
+and 32768 tokens per slot on a JSON line of its own
+(``b2_long_context``), the two serving modes side by side
+(``serve_modes``), B1 per launch at a prefill chunk's shapes
+(``b1_prefill``), and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.
@@ -66,6 +73,18 @@ Tolerances (kernel against plain version, on the card, TF32 off):
 * One full-width decode step, kernels against plain versions from an
   identical state: max |logit difference| <= LOGIT_BOUND with bf16
   weights, <= LOGIT_BOUND_F32 with the same weights in f32 (below).
+* B1 at a prefill chunk's shapes (M = SLOTS x PREFILL_BUDGET = 128, the
+  tile path): B1's bf16 and f32 bounds above, and two launches equal
+  bit for bit.
+* One full-width prefill chunk (ragged rows reading back an earlier
+  chunk's pages, one pad row), kernels against plain versions from an
+  identical state: every K/V entry of the pool within KV_BOUND in bf16
+  (O(1) values; a bf16 rounding step of the activations, 2**-8
+  relative, flipped in a layer is carried by the ones after it, as in
+  the logits' bound) and KV_BOUND_F32 in f32.  A 48-token prompt's K/V
+  from two chunks against one single-shot ``prefill_kv``: the same
+  bounds (the chunk attends over its slot's gathered pages, the single
+  shot over the prompt, so the attention sums differ in order).
 """
 from __future__ import annotations
 
@@ -82,6 +101,8 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 LOGIT_BOUND = 0.25             # one bf16 decode step, see the docstring
 LOGIT_BOUND_F32 = 1e-3         # the same step with f32 weights
+KV_BOUND = 0.25                # one bf16 prefill chunk's K/V, see above
+KV_BOUND_F32 = 1e-3            # the same chunk with f32 weights
 B2_SLOT_REL = 3e-2             # B2 per slot, against its largest output
 SLEEP_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz boost clock
 
@@ -90,6 +111,12 @@ PAGE_SIZE = 16
 CACHE_LEN = 64
 MAX_NEW = 16
 N_REQUESTS = 6                 # > SLOTS: two requests wait in the queue
+PREFILL_BUDGET = 32            # continuous mode: prompt tokens per step
+# the prefix-sharing run: a 64-token prefix, tails of these lengths, a
+# cache long enough for prefix + tail + MAX_NEW
+SHARED_PREFIX = 64
+SHARED_TAILS = (7, 19, 30)
+SHARED_CACHE_LEN = 128
 # B2 is also checked and timed at these contexts (tokens per slot, 4
 # slots): 32768 is qwen3-1.7b's native context
 LONG_CONTEXTS = (512, 4096, 32768)
@@ -183,6 +210,16 @@ def main_path_gemms(cfg):
             ("head->f32", SLOTS, d, v, "none", True, 1)]
 
 
+def chunk_gemms(cfg):
+    """(name, M, K, N, epilogue, out f32, launches per chunk step) of
+    every B1 call one prefill chunk makes at full width: M = SLOTS x
+    PREFILL_BUDGET rows (the tile path), every projection but the head."""
+    m = SLOTS * PREFILL_BUDGET
+    return [(name, m, k, n, ep, f32, count)
+            for name, _, k, n, ep, f32, count in main_path_gemms(cfg)
+            if name != "head->f32"]
+
+
 def _gemm_inputs(m, k, n, dtype, gen, epilogue):
     import torch
     a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
@@ -212,8 +249,9 @@ def check_kernels(cfg) -> dict:
     errs = {"B1": 0.0}
 
     def gemm_case(label, m, k, n, dtype, epilogue, out_f32=False,
-                  schedule="morton", use_prefetch=True, blk=(128, 128, 128)):
-        a, b, kw = _gemm_inputs(m, k, n, dtype, gen, epilogue)
+                  schedule="morton", use_prefetch=True, blk=(128, 128, 128),
+                  generator=gen):
+        a, b, kw = _gemm_inputs(m, k, n, dtype, generator, epilogue)
         out_dtype = torch.float32 if out_f32 else None
         bm, bn, bk = blk
         got = sfc_matmul_cuda(a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
@@ -265,6 +303,22 @@ def check_kernels(cfg) -> dict:
             out_dtype = torch.float32 if f32 else None
             one = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
             two = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
+            same = torch.equal(one, two)
+            label = f"B1 {name} {m}x{k}x{n} {str(dtype)[6:]}"
+            print(f"  {'ok  ' if same else 'FAIL'} {label}: two launches "
+                  f"equal bit for bit")
+            if not same:
+                rep.failures.append(f"{label} run to run")
+    # a prefill chunk's GEMMs (M = 128, the tile path), from a generator
+    # of their own so the later phases draw the inputs they always drew
+    print("[kernels] B1 at a prefill chunk's shapes (tile path)")
+    gen_chunk = torch.Generator(device="cuda").manual_seed(4321)
+    for name, m, k, n, ep, f32, _ in chunk_gemms(cfg):
+        for dtype in (torch.bfloat16, torch.float32):
+            gemm_case(name, m, k, n, dtype, ep, f32, generator=gen_chunk)
+            a, b, kw = _gemm_inputs(m, k, n, dtype, gen_chunk, ep)
+            one = sfc_matmul_cuda(a, b, **kw)
+            two = sfc_matmul_cuda(a, b, **kw)
             same = torch.equal(one, two)
             label = f"B1 {name} {m}x{k}x{n} {str(dtype)[6:]}"
             print(f"  {'ok  ' if same else 'FAIL'} {label}: two launches "
@@ -633,65 +687,243 @@ def check_cached(gen) -> float:
 
 
 # ------------------------------------------------------------- serving ----
-def serve(cfg, params) -> dict:
-    """Phase 3: full-width lockstep paged serving through the kernels."""
+def checked_loop(cfg, params, sc):
+    """A ServeLoop whose sampler first checks each logit row (finite),
+    and which marks each decode step and each prefill chunk with CUDA
+    events (no host sync added): the device-timeline span of each."""
     import numpy as np
     import torch
 
-    import repro_torch.kernels.paged_attention as pa_mod
-    import repro_torch.kernels.sfc_matmul as sfc_mod
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import DotEngine
-    from repro_torch.serve import ServeConfig
-
-    rows_checked = [0]
 
     class CheckedLoop(ServeLoop):
-        """ServeLoop whose sampler first checks the logit row."""
+        rows_checked = 0
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.marks = {"decode": [], "chunk": []}
 
         def _sample(self, logits_row):
             if not np.isfinite(logits_row).all():
                 raise SystemExit("chip_smoke: non-finite logits in serving")
-            rows_checked[0] += 1
+            self.rows_checked += 1
             return super()._sample(logits_row)
 
-    sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
-                     eos_id=-1, layout="paged", mode="lockstep", seed=0)
-    loop = CheckedLoop(cfg, params, sc, engine=DotEngine(schedule="morton"),
+        def _mark(self, kind, fn, *a):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a)
+            e.record()
+            self.marks[kind].append((s, e, out))
+            return out
+
+        def _step(self, *a):
+            return self._mark("decode", super()._step, *a)
+
+        def _prefill_step(self):
+            return self._mark("chunk", super()._prefill_step)
+
+        def spans_ms(self, kind):
+            """ms of each marked call (chunks: those that prefilled)."""
+            return [s.elapsed_time(e) for s, e, out in self.marks[kind]
+                    if kind == "decode" or out]
+
+    return CheckedLoop(cfg, params, sc, engine=DotEngine(schedule="morton"),
                        device="cuda")
+
+
+def serving_prompts(cfg):
+    """The serving phases' 6 requests: 16-32 random prompt tokens."""
+    import numpy as np
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(2, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(16, 33, size=N_REQUESTS)]
+    return [rng.integers(2, cfg.vocab, size=int(n)).tolist()
+            for n in rng.integers(16, 33, size=N_REQUESTS)]
+
+
+def _kernel_launches():
+    import repro_torch.kernels.paged_attention as pa_mod
+    import repro_torch.kernels.sfc_matmul as sfc_mod
+    return {"B1": sfc_mod.launches, "B2": pa_mod.launches}
+
+
+def _zero_launches():
+    import repro_torch.kernels.paged_attention as pa_mod
+    import repro_torch.kernels.sfc_matmul as sfc_mod
+    sfc_mod.launches = 0
+    pa_mod.launches = 0
+
+
+def want_launches(cfg, loop) -> dict:
+    """B1 and B2 launches of a serving run: 7 projections a layer and
+    the head per decode step, the 7 projections a layer per prefill
+    chunk, one B2 a layer per decode step."""
+    n_l = cfg.n_layers
+    return {"B1": loop.steps * (7 * n_l + 1) + loop.chunk_steps * 7 * n_l,
+            "B2": loop.steps * n_l}
+
+
+def serve(cfg, params, mode: str = "lockstep") -> dict:
+    """Phase 3: full-width paged serving through the kernels, lockstep
+    or continuous (chunked prefill under PREFILL_BUDGET, prefix sharing
+    on), the same N_REQUESTS requests."""
+    import torch
+
+    from repro_torch.serve import ServeConfig
+
+    tag = "[serve]" if mode == "lockstep" else f"[serve {mode}]"
+    sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
+                     eos_id=-1, layout="paged", mode=mode,
+                     prefill_budget=PREFILL_BUDGET, seed=0)
+    loop = checked_loop(cfg, params, sc)
+    prompts = serving_prompts(cfg)
     for r, p in enumerate(prompts):
         loop.submit(r, p)
     torch.cuda.synchronize()
-    sfc_mod.launches = 0
-    pa_mod.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     out = loop.run(max_new=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"B1": sfc_mod.launches, "B2": pa_mod.launches}
-    steps = loop.steps
-    want = {"B1": steps * (7 * cfg.n_layers + 1), "B2": steps * cfg.n_layers}
-    print(f"[serve] {N_REQUESTS} requests, prompts "
+    launches = _kernel_launches()
+    steps, chunks = loop.steps, loop.chunk_steps
+    want = want_launches(cfg, loop)
+    print(f"{tag} {N_REQUESTS} requests, prompts "
           f"{[len(p) for p in prompts]}, max_new {MAX_NEW}, {SLOTS} slots, "
           f"admission order {loop.admitted}, {loop.preemptions} preemptions")
-    print(f"[serve] {steps} decode_step calls ({sum(len(p) for p in prompts)}"
-          f" prefill tokens); launches B1 {launches['B1']} (want "
-          f"{want['B1']}), B2 {launches['B2']} (want {want['B2']})")
+    if mode == "lockstep":
+        print(f"[serve] {steps} decode_step calls ({sum(len(p) for p in prompts)}"
+              f" prefill tokens); launches B1 {launches['B1']} (want "
+              f"{want['B1']}), B2 {launches['B2']} (want {want['B2']})")
+    else:
+        per = loop.prefill_tokens_per_step
+        print(f"{tag} {steps} decode_step calls and {chunks} prefill chunks "
+              f"of {SLOTS}x{PREFILL_BUDGET} ({sum(per)} prefill tokens, "
+              f"at most {max(per)} a step: {[n for n in per if n]}); "
+              f"launches B1 {launches['B1']} (want {want['B1']}), B2 "
+              f"{launches['B2']} (want {want['B2']})")
+        if max(per) > PREFILL_BUDGET:
+            raise SystemExit(f"chip_smoke: a step prefilled {max(per)} > "
+                             f"{PREFILL_BUDGET} tokens")
     if launches != want:
         raise SystemExit(f"chip_smoke: launch counts {launches} != {want}")
     for r, p in enumerate(prompts):
         if len(out[r]) != len(p) + MAX_NEW or out[r][:len(p)] != p:
             raise SystemExit(f"chip_smoke: request {r} returned "
                              f"{len(out[r])} tokens")
-    if rows_checked[0] != N_REQUESTS * MAX_NEW:
+    if loop.rows_checked != N_REQUESTS * MAX_NEW:
         raise SystemExit("chip_smoke: not every sampled row was checked")
+    loop.alloc.check_invariants()
+    if loop.alloc.pages_in_use:
+        raise SystemExit(f"chip_smoke: {loop.alloc.pages_in_use} pages "
+                         f"still in use after the drain")
     gen_tokens = N_REQUESTS * MAX_NEW
-    return {"launches": launches, "steps": steps, "wall_s": wall,
-            "tokens": gen_tokens, "tok_per_s": gen_tokens / wall,
-            "ms_per_step": wall * 1e3 / steps}
+    decode_ms = loop.spans_ms("decode")
+    chunk_ms = loop.spans_ms("chunk")
+    return {"mode": mode, "launches": launches, "steps": steps,
+            "chunk_steps": chunks, "wall_s": wall, "tokens": gen_tokens,
+            "tok_per_s": gen_tokens / wall,
+            "ms_per_step": wall * 1e3 / (steps + chunks),
+            "ms_per_decode_step": sum(decode_ms) / len(decode_ms),
+            "ms_per_chunk_step": (sum(chunk_ms) / len(chunk_ms)
+                                  if chunk_ms else None),
+            "out": out, "prompts": prompts}
+
+
+def token_agreement(lock: dict, cont: dict) -> list[int]:
+    """Per request: generated tokens of the continuous run equal to the
+    lockstep run's at the same index (printed, not gated: the chunk's
+    tile-path GEMMs and the decode's rows path sum bf16 products in
+    different orders, so greedy tokens may part at a near tie)."""
+    agree = []
+    for r, p in enumerate(lock["prompts"]):
+        a, b = lock["out"][r][len(p):], cont["out"][r][len(p):]
+        agree.append(sum(x == y for x, y in zip(a, b)))
+    first = [next((i for i, (x, y) in enumerate(zip(
+        lock["out"][r][len(p):], cont["out"][r][len(p):])) if x != y), None)
+        for r, p in enumerate(lock["prompts"])]
+    print(f"[serve] continuous against lockstep: generated tokens agreeing "
+          f"per request {agree} of {MAX_NEW} (first difference at "
+          f"{first}; printed, not gated)")
+    return agree
+
+
+def serve_shared(cfg, params) -> dict:
+    """Phase 3b: prefix sharing at full width.  One prompt of a
+    SHARED_PREFIX-token prefix and a tail (several chunks) is served
+    until it decodes; then its duplicate (a whole-table clone, whose
+    first write into the shared tail page forks it) and two prompts of
+    the same prefix with other tails (adopted from the prefix index,
+    tails prefilled in chunks) arrive, driven through the loop's
+    scheduler iterations.  Checks hits, shared pages, forks, launch
+    counts, the budget and the allocator's invariants."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeConfig
+
+    sc = ServeConfig(slots=SLOTS, cache_len=SHARED_CACHE_LEN,
+                     page_size=PAGE_SIZE, eos_id=-1, layout="paged",
+                     mode="continuous", prefill_budget=PREFILL_BUDGET,
+                     prefix_sharing=True, seed=0)
+    loop = checked_loop(cfg, params, sc)
+    rng = np.random.default_rng(64)
+    prefix = rng.integers(2, cfg.vocab, size=SHARED_PREFIX).tolist()
+    tails = [rng.integers(2, cfg.vocab, size=n).tolist()
+             for n in SHARED_TAILS]
+    source = prefix + tails[0]
+    later = [list(source), prefix + tails[1], prefix + tails[2]]
+    span = loop.alloc.max_pages_per_slot * PAGE_SIZE
+    torch.cuda.synchronize()
+    _zero_launches()
+    loop.submit(0, source)
+    iters = 0
+    while not loop.active.any():
+        loop._iteration_body(MAX_NEW)
+        iters += 1
+    for r, p in enumerate(later, start=1):
+        loop.submit(r, p)
+    out = loop.run(max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    want = want_launches(cfg, loop)
+    st = loop.alloc.stats
+    per = loop.prefill_tokens_per_step
+    print(f"[serve shared] prompts {[len(source)] + [len(p) for p in later]}"
+          f" ({SHARED_PREFIX}-token prefix), the source decoding after "
+          f"{iters} iterations; chunk attention span {span} tokens a slot "
+          f"({loop.alloc.max_pages_per_slot} pages of {PAGE_SIZE}); "
+          f"{loop.steps} decode steps, {loop.chunk_steps} chunks, prefill "
+          f"tokens {[n for n in per if n]}; {loop.preemptions} preemptions")
+    print(f"[serve shared] prefix_hits {st['prefix_hits']}, shared_pages "
+          f"{st['shared_pages']}, cow_forks {st['cow_forks']}, revived "
+          f"{st['revived']}; launches B1 {launches['B1']} (want "
+          f"{want['B1']}), B2 {launches['B2']} (want {want['B2']}); the "
+          f"duplicate's tokens equal its source's: "
+          f"{out[1][len(source):] == out[0][len(source):]} (printed, not "
+          f"gated)")
+    bad = []
+    if not (st["prefix_hits"] > 0 and st["shared_pages"] > 0
+            and st["cow_forks"] > 0):
+        bad.append("no prefix hit, shared page or fork")
+    if launches != want:
+        bad.append(f"launch counts {launches} != {want}")
+    if max(per) > PREFILL_BUDGET:
+        bad.append(f"a step prefilled {max(per)} tokens")
+    if loop.rows_checked != (len(later) + 1) * MAX_NEW:
+        bad.append("not every sampled row was checked")
+    try:
+        loop.alloc.check_invariants()
+    except RuntimeError as e:
+        bad.append(str(e))
+    if loop.alloc.pages_in_use:
+        bad.append(f"{loop.alloc.pages_in_use} pages in use after the drain")
+    if bad:
+        raise SystemExit(f"chip_smoke: prefix-sharing run failed: {bad}")
+    print("[serve shared] allocator invariants hold after the drain")
+    return {"stats": dict(st), "steps": loop.steps,
+            "chunk_steps": loop.chunk_steps}
 
 
 class plain_versions:
@@ -794,11 +1026,131 @@ def to_f32(cfg, params, state):
         return {k: cast(v) if isinstance(v, dict) else v.float()
                 for k, v in tree.items()}
 
+    return (dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32"), cast(params),
+            state_f32(state))
+
+
+def state_f32(state):
+    """A clone of ``state`` with f32 KV pages."""
     st = state.clone()
     for key in ("k_pages", "v_pages"):
         st[key] = st[key].float()
-    return (dataclasses.replace(cfg, param_dtype="float32",
-                                act_dtype="float32"), cast(params), st)
+    return st
+
+
+def chunk_gang(cfg, alloc, state, rows):
+    """The inputs of one prefill chunk, (tokens, slots, starts, lengths)
+    on the card, for ``rows`` = [(slot, prompt, start, length)], the
+    other rows pads (length 0) on spare slots, as the serving loop
+    builds them; allocates the pages and uploads the block tables."""
+    import numpy as np
+    import torch
+
+    toks = np.zeros((SLOTS, PREFILL_BUDGET), np.int32)
+    sl, st, ln = (np.zeros(SLOTS, np.int32) for _ in range(3))
+    for i, (slot, prompt, start, n) in enumerate(rows):
+        alloc.ensure_range(slot, start + n)
+        toks[i, :n] = prompt[start:start + n]
+        sl[i], st[i], ln[i] = slot, start, n
+    spare = iter(s for s in range(SLOTS) if s not in {r[0] for r in rows})
+    for i in range(len(rows), SLOTS):
+        sl[i] = next(spare)
+    state["block_tables"] = torch.tensor(alloc.block_table, device="cuda")
+    return tuple(torch.tensor(x, device="cuda") for x in (toks, sl, st, ln))
+
+
+def chunk_state(cfg, params):
+    """A paged state after one prefill chunk through the kernels (slot 0
+    positions [0, 16), slot 1 [0, 9)), and the next chunk's inputs:
+    slot 0 [16, 32), slot 1 [9, 21), slot 2 [0, 4) and a pad row, 32
+    tokens; the first two rows attend back over the first chunk's
+    pages."""
+    import numpy as np
+
+    from repro_torch.models import DotEngine, prefill_kv_chunk
+    from repro_torch.serve.paged_kv import init_paged_serving
+
+    alloc, state = init_paged_serving(cfg, SLOTS, CACHE_LEN,
+                                      page_size=PAGE_SIZE, device="cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(2, cfg.vocab, size=n).tolist()
+               for n in (32, 21, 4)]
+    first = chunk_gang(cfg, alloc, state, [(0, prompts[0], 0, 16),
+                                           (1, prompts[1], 0, 9)])
+    prefill_kv_chunk(params, cfg, state, *first, DotEngine(schedule="morton"))
+    second = chunk_gang(cfg, alloc, state, [(0, prompts[0], 16, 16),
+                                            (1, prompts[1], 9, 12),
+                                            (2, prompts[2], 0, 4)])
+    return state, second
+
+
+def _pool_err(a, b) -> float:
+    return max(float((a[key].float() - b[key].float()).abs().max())
+               for key in ("k_pages", "v_pages"))
+
+
+def compare_chunk(cfg, params, state, gang, bound: float) -> dict:
+    """Phase 4b: one full-width prefill chunk on the kernels vs on the
+    plain versions, from clones of one state: every K/V entry of the
+    pool (the chunk writes 32 of 4 slots x 64 positions a layer)."""
+    import torch
+
+    from repro_torch.models import DotEngine, prefill_kv_chunk
+
+    eng = DotEngine(schedule="morton")
+    got = prefill_kv_chunk(params, cfg, state.clone(), *gang, eng)
+    with plain_versions():
+        want = prefill_kv_chunk(params, cfg, state.clone(), *gang, eng)
+    torch.cuda.synchronize()
+    err = _pool_err(got, want)
+    finite = all(bool(torch.isfinite(got[k]).all())
+                 for k in ("k_pages", "v_pages"))
+    top = max(float(want[k].float().abs().max())
+              for k in ("k_pages", "v_pages"))
+    print(f"[chunk] full-width {cfg.param_dtype} prefill chunk "
+          f"({SLOTS}x{PREFILL_BUDGET}, rows {gang[3].tolist()} tokens), "
+          f"kernels vs plain versions: max |K/V diff| {err:.4e} over the "
+          f"pool (bound {bound:g}; largest |K/V| {top:.3f})")
+    if not finite or err > bound:
+        raise SystemExit("chip_smoke: prefill chunk disagrees with the "
+                         "plain versions")
+    return {"max_abs_err": err}
+
+
+def compare_chunked_single(cfg, params, bound: float) -> float:
+    """Phase 4c: a 48-token prompt's K/V from two chunks (32 + 16,
+    the other rows pads) against one single-shot ``prefill_kv``, both
+    through the kernels."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import DotEngine, prefill_kv, prefill_kv_chunk
+    from repro_torch.serve.paged_kv import init_paged_serving
+
+    eng = DotEngine(schedule="morton")
+    prompt = np.random.default_rng(48).integers(2, cfg.vocab,
+                                                size=48).tolist()
+    alloc, chunked = init_paged_serving(cfg, SLOTS, CACHE_LEN,
+                                        page_size=PAGE_SIZE, device="cuda")
+    for start, n in ((0, PREFILL_BUDGET), (PREFILL_BUDGET, 16)):
+        gang = chunk_gang(cfg, alloc, chunked, [(0, prompt, start, n)])
+        prefill_kv_chunk(params, cfg, chunked, *gang, eng)
+    alloc1, single = init_paged_serving(cfg, SLOTS, CACHE_LEN,
+                                        page_size=PAGE_SIZE, device="cuda")
+    alloc1.ensure_range(0, len(prompt))
+    single["block_tables"] = torch.tensor(alloc1.block_table, device="cuda")
+    prefill_kv(params, cfg, single, prompt, slot=0, engine=eng)
+    torch.cuda.synchronize()
+    err = _pool_err(chunked, single)
+    same_tables = alloc.state_dict() == alloc1.state_dict()
+    print(f"[chunk] {cfg.param_dtype} 48-token prompt, K/V of two chunks "
+          f"against one prefill_kv: max |diff| {err:.4e} (bound {bound:g}); "
+          f"block tables equal: {same_tables}")
+    if err > bound or not same_tables:
+        raise SystemExit("chip_smoke: chunked K/V disagree with the single "
+                         "shot")
+    return err
 
 
 def profile_steps(cfg, params, state, toks, pos, smi: str, n: int = 3):
@@ -984,6 +1336,112 @@ def time_kernels(cfg, state, pos, smi: str) -> tuple[list, list]:
     ]
     del q, kp, vp
     return rows, time_long_contexts(cfg, flush, smi)
+
+
+def time_chunk_gemms(cfg, smi: str) -> dict:
+    """Phase 5b: B1 per launch at a prefill chunk's shapes (bf16, M =
+    128, the tile path) beside its bound, its plain version and
+    ``torch.matmul``, L2 flushed; and the sums over one chunk step's
+    196 launches.  Returns the ``b1_prefill`` line's object."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
+        sfc_matmul_plain, tile_schedule
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    gen = torch.Generator(device="cuda").manual_seed(128)
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0, "flop": 0.0, "launches": 0}
+    print(f"[time] B1 sfc_matmul per launch at a prefill chunk's shapes, "
+          f"bf16, morton table, tile path ({smi})")
+    for name, m, k, n, ep, f32, count in chunk_gemms(cfg):
+        a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
+        sched = tile_schedule("morton", -(-m // 128), -(-n // 128),
+                              use_prefetch=True, device="cuda")
+        ms = _time_ms(lambda: sfc_matmul_cuda(a, b, **kw), 20, flush)
+        plain = _time_ms(lambda: sfc_matmul_plain(
+            a, b, sched=sched, bm=128, bn=128, bk=128, **kw), 3, flush)
+        lib = _time_ms(lambda: torch.matmul(a, b), 20, flush)
+        nbytes = (m * k + k * n + m * n) * 2 + \
+            (m * n * 2 if ep == "residual" else 0)
+        flop = 2.0 * m * n * k
+        bound = max(nbytes / HBM_BYTES_PER_S, flop / BF16_FLOPS_PER_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_PER_S >= flop / BF16_FLOPS_PER_S \
+            else "operations"
+        print(f"  {name:10s} {m}x{k}x{n}: kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+              f"torch.matmul {lib:.4f} ms ({flop / lib / 1e9:.2f} TFLOP/s), "
+              f"bound {bound:.4f} ms ({by}); x{count} per chunk step; "
+              f"{ms / lib:.2f}x torch.matmul")
+        rows.append({"name": name, "m": m, "k": k, "n": n,
+                     "launches_per_chunk_step": count, "ms": ms,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                     "bound_by": by})
+        tot["ms"] += count * ms
+        tot["plain_ms"] += count * plain
+        tot["library_ms"] += count * lib
+        tot["bound_ms"] += count * bound
+        tot["bytes"] += count * nbytes
+        tot["flop"] += count * flop
+        tot["launches"] += count
+    print(f"[time] B1 per prefill chunk step ({tot['launches']} launches, "
+          f"{tot['bytes'] / 1e6:.1f} MB, {tot['flop'] / 1e9:.1f} GFLOP): "
+          f"kernel {tot['ms']:.3f} ms ({tot['flop'] / tot['ms'] / 1e9:.2f} "
+          f"TFLOP/s), torch.matmul {tot['library_ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms; kernel "
+          f"{tot['ms'] / tot['library_ms']:.2f}x torch.matmul, "
+          f"{tot['bound_ms'] / tot['ms']:.1%} of the bound ({smi})")
+    return {"b1_prefill": {"per_launch": rows, "per_chunk_step": tot,
+                           "card": smi}}
+
+
+def profile_chunk(cfg, params, state, gang, smi: str, n: int = 3) -> dict:
+    """Phase 6b: where a prefill chunk step's time goes on the card, from
+    a torch.profiler trace of ``n`` chunks on one state (device time by
+    kernel, device busy share of the traced wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import DotEngine, prefill_kv_chunk
+
+    eng = DotEngine(schedule="morton")
+    st = state.clone()
+    prefill_kv_chunk(params, cfg, st, *gang, eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        prefill_kv_chunk(params, cfg, st, *gang, eng)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            prefill_kv_chunk(params, cfg, st, *gang, eng)
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) / n
+    by_kernel: dict[str, float] = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = float(e.self_device_time_total)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")[:72]
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+    busy = sum(by_kernel.values())
+    print(f"[profile] prefill chunk step ({smi}): {plain_wall * 1e3:.3f} ms "
+          f"wall untraced, {traced_wall * 1e3:.3f} ms traced; device busy "
+          f"{busy:.3f} ms per chunk = {busy / (traced_wall * 1e3):.1%} of "
+          f"the traced wall (idle share {1 - busy / (traced_wall * 1e3):.1%})")
+    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.4f} ms/chunk  {ms / busy:6.1%}  {name}")
+    return {"wall_ms": plain_wall * 1e3, "traced_ms": traced_wall * 1e3,
+            "busy_ms": busy}
 
 
 def b2_bound(q, kp, phys, pos) -> tuple[int, float]:
@@ -1282,18 +1740,36 @@ def main() -> int:
     print(f"[serve] {sv['tokens']} generated tokens in {sv['wall_s']:.3f}s: "
           f"{sv['tok_per_s']:.2f} tok/s, {sv['ms_per_step']:.3f} ms per "
           f"decode_step (prefill steps included) ({smi})")
+    cv = serve(cfg, params, "continuous")
+    print(f"[serve continuous] {cv['tokens']} generated tokens in "
+          f"{cv['wall_s']:.3f}s: {cv['tok_per_s']:.2f} tok/s "
+          f"({cv['tok_per_s'] / sv['tok_per_s']:.2f}x lockstep), "
+          f"{cv['steps']} decode steps of {cv['ms_per_decode_step']:.3f} ms "
+          f"and {cv['chunk_steps']} prefill chunks of "
+          f"{cv['ms_per_chunk_step']:.3f} ms (device-timeline spans; "
+          f"lockstep {sv['ms_per_decode_step']:.3f} ms a step) ({smi})")
+    agree = token_agreement(sv, cv)
+    shared = serve_shared(cfg, params)
     state, toks, pos = build_state(cfg, params)
     step = compare_step(cfg, params, state, toks, pos, LOGIT_BOUND)
+    cstate, gang = chunk_state(cfg, params)
+    chunk = compare_chunk(cfg, params, cstate, gang, KV_BOUND)
+    compare_chunked_single(cfg, params, KV_BOUND)
     cfg32, params32, state32 = to_f32(cfg, params, state)
     compare_step(cfg32, params32, state32, toks, pos, LOGIT_BOUND_F32)
+    compare_chunk(cfg32, params32, state_f32(cstate), gang, KV_BOUND_F32)
+    compare_chunked_single(cfg32, params32, KV_BOUND_F32)
     del params32, state32
+    torch.cuda.empty_cache()
     rows, long_rows = time_kernels(cfg, state, pos, smi)
+    b1_prefill = time_chunk_gemms(cfg, smi)
     profile_steps(cfg, params, state, toks, pos, smi)
+    chunk_prof = profile_chunk(cfg, params, cstate, gang, smi)
     del params, state
     torch.cuda.empty_cache()
     study, b3_in, b4_in = locality_study()
     rows += time_study(b3_in, b4_in, smi)
-    launches = {**sv["launches"], "B3": study["B3"], "B4": study["B4"]}
+    launches = {**cv["launches"], "B3": study["B3"], "B4": study["B4"]}
     for row, kid in zip(rows, ("B1", "B2", "B3", "B4")):
         row["launches"] = launches[kid]
         row["max_abs_err"] = errs[kid]
@@ -1303,11 +1779,24 @@ def main() -> int:
           "sfc_matmul_batched, B4 sfc_matmul_cached], all cuda")
     print(f"[summary] step logits max err {step['max_abs_err']:.4e}, "
           f"greedy agree {step['agree']}/{SLOTS}; serve "
-          f"{sv['tok_per_s']:.2f} tok/s")
+          f"{sv['tok_per_s']:.2f} tok/s; chunk K/V max err "
+          f"{chunk['max_abs_err']:.4e}; continuous {cv['tok_per_s']:.2f} "
+          f"tok/s, agreeing with lockstep {sum(agree)}/{N_REQUESTS * MAX_NEW}"
+          f" tokens; prefix sharing: {shared['stats']['prefix_hits']} hits, "
+          f"{shared['stats']['cow_forks']} forks")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"b2_long_context": long_rows}))
+    modes = []
+    for run in (sv, cv):
+        modes.append({k: run[k] for k in (
+            "mode", "tok_per_s", "tokens", "wall_s", "steps", "chunk_steps",
+            "ms_per_decode_step", "ms_per_chunk_step")})
+    modes[1]["agree_with_lockstep"] = agree
+    modes[1]["chunk_profile"] = chunk_prof
+    print(json.dumps({"serve_modes": modes, "card": smi}))
+    print(json.dumps(b1_prefill))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,39 @@
-"""Batched serving loop, lockstep scheduler over the paged KV cache
-(port of the lockstep paged path of ``repro.launch.serve.ServeLoop``).
+"""Batched serving loop over the paged KV cache, lockstep or continuous
+(port of the paged paths of ``repro.launch.serve.ServeLoop``).
 
 A fixed pool of decode slots shares one paged KV pool (Morton-ordered
-physical pages, per-slot block tables, copy-free release).  A request's
-whole prompt is prefilled at admission, token by token through the
-decode step with a one-hot row mask; live slots then decode together,
-each on its own position.  Pool exhaustion mid-decode preempts the most
-recently admitted other slot, which rejoins the queue with its full
-context.  Every projection runs through the SFC GEMM kernel and every
-layer's attention through the paged decode kernel when the engine has a
-curve schedule and the device is ``cuda``.
+physical pages, per-slot block tables, copy-free release).  Two
+schedulers (:attr:`repro_torch.serve.ServeConfig.mode`):
 
-Not ported yet (ROADMAP.md): continuous batching, copy-on-write prefix
-sharing, chaos injection, snapshots, energy metering, observability,
-the tuner, the NaN guard and deadlines.
+* ``lockstep``: a request's whole prompt is prefilled at admission,
+  token by token through the decode step with a one-hot row mask; live
+  slots then decode together, each on its own position.
+* ``continuous``: requests join and leave mid-flight.  Prompts are
+  prefilled in chunks (``prefill_kv_chunk``, one gang of ``slots`` rows
+  x ``prefill_budget`` tokens a step) interleaved with decode steps, so
+  a long prompt never stalls the slots already decoding.  With
+  ``prefix_sharing`` (the default), slots whose prompts share
+  page-aligned prefixes map the same pages through a prefix index, an
+  identical prompt clones its live source's whole block table, and a
+  write into a shared page forks a private copy first (copy-on-write).
+
+Both schedulers give the same greedy tokens for the same requests, as
+in the reference.  Pool exhaustion preempts the most recently admitted
+other busy slot, which rejoins the queue with its full context.  Every
+projection runs through the SFC GEMM kernel (the rows path in decode,
+the tile path in a prefill chunk) and every decode step's attention
+through the paged decode kernel when the engine has a curve schedule
+and the device is ``cuda``; a chunk's attention over its slots' pages
+is plain torch, as it is XLA in the reference.
+
+Not ported yet (ROADMAP.md): the contiguous layout, chaos injection,
+snapshots, energy metering, observability, the tuner, the NaN guard,
+deadlines and load shedding.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \\
-      --layout paged --requests 4 --max-new 16
+      --mode continuous --requests 6 --max-new 16
+
+(``--smoke --device cpu`` runs the SMOKE config on the CPU.)
 """
 from __future__ import annotations
 
@@ -28,14 +45,15 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models import DotEngine, decode_step, init_model
+from repro_torch.models import DotEngine, decode_step, init_model, \
+    prefill_kv_chunk
 from repro_torch.serve import PoolExhausted, ServeConfig
 from repro_torch.serve.paged_kv import init_paged_serving, \
     page_permutation, pages_needed
 
 
 class ServeLoop:
-    """Lockstep serving over the paged KV pool.
+    """Lockstep or continuous serving over the paged KV pool.
 
     ``params`` must already live on ``device`` (``cuda`` unless the
     caller passes ``device="cpu"``).  ``engine`` defaults to
@@ -48,17 +66,32 @@ class ServeLoop:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the loop serves on {self.device}")
+        if sc.mode == "continuous":
+            if not cfg.has_attention or cfg.has_ssm:
+                raise ValueError(
+                    f"continuous batching needs a pure-attention family "
+                    f"(chunked prefill), got {cfg.family!r}")
+            if cfg.swa_window is not None:
+                raise ValueError(
+                    "continuous batching does not support SWA rings yet")
         self.cfg = cfg
         self.params = params
         self.engine = engine or DotEngine()
+        self.mode = sc.mode
         self.slots = sc.slots
         self.page_size = sc.page_size
+        self.prefill_budget = sc.prefill_budget
+        # prefix sharing needs the mid-flight admissions that make a
+        # shared prefix reachable (continuous)
+        self.prefix_sharing = bool(sc.prefix_sharing
+                                   and sc.mode == "continuous")
         self.temperature = sc.temperature
         self.eos_id = sc.eos_id
         self.rng = np.random.default_rng(sc.seed)
         self.alloc, self.state = init_paged_serving(
             cfg, sc.slots, sc.cache_len, page_size=sc.page_size,
-            num_pages=sc.num_pages, device=self.device)
+            num_pages=sc.num_pages, prefix_sharing=self.prefix_sharing,
+            device=self.device)
         self._perm_np = page_permutation(cfg.n_layers, self.alloc.num_pages)
         self.pos = np.zeros(sc.slots, np.int32)   # next position per slot
         self.active = np.zeros(sc.slots, bool)
@@ -72,7 +105,18 @@ class ServeLoop:
         self._admit_counter = 0
         self.preemptions = 0
         self.admitted: list[int] = []   # request ids in admission order
-        self.steps = 0                  # decode_step calls, prefill included
+        # continuous bookkeeping: a slot mid-prefill has _prefill_len >= 0
+        # (its prompt's length) and _prefill_done tokens written;
+        # _slot_prompt keeps the admitted prompt for chunking, prefix
+        # registration and clone matching
+        self._prefill_len = np.full(sc.slots, -1, np.int64)
+        self._prefill_done = np.zeros(sc.slots, np.int64)
+        self._slot_prompt: list[list[int] | None] = [None] * sc.slots
+        # prompt tokens prefilled per continuous iteration (each entry
+        # <= prefill_budget)
+        self.prefill_tokens_per_step: list[int] = []
+        self.steps = 0          # decode_step calls, lockstep prefill included
+        self.chunk_steps = 0    # prefill_kv_chunk calls
 
     # ------------------------------------------------------ paged helpers --
     def _sync_tables(self):
@@ -81,13 +125,44 @@ class ServeLoop:
 
     def _scrub_pages(self, page_ids):
         """Zero the physical rows (all layers) of newly allocated pages
-        that were freed before; a fresh pool is already zero."""
+        that were freed before; a fresh pool is already zero.  COW forks
+        skip this (their copy overwrites every row), and so do adopted
+        prefix pages (their content is the requested prefix)."""
         dirty = [pid for pid in page_ids if self.alloc.was_freed(pid)]
         rows = [int(r) for pid in dirty for r in self._perm_np[:, pid]]
         if rows:
             idx = torch.as_tensor(rows, device=self.device)
             self.state["k_pages"][idx] = 0
             self.state["v_pages"][idx] = 0
+
+    def _cow_forks(self) -> bool:
+        """Copy-on-write: fork any shared page an active slot is about
+        to write this step (refcount > 1 at its write position), copying
+        the old page's physical rows of every layer into the private
+        page.  Pool exhaustion during a fork preempts like any other
+        allocation; a preemption can drop the refcount to 1 and make the
+        fork unnecessary, hence the re-check."""
+        forked = False
+        for s in range(self.slots):
+            if not self.active[s]:
+                continue
+            p = int(self.pos[s])
+            while self.alloc.needs_fork(s, p):
+                try:
+                    old, new = self.alloc.fork(s, p)
+                except PoolExhausted:
+                    if not self._preempt_victim(s):
+                        raise
+                    continue
+                src = torch.as_tensor(self._perm_np[:, old],
+                                      device=self.device).long()
+                dst = torch.as_tensor(self._perm_np[:, new],
+                                      device=self.device).long()
+                self.state["k_pages"][dst] = self.state["k_pages"][src]
+                self.state["v_pages"][dst] = self.state["v_pages"][src]
+                forked = True
+                break
+        return forked
 
     def _step(self, toks: np.ndarray, pos, mask: np.ndarray):
         dev = self.device
@@ -100,16 +175,22 @@ class ServeLoop:
         return logits
 
     def _preempt_victim(self, needer: int) -> bool:
-        """Requeue the most recently admitted other active slot with its
-        full context as a new prompt (its generation budget carries
-        over) and release its pages.  False when the needer is the only
-        active slot."""
-        cands = [s for s in range(self.slots) if s != needer and self.active[s]]
+        """Requeue the most recently admitted other busy slot (decoding
+        or mid-prefill) with its full context as a new prompt (its
+        generation budget carries over) and release its references (a
+        victim sharing prefix pages frees only its private pages).
+        False when the needer is the only busy slot."""
+        cands = [s for s in range(self.slots)
+                 if s != needer
+                 and (self.active[s] or self._prefill_len[s] >= 0)]
         if not cands:
             return False
         victim = max(cands, key=lambda s: self._admit_seq[s])
         req = self.slot_req[victim]
         self.active[victim] = False
+        self._prefill_len[victim] = -1
+        self._prefill_done[victim] = 0
+        self._slot_prompt[victim] = None
         self.alloc.release(victim)
         self._sync_tables()
         self.preemptions += 1
@@ -150,10 +231,155 @@ class ServeLoop:
             self.pos[slot] = len(prompt)
             self.active[slot] = True
             self.slot_req[slot] = req_id
+            self._slot_prompt[slot] = list(prompt)
             self.out[req_id] = list(prompt)
             self.request_emitted.setdefault(req_id, 0)
             self._admit_seq[slot] = self._admit_counter
             self._admit_counter += 1
+
+    def _clone_source(self, prompt: list[int]) -> int | None:
+        """A live, fully prefilled slot whose admitted prompt equals
+        ``prompt``: its whole block table (partial tail included) can be
+        shared by reference."""
+        for s in range(self.slots):
+            if self.active[s] and self._slot_prompt[s] == prompt:
+                return s
+        return None
+
+    def _admit_continuous(self):
+        """Continuous admission: claim a free slot at once, share what
+        the prefix index already holds (or clone a live identical
+        prompt's table), and leave the rest of the prompt to the chunked
+        prefill stream."""
+        for slot in range(self.slots):
+            if not self.queue:
+                break
+            if self.active[slot] or self._prefill_len[slot] >= 0:
+                continue
+            req_id, prompt = self.queue[0]
+            need = pages_needed(len(prompt), self.page_size)
+            if need > self.alloc.num_pages:
+                raise RuntimeError(
+                    f"prompt of {len(prompt)} tokens exceeds the whole page "
+                    f"pool ({self.alloc.num_pages} pages x {self.page_size} "
+                    f"tokens)")
+            clone_src = self._clone_source(prompt) \
+                if self.prefix_sharing else None
+            if clone_src is not None:
+                cost = 0   # every page shared by reference
+            else:
+                # pages to draw from the free pools: the unmatched ones
+                # plus cached (ref 0) matches, which are revived out of
+                # the free pool; live matches are adopted for free
+                matched = self.alloc.index.match(prompt, self.page_size) \
+                    if self.prefix_sharing else []
+                cost = need - sum(1 for pid in matched
+                                  if self.alloc.refcount(pid) > 0)
+            want = min(cost + 1, self.alloc.num_pages)
+            if want > self.alloc.free_pages:
+                break   # head-of-line blocks until a release frees pages
+            self.queue.pop(0)
+            self.admitted.append(req_id)
+            self.slot_req[slot] = req_id
+            self._slot_prompt[slot] = list(prompt)
+            self.out[req_id] = list(prompt)
+            self.request_emitted.setdefault(req_id, 0)
+            self._admit_seq[slot] = self._admit_counter
+            self._admit_counter += 1
+            if clone_src is not None:
+                # whole-table fork: no prefill compute; the first write
+                # into a shared page forks it
+                self.alloc.clone_table(clone_src, slot)
+                self._sync_tables()
+                self.pos[slot] = len(prompt)
+                self.active[slot] = True
+                continue
+            adopted = self.alloc.adopt_prefix(slot, prompt) \
+                if self.prefix_sharing else 0
+            if adopted:
+                self._sync_tables()
+            if adopted >= len(prompt):
+                # a page-aligned prompt served whole from the index
+                self.pos[slot] = len(prompt)
+                self.active[slot] = True
+            else:
+                self._prefill_len[slot] = len(prompt)
+                self._prefill_done[slot] = adopted
+
+    def _prefill_step(self) -> int:
+        """One chunked-prefill gang under the per-step token budget:
+        oldest admissions first, each taking up to the budget left.  The
+        gang is always (slots, prefill_budget), short rows padded and
+        pad rows of length 0, so every chunk's GEMMs have M = slots x
+        prefill_budget.  Returns the prompt tokens prefilled."""
+        gang = [s for s in range(self.slots) if self._prefill_len[s] >= 0]
+        if not gang:
+            return 0
+        gang.sort(key=lambda s: self._admit_seq[s])
+        budget = self.prefill_budget
+        rows: list[tuple[int, int, int]] = []
+        for s in gang:
+            if budget <= 0:
+                break
+            take = min(budget,
+                       int(self._prefill_len[s] - self._prefill_done[s]))
+            if take <= 0:
+                continue
+            rows.append((s, int(self._prefill_done[s]), take))
+            budget -= take
+        if not rows:
+            return 0
+        new: list[int] = []
+        for s, done, take in rows:
+            while True:
+                try:
+                    new += self.alloc.ensure_range(s, done + take)
+                    break
+                except PoolExhausted:
+                    if not self._preempt_victim(s):
+                        raise
+        # a preemption may have evicted a later gang member: keep only
+        # the rows still mid-prefill
+        rows = [(s, d, t) for s, d, t in rows if self._prefill_len[s] >= 0]
+        if new:
+            self._scrub_pages(new)
+        self._sync_tables()
+        if not rows:
+            return 0
+        toks = np.zeros((self.slots, self.prefill_budget), np.int32)
+        sl = np.zeros(self.slots, np.int32)
+        st = np.zeros(self.slots, np.int32)
+        ln = np.zeros(self.slots, np.int32)
+        for i, (s, done, take) in enumerate(rows):
+            toks[i, :take] = self._slot_prompt[s][done:done + take]
+            sl[i] = s
+            st[i] = done
+            ln[i] = take
+        # pad rows (length 0) take distinct spare slot ids
+        spare = iter(s for s in range(self.slots)
+                     if s not in {r[0] for r in rows})
+        for i in range(len(rows), self.slots):
+            sl[i] = next(spare)
+        dev = self.device
+        self.state = prefill_kv_chunk(
+            self.params, self.cfg, self.state, torch.tensor(toks, device=dev),
+            torch.tensor(sl, device=dev), torch.tensor(st, device=dev),
+            torch.tensor(ln, device=dev), self.engine)
+        self.chunk_steps += 1
+        for s, done, take in rows:
+            self._prefill_done[s] = done + take
+            if self._prefill_done[s] >= self._prefill_len[s]:
+                # prompt fully cached: index its full pages, then decode
+                # on the slot's own clock; the first decode feeds the
+                # prompt's last token at position len(prompt), the
+                # lockstep discipline, which token parity depends on
+                if self.prefix_sharing:
+                    self.alloc.register_prefix(s, self._slot_prompt[s])
+                self._prefill_len[s] = -1
+                self._prefill_done[s] = 0
+                self.pos[s] = len(self._slot_prompt[s])
+                self.active[s] = True
+        return sum(t for _, _, t in rows)
 
     def _sample(self, logits_row: np.ndarray) -> int:
         if self.temperature <= 0:
@@ -165,8 +391,8 @@ class ServeLoop:
 
     def _decode_once(self, max_new: int):
         """One decode step over the live slots: page allocation (with
-        preemption on exhaustion), the step, then sampling and
-        retirement."""
+        preemption on exhaustion), copy-on-write forks, the step, then
+        sampling and retirement.  Shared by both schedulers."""
         new: list[int] = []
         for s in range(self.slots):
             while self.active[s]:
@@ -176,8 +402,10 @@ class ServeLoop:
                 except PoolExhausted:
                     if not self._preempt_victim(s):
                         raise
+        forked = self._cow_forks() if self.prefix_sharing else False
         if new:
             self._scrub_pages(new)
+        if new or forked:
             self._sync_tables()
         toks = np.zeros((self.slots, 1), np.int32)
         for s in range(self.slots):
@@ -195,17 +423,33 @@ class ServeLoop:
             self.pos[s] += 1
             if tok == self.eos_id or self.request_emitted[r] >= max_new:
                 self.active[s] = False
-                self.alloc.release(s)   # copy-free: metadata only
+                self._slot_prompt[s] = None
+                # copy-free: the slot drops its references; pages return
+                # to a free pool only at refcount zero
+                self.alloc.release(s)
                 self._sync_tables()
 
+    def _pending(self) -> bool:
+        return bool(self.queue or self.active.any()
+                    or (self._prefill_len >= 0).any())
+
+    def _iteration_body(self, max_new: int) -> None:
+        """One scheduler iteration: admission, then (continuous) one
+        prefill chunk, then one decode step over the live slots."""
+        if self.mode == "continuous":
+            self._admit_continuous()
+            self.prefill_tokens_per_step.append(self._prefill_step())
+        else:
+            self._admit()
+        if self.active.any():
+            self._decode_once(max_new)
+
     def run(self, max_new: int = 32) -> dict[int, list[int]]:
-        """Decode until queue and slots drain (max_new tokens per
+        """Serve until queue and slots drain (max_new tokens per
         request, tracked per request so a preempted request resumes its
         budget).  Returns request id -> prompt + generated tokens."""
-        while self.queue or self.active.any():
-            self._admit()
-            if self.active.any():
-                self._decode_once(max_new)
+        while self._pending():
+            self._iteration_body(max_new)
         return self.out
 
 
@@ -225,7 +469,15 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--mode", default="lockstep",
                     choices=["lockstep", "continuous"],
-                    help="scheduler (only lockstep is ported)")
+                    help="scheduler: lockstep (whole-prompt prefill at "
+                         "admission) or continuous batching with chunked "
+                         "prefill")
+    ap.add_argument("--prefill-budget", type=int, default=32,
+                    help="most prompt tokens prefilled per step (with "
+                         "--mode continuous)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="turn copy-on-write prompt-prefix sharing off "
+                         "(it applies with --mode continuous only)")
     ap.add_argument("--schedule", default="morton",
                     help="GEMM tile schedule of the SFC kernel, or 'xla' "
                          "for the torch.matmul baseline")
@@ -240,7 +492,9 @@ def main(argv=None):
     serve_cfg = ServeConfig(
         slots=args.slots, cache_len=args.cache_len,
         temperature=args.temperature, seed=args.seed, layout=args.layout,
-        page_size=args.page_size, num_pages=args.num_pages, mode=args.mode)
+        page_size=args.page_size, num_pages=args.num_pages, mode=args.mode,
+        prefill_budget=args.prefill_budget,
+        prefix_sharing=not args.no_prefix_sharing)
     if dev.type == "cuda" and args.schedule != "xla":
         from repro_torch.kernels import _build
         secs = _build.build()   # first-use nvcc, kept out of the timing
@@ -260,9 +514,9 @@ def main(argv=None):
     total_new = sum(len(v) - args.prompt_len for v in out.values())
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.name} on {where}: {args.requests} requests "
-          f"(lockstep, paged p{args.page_size}), {total_new} tokens, "
-          f"{loop.steps} decode steps in {dt:.2f}s "
-          f"({total_new / max(dt, 1e-9):.1f} tok/s), "
+          f"({args.mode}, paged p{args.page_size}), {total_new} tokens, "
+          f"{loop.steps} decode steps and {loop.chunk_steps} prefill chunks "
+          f"in {dt:.2f}s ({total_new / max(dt, 1e-9):.1f} tok/s), "
           f"{loop.preemptions} preemptions")
     for r, toks in sorted(out.items()):
         print(f"  req {r}: {toks[:args.prompt_len]} -> "

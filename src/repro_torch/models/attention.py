@@ -1,8 +1,11 @@
 """GQA attention (port of ``repro.models.attention``): q/k/v projection
-with qwen3's per-head qk-norm and RoPE, and one-token decode against
-the paged KV pool.  Prefill attention and the contiguous decode are not
-ported yet (ROADMAP.md queue A item 7)."""
+with qwen3's per-head qk-norm and RoPE, full-sequence (prefill)
+attention with the reference's q-chunked exact softmax, and one-token
+decode against the paged KV pool.  The contiguous decode is not ported
+yet (ROADMAP.md queue A item 7)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -10,7 +13,8 @@ from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 
 from .layers import DotEngine, apply_rope, init_linear, init_rms, rms_norm
 
-__all__ = ["init_attention", "paged_decode_attention"]
+__all__ = ["init_attention", "attention", "prefill_kv",
+           "paged_decode_attention"]
 
 
 def init_attention(generator, cfg, dtype=torch.float32, *, lead=(),
@@ -42,6 +46,70 @@ def _project_qkv(x, p, cfg, engine: DotEngine, cos, sin):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: (B, Sq, H, dh), k/v: (B, Sk, Hkv, dh) -> (B, Sq, H, dh); GQA by
+    grouping.  The reference's rounding points: scores in the operands'
+    dtype, then f32, scaled, masked with -1e30 (``mask`` broadcasts
+    against (B, Hkv, G, Sq, Sk)), softmax in f32, weights cast to
+    ``v.dtype`` before the second product.  Plain torch ops, as the
+    reference's are XLA's."""
+    b, sq, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(b, sq, h, dh)
+
+
+def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
+              q_chunk: int = 1024, residual=None, return_kv: bool = False):
+    """Full-sequence attention (prefill).  x: (B, S, d).
+
+    Causal iff ``cfg.causal``, sliding-window iff ``cfg.swa_window``.
+    Causal attention runs in q chunks of ``q_chunk`` rows (S must be a
+    multiple): chunk i attends to keys [lo, (i + 1) * q_chunk) with an
+    exact softmax, lo = 0 or the window's start aligned down to a chunk.
+    ``residual`` rides the out-projection's fused epilogue;
+    ``return_kv=True`` also returns the post-rope/qk-norm (k, v), what
+    the decode cache stores."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg, engine, cos, sin)
+    scale = 1.0 / math.sqrt(cfg.d_head)
+    window = cfg.swa_window
+    if not cfg.causal:
+        out = _sdpa(q, k, v, None, scale)
+    else:
+        c = min(q_chunk, s)
+        if s % c:
+            raise ValueError(f"sequence {s} is not a multiple of q_chunk {c}")
+        outs = []
+        for i in range(s // c):
+            hi = (i + 1) * c
+            lo = 0
+            if window is not None:
+                lo = max(0, hi - c - window + 1)
+                lo = (lo // c) * c
+            qpos = torch.arange(i * c, hi, device=x.device)[:, None]
+            kpos = torch.arange(lo, hi, device=x.device)[None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            outs.append(_sdpa(q[:, i * c:hi], k[:, lo:hi], v[:, lo:hi],
+                              mask[None, None, None], scale))
+        out = torch.cat(outs, dim=1)
+    out = engine.dot(out.reshape(b, s, -1), p["wo"], residual=residual)
+    return (out, k, v) if return_kv else out
+
+
+def prefill_kv(x, p, cfg, engine: DotEngine, cos, sin):
+    """(k, v) for cache seeding, no attention compute."""
+    _, k, v = _project_qkv(x, p, cfg, engine, cos, sin)
+    return k, v
 
 
 def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,

@@ -1,15 +1,18 @@
 """Dense transformer backbone (port of ``repro.models.transformer``):
-parameter init with the reference's distributions and the paged decode
-step.  Per-layer parameters are stacked on a leading ``n_layers`` axis
-as in the reference; a Python loop over that axis takes the place of
-``lax.scan``.  The full-sequence forward, the loss, bulk and chunked
-prefill and the contiguous decode wait for later slices (ROADMAP.md).
+parameter init with the reference's distributions, single-shot and
+chunked prefill into the paged pool, and the paged decode step.
+Per-layer parameters are stacked on a leading ``n_layers`` axis as in
+the reference; a Python loop over that axis takes the place of
+``lax.scan``.  The full-sequence forward, the loss and the contiguous
+layout wait for later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
@@ -18,7 +21,7 @@ from .config import ArchConfig
 from .layers import DotEngine, init_linear, init_rms, init_swiglu, rms_norm, \
     rope, swiglu_mlp
 
-__all__ = ["init_model", "decode_step"]
+__all__ = ["init_model", "decode_step", "prefill_kv", "prefill_kv_chunk"]
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -105,6 +108,157 @@ def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
     return _mask_padded_vocab(logits, cfg), state
 
 
+def _require_paged(state, what: str):
+    layout = getattr(state, "layout", None)
+    if layout is None or not layout.is_paged:
+        raise NotImplementedError(
+            f"{what}: only the paged KV layout is ported (ROADMAP.md queue "
+            f"A); build the state with serve.paged_kv.init_paged_serving")
+
+
+def _require_dense(cfg: ArchConfig, what: str):
+    if not cfg.has_attention or cfg.has_ssm:
+        raise ValueError(
+            f"{what} needs a pure-attention family, got {cfg.family!r}")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A)")
+
+
+def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
+               engine: DotEngine | None = None):
+    """Prefill one slot's paged KV cache from a prompt in one forward.
+
+    ``tokens``: (L,) prompt.  The per-layer post-rope (k, v), what
+    ``decode_step`` would have cached token by token, are written at
+    positions [0, L) through the slot's block table; the pages must be
+    allocated already (``PageAllocator.ensure_range``), and entries of
+    -1 write nothing.  Returns ``(logits (1, L, padded_vocab) f32,
+    state)``: the pool in ``state`` is updated **in place** (the
+    returned state is the same object).  Dense family, paged layout."""
+    from repro_torch.serve.paged_kv import pages_needed, physical_rows, \
+        zero_row_index
+
+    engine = engine or DotEngine()
+    _require_dense(cfg, "prefill_kv")
+    _require_paged(state, "prefill_kv")
+    kp, vp = state["k_pages"], state["v_pages"]
+    dev = kp.device
+    toks = torch.as_tensor(tokens, device=dev).to(torch.int64).reshape(1, -1)
+    seq = toks.shape[1]
+    ps = kp.shape[1]
+    npg = pages_needed(seq, ps)
+    if npg > state["block_tables"].shape[1]:
+        raise ValueError(f"a {seq}-token prompt outgrows the block table")
+    x = params["embed"][toks].to(cfg.act_torch_dtype())
+    cos, sin = rope(torch.arange(seq, device=dev), cfg.d_head,
+                    cfg.rope_theta) if cfg.rope else (None, None)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = rms_norm(x, lp["norm1"])
+        # q_chunk=seq: one exact-softmax chunk for any prompt length
+        x, k, v = attn_mod.attention(h, lp["attn"], cfg, engine, cos, sin,
+                                     q_chunk=seq, residual=x,
+                                     return_kv=True)
+        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
+                       residual=x)
+        ks.append(k[0])
+        vs.append(v[0])
+    bt_row = state["block_tables"][slot, :npg]
+    keep = bt_row >= 0
+    phys = physical_rows(state["page_perm"], bt_row,
+                         zero_row_index(kp))[:, keep].long()  # (L, live)
+
+    def to_pages(a):
+        a = torch.stack(a)                           # (L, seq, hkv, dh)
+        a = F.pad(a, (0, 0, 0, 0, 0, npg * ps - seq))
+        return a.reshape(a.shape[0], npg, ps, *a.shape[2:])[:, keep]
+
+    kp[phys] = to_pages(ks)
+    vp[phys] = to_pages(vs)
+    x = rms_norm(x, params["final_norm"])
+    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
+    return _mask_padded_vocab(logits, cfg), state
+
+
+def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
+                     starts, lengths, engine: DotEngine | None = None):
+    """Chunked, batched prefill: one prompt chunk per row, written
+    through the block tables into the paged pool.
+
+    tokens: (G, L) -- G gang rows padded to a common chunk width L;
+    slots: (G,) distinct decode-slot ids; starts: (G,) absolute position
+    of each row's first token; lengths: (G,) valid tokens per row (pad
+    columns, and whole pad rows of length 0, write nothing).  Chunk
+    queries attend to the slot's whole written span [0, start + length)
+    (earlier chunks are read back from the pool), so chunks interleaved
+    with decode steps give the single-shot :func:`prefill_kv` K/V.  The
+    positions written must be covered by allocated pages
+    (``PageAllocator.ensure_range``).
+
+    Only the valid entries whose page is allocated are written (the
+    reference writes every entry back and keeps the rest unchanged; a
+    pad column clamped onto the table's last page could alias a valid
+    entry, an index write with two values).  Returns the state, whose
+    pool is updated **in place** (the same object).  No logits: the
+    serving loop samples the first token from a decode step fed the
+    prompt's last token.  Dense family, paged layout."""
+    from repro_torch.serve.paged_kv import physical_rows, zero_row_index
+
+    engine = engine or DotEngine()
+    _require_dense(cfg, "chunked prefill")
+    _require_paged(state, "prefill_kv_chunk")
+    kp, vp = state["k_pages"], state["v_pages"]
+    dev = kp.device
+    toks = torch.as_tensor(tokens, device=dev).to(torch.int64)
+    g, chunk = toks.shape
+    slots_v = torch.as_tensor(slots, device=dev).to(torch.int64).reshape(-1)
+    starts_v = torch.as_tensor(starts, device=dev).to(torch.int64).reshape(-1)
+    lens_v = torch.as_tensor(lengths, device=dev).to(torch.int64).reshape(-1)
+    cols = torch.arange(chunk, device=dev)
+    pos2d = starts_v[:, None] + cols                           # (G, L)
+    valid = cols[None, :] < lens_v[:, None]
+    x = params["embed"][toks].to(cfg.act_torch_dtype())
+    cos, sin = rope(pos2d, cfg.d_head, cfg.rope_theta) if cfg.rope \
+        else (None, None)                                      # (G, L, dh/2)
+    scale = 1.0 / math.sqrt(cfg.d_head)
+    ps = kp.shape[1]
+    bt = state["block_tables"]
+    max_pages = bt.shape[1]
+    span = max_pages * ps
+    pg2d = torch.clamp(pos2d // ps, max=max_pages - 1)
+    off2d = pos2d % ps
+    wmask = valid & (torch.gather(bt[slots_v].long(), 1, pg2d) >= 0)
+    # the entries written, flattened over (G, L): one host sync a chunk
+    wi = wmask.reshape(-1).nonzero().squeeze(1)
+    offs = off2d.reshape(-1)[wi]
+    # causal over the written extent: key t is visible to the query at
+    # position p iff t <= min(p, start + length - 1)
+    kpos = torch.arange(span, device=dev)[None, None, :]
+    mask = kpos <= torch.minimum(
+        pos2d, (starts_v + lens_v - 1)[:, None])[:, :, None]   # (G, L, span)
+    mask = mask[:, None, None]
+    # physical rows of every layer: (n_layers, G, max_pages)
+    phys_all = physical_rows(state["page_perm"], bt[slots_v],
+                             zero_row_index(kp)).long()
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = rms_norm(x, lp["norm1"])
+        q, k, v = attn_mod._project_qkv(h, lp["attn"], cfg, engine, cos, sin)
+        phys = phys_all[i]
+        rows = torch.gather(phys, 1, pg2d).reshape(-1)[wi]
+        kp[rows, offs] = k.reshape(g * chunk, *k.shape[2:])[wi]
+        vp[rows, offs] = v.reshape(g * chunk, *v.shape[2:])[wi]
+        kf = kp[phys].reshape(g, span, *k.shape[2:])
+        vf = vp[phys].reshape(g, span, *v.shape[2:])
+        o = attn_mod._sdpa(q, kf, vf, mask, scale)
+        x = engine.dot(o.reshape(g, chunk, -1), lp["attn"]["wo"], residual=x)
+        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
+                       residual=x)
+    return state
+
+
 def decode_step(params, cfg: ArchConfig, state, tokens, pos,
                 engine: DotEngine | None = None, row_mask=None):
     """One decode step.  tokens: (B, 1) int; pos: a scalar position
@@ -116,10 +270,6 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos,
     same object); clone the state first to keep the old one.  Only the
     paged layout is ported: a contiguous state raises."""
     engine = engine or DotEngine()
-    layout = getattr(state, "layout", None)
-    if layout is None or not layout.is_paged:
-        raise NotImplementedError(
-            "only the paged KV layout is ported (ROADMAP.md queue A); "
-            "build the state with serve.paged_kv.init_paged_serving")
+    _require_paged(state, "decode_step")
     return _decode_step_paged(params, cfg, state, tokens, pos, engine,
                               row_mask)

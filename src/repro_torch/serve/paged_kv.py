@@ -1,13 +1,16 @@
-"""Paged KV cache: page allocator and Morton page layout (port of
-``repro.serve.paged_kv``, without prefix sharing).
+"""Paged KV cache: page allocator, prefix index and Morton page layout
+(port of ``repro.serve.paged_kv``).
 
 Each decode slot owns a block table mapping logical page index ->
 logical page id; pages live in one shared physical pool.  Release pushes
 page ids back on a LIFO free list (no data moves); admission is bounded
 by the pool.  The ``(layer, page)`` grid is laid out along a Morton
 curve (:func:`page_permutation`), the paper's locality technique applied
-to the KV pool.  The allocator is host-side numpy; the pool tensors live
-on the serving device.
+to the KV pool.  Under prefix sharing, pages are reference counted and
+page-aligned prompt prefixes are indexed by content (:class:`PrefixIndex`)
+so later admissions map the same pages; a write into a shared page
+forks a private copy first.  The allocator and the index are host-side
+numpy and Python; the pool tensors live on the serving device.
 """
 from __future__ import annotations
 
@@ -19,10 +22,10 @@ from repro_torch.device import resolve_device
 
 from .state import DecodeState, KVLayout
 
-__all__ = ["PageAllocator", "PoolExhausted", "page_permutation",
-           "init_paged_decode_state", "init_paged_serving", "zero_row_index",
-           "pages_needed", "physical_rows", "default_pool_pages",
-           "default_slot_pages"]
+__all__ = ["PageAllocator", "PoolExhausted", "PrefixIndex",
+           "page_permutation", "init_paged_decode_state",
+           "init_paged_serving", "zero_row_index", "pages_needed",
+           "physical_rows", "default_pool_pages", "default_slot_pages"]
 
 
 class PoolExhausted(RuntimeError):
@@ -50,20 +53,131 @@ def zero_row_index(k_pages) -> int:
     return k_pages.shape[0] - 1
 
 
+class PrefixIndex:
+    """Radix-style index of *full* prompt pages by content.
+
+    Each edge is one full page keyed by its ``page_size``-token tuple;
+    a walk from the root matches the longest indexed page-aligned prompt
+    prefix.  Only full pages are indexed: a partial tail page grows as
+    its owner appends, so a content key for it would go stale -- partial
+    tails stay private and are shared only through explicit table clones
+    (:meth:`PageAllocator.clone_table`), where copy-on-write protects
+    them.  Eviction removes a single edge; orphaned descendants become
+    unreachable (a walk stops at the missing parent) and drain through
+    the cached-free FIFO like any other cold page.
+    """
+
+    def __init__(self):
+        self._root: dict[tuple, int] = {}
+        # pid -> children dict of the node *after* that page
+        self._children: dict[int, dict[tuple, int]] = {}
+        # pid -> (parent children dict, edge key): eviction backref
+        self._owner: dict[int, tuple[dict, tuple]] = {}
+
+    def __contains__(self, pid: int) -> bool:
+        return pid in self._owner
+
+    def __len__(self) -> int:
+        return len(self._owner)
+
+    def _chunks(self, tokens, page_size: int):
+        for pg in range(len(tokens) // page_size):
+            yield tuple(tokens[pg * page_size:(pg + 1) * page_size])
+
+    def match(self, tokens, page_size: int) -> list[int]:
+        """Longest indexed full-page prefix of ``tokens`` -> page ids."""
+        cur, out = self._root, []
+        for tup in self._chunks(tokens, page_size):
+            pid = cur.get(tup)
+            if pid is None:
+                break
+            out.append(pid)
+            cur = self._children.setdefault(pid, {})
+        return out
+
+    def insert(self, tokens, page_ids, page_size: int) -> None:
+        """Index ``page_ids`` as the full-page prefix of ``tokens``.
+        Existing edges win (first writer keeps the canonical page)."""
+        cur = self._root
+        for tup, pid in zip(self._chunks(tokens, page_size), page_ids):
+            have = cur.get(tup)
+            if have is None:
+                cur[tup] = int(pid)
+                self._owner[int(pid)] = (cur, tup)
+                have = int(pid)
+            cur = self._children.setdefault(have, {})
+
+    def evict(self, pid: int) -> None:
+        owner = self._owner.pop(int(pid), None)
+        if owner is not None:
+            children, key = owner
+            children.pop(key, None)
+        self._children.pop(int(pid), None)
+
+    # ---------------------------------------------------- serialization --
+    def edges(self) -> list[list]:
+        """The index as ``[parent_pid, key_tokens, pid]`` edges (parent
+        -1 at the root) -- JSON-native, the reference's snapshot format.
+
+        Edges orphaned by a parent's eviction are left out: no walk
+        reaches them, and :meth:`from_edges` drops them.  (The
+        reference's ``edges`` raises ``KeyError`` while the index holds
+        one; where it returns, the two lists are equal.)"""
+        parent_of = {id(self._root): -1}
+        for pid, children in self._children.items():
+            parent_of[id(children)] = pid
+        return [[parent_of[id(children)], list(key), int(pid)]
+                for pid, (children, key) in self._owner.items()
+                if id(children) in parent_of]
+
+    @classmethod
+    def from_edges(cls, edges) -> "PrefixIndex":
+        """Rebuild from :meth:`edges`.  Insertion order is resolved by
+        fixpoint (a child edge waits for its parent); orphaned edges --
+        impossible for an index serialized by :meth:`edges` -- are
+        dropped rather than looping forever."""
+        ix = cls()
+        pending = [(int(parent), tuple(key), int(pid))
+                   for parent, key, pid in edges]
+        while pending:
+            rest = []
+            for parent, key, pid in pending:
+                if parent == -1:
+                    node = ix._root
+                elif parent in ix._owner:
+                    node = ix._children.setdefault(parent, {})
+                else:
+                    rest.append((parent, key, pid))
+                    continue
+                node[key] = pid
+                ix._owner[pid] = (node, key)
+            if len(rest) == len(pending):
+                break
+            pending = rest
+        return ix
+
+
 class PageAllocator:
     """Free-list page allocator with per-slot block tables (host-side).
 
     Logical page ids index the ``num_pages`` pool; the Morton
     permutation to physical rows is applied at gather time.  The free
     list is LIFO, so a released slot's pages go to the next admission
-    first.  Pages are reference counted as in the reference; without
-    prefix sharing every live page has refcount 1.  :meth:`state_dict`
-    keeps the reference's snapshot format (its prefix-sharing fields
-    stay empty).
+    first.
+
+    Pages are reference counted: block tables of several slots may map
+    the same page (prefix sharing through :class:`PrefixIndex`, or a
+    whole-table :meth:`clone_table`), ``release`` decrements, and a page
+    returns to a free pool only at refcount zero.  Writes into a shared
+    page go through :meth:`fork` (copy-on-write; the caller copies the
+    rows on the device).  ``prefix_sharing=False`` keeps no index and a
+    single LIFO pool.  :meth:`state_dict` is the reference's snapshot
+    format, equal to the reference's after the same operations.
     """
 
     def __init__(self, num_pages: int, page_size: int, slots: int,
-                 max_pages_per_slot: int | None = None):
+                 max_pages_per_slot: int | None = None, *,
+                 prefix_sharing: bool = False):
         if num_pages < 1 or page_size < 1 or slots < 1:
             raise ValueError((num_pages, page_size, slots))
         self.num_pages = int(num_pages)
@@ -72,10 +186,16 @@ class PageAllocator:
         self.max_pages_per_slot = int(max_pages_per_slot or num_pages)
         # LIFO free list: pop() hands out the most recently freed page
         self._free: list[int] = list(range(self.num_pages - 1, -1, -1))
+        # freed pages whose content is still indexed (the prefix cache):
+        # revived on an index hit, evicted FIFO (coldest first) when the
+        # plain pool runs dry
+        self._free_cached: list[int] = []
         self.block_table = np.full(
             (self.slots, self.max_pages_per_slot), -1, np.int32)
         self.seq_lens = np.zeros(self.slots, np.int32)
         self.ref = np.zeros(self.num_pages, np.int32)
+        self.prefix_sharing = bool(prefix_sharing)
+        self.index = PrefixIndex() if prefix_sharing else None
         self._ever_freed: set[int] = set()
         self.stats = {"allocated": 0, "freed": 0, "reused": 0,
                       "cow_forks": 0, "prefix_hits": 0, "shared_pages": 0,
@@ -84,11 +204,17 @@ class PageAllocator:
     # ------------------------------------------------------------- queries --
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return len(self._free) + len(self._free_cached)
 
     @property
     def pages_in_use(self) -> int:
         return self.num_pages - self.free_pages
+
+    def occupancy(self) -> float:
+        return self.pages_in_use / self.num_pages
+
+    def can_admit(self, prompt_len: int) -> bool:
+        return pages_needed(prompt_len, self.page_size) <= self.free_pages
 
     def was_freed(self, pid: int) -> bool:
         """True if ``pid`` has been freed before: its rows may hold a
@@ -97,6 +223,9 @@ class PageAllocator:
 
     def slot_pages(self, slot: int) -> list[int]:
         return [int(p) for p in self.block_table[slot] if p >= 0]
+
+    def refcount(self, pid: int) -> int:
+        return int(self.ref[pid])
 
     # ----------------------------------------------------------- mutation --
     def _check_extent(self, slot: int, page_idx: int) -> None:
@@ -107,8 +236,15 @@ class PageAllocator:
                 f"raise max_pages_per_slot / num_pages")
 
     def _pop_free(self) -> int:
+        """A fresh page id: the plain LIFO pool first, then FIFO
+        eviction from the prefix-cached pool (the coldest cached page
+        loses its index entry)."""
         if self._free:
             return self._free.pop()
+        if self._free_cached:
+            pid = self._free_cached.pop(0)
+            self.index.evict(pid)
+            return pid
         raise PoolExhausted(
             f"KV page pool exhausted ({self.num_pages} pages of "
             f"{self.page_size} tokens); raise num_pages or lower "
@@ -148,8 +284,10 @@ class PageAllocator:
         return new
 
     def release(self, slot: int) -> list[int]:
-        """Drop ``slot``'s references (metadata only); a page returns to
-        the free list at refcount zero.  Returns the pages freed."""
+        """Drop ``slot``'s references (metadata only).  A page returns to
+        a free pool only at refcount zero: zero-ref pages still in the
+        prefix index park on the cached FIFO (revivable), the rest go
+        back on the plain LIFO list.  Returns the pages freed."""
         freed: list[int] = []
         for pid in self.slot_pages(slot):
             self.ref[pid] -= 1
@@ -157,7 +295,10 @@ class PageAllocator:
                 raise RuntimeError(f"page {pid}: negative refcount")
             if self.ref[pid] > 0:
                 continue
-            self._free.append(pid)
+            if self.index is not None and pid in self.index:
+                self._free_cached.append(pid)
+            else:
+                self._free.append(pid)
             self._ever_freed.add(pid)
             freed.append(pid)
         self.stats["freed"] += len(freed)
@@ -165,12 +306,93 @@ class PageAllocator:
         self.seq_lens[slot] = 0
         return freed
 
+    # ----------------------------------------------- sharing / copy-on-write
+    def clone_table(self, src: int, dst: int) -> list[int]:
+        """Fork ``src``'s whole block table into ``dst``: every mapped
+        page, the partial tail included, is shared by reference; the
+        first write into a shared page forks it (:meth:`fork`).  Returns
+        the shared page ids."""
+        shared = self.slot_pages(src)
+        self.block_table[dst] = self.block_table[src]
+        self.seq_lens[dst] = self.seq_lens[src]
+        for pid in shared:
+            self.ref[pid] += 1
+        self.stats["shared_pages"] += len(shared)
+        return shared
+
+    def adopt_prefix(self, slot: int, tokens) -> int:
+        """Map the longest indexed page-aligned prefix of ``tokens`` into
+        ``slot``'s table by reference; returns the shared length in
+        tokens (0 without sharing or without a match).  Live pages gain
+        a reference; cached (freed but indexed) ones leave the cached
+        FIFO without a scrub: their content is the requested prefix."""
+        if self.index is None:
+            return 0
+        matched = self.index.match(tokens, self.page_size)
+        for pg, pid in enumerate(matched):
+            self._check_extent(slot, pg)
+            if self.ref[pid] == 0:
+                self._free_cached.remove(pid)
+                self.ref[pid] = 1
+                self.stats["revived"] += 1
+            else:
+                self.ref[pid] += 1
+            self.block_table[slot, pg] = pid
+        n = len(matched)
+        if n:
+            self.stats["prefix_hits"] += n
+            self.stats["shared_pages"] += n
+            self.seq_lens[slot] = max(
+                self.seq_lens[slot], n * self.page_size)
+        return n * self.page_size
+
+    def register_prefix(self, slot: int, tokens) -> None:
+        """Index ``slot``'s full-page prefix of ``tokens`` for later
+        admissions.  Full pages only: a partial tail keeps growing under
+        decode writes, so its content key would go stale."""
+        if self.index is None:
+            return
+        full = len(tokens) // self.page_size
+        pids = [int(p) for p in self.block_table[slot, :full]]
+        if all(p >= 0 for p in pids):
+            self.index.insert(tokens, pids, self.page_size)
+
+    def needs_fork(self, slot: int, position: int) -> bool:
+        """True when a write at ``position`` would land in a page that
+        another table also maps (refcount > 1): :meth:`fork` first."""
+        page_idx = int(position) // self.page_size
+        if page_idx >= self.max_pages_per_slot:
+            return False  # the extent error surfaces in ensure()
+        pid = self.block_table[slot, page_idx]
+        return pid >= 0 and self.ref[pid] > 1
+
+    def fork(self, slot: int, position: int) -> tuple[int, int]:
+        """Copy-on-write fork of the shared page holding ``position``:
+        a private page for ``slot``, one reference less on the shared
+        original.  Returns ``(old_pid, new_pid)`` for the caller's device
+        copy, which overwrites every row of the new page (no scrub)."""
+        page_idx = int(position) // self.page_size
+        old = int(self.block_table[slot, page_idx])
+        if old < 0 or self.ref[old] <= 1:
+            raise RuntimeError(
+                f"slot {slot} page {page_idx} (id {old}) is not shared")
+        new = self._pop_free()
+        self.ref[new] = 1
+        self.ref[old] -= 1
+        self.block_table[slot, page_idx] = new
+        self.stats["allocated"] += 1
+        self.stats["cow_forks"] += 1
+        if new in self._ever_freed:
+            self.stats["reused"] += 1
+        return old, new
+
     def check_invariants(self) -> None:
         """Every pool page is either free exactly once or referenced by
-        exactly ``ref`` table entries, never both; raises RuntimeError
-        naming the first offending page."""
+        exactly ``ref`` table entries, never both, and every cached-free
+        page is still reachable through the prefix index; raises
+        RuntimeError naming the first offending page."""
         seen: set = set()
-        for pid in self._free:
+        for pid in list(self._free) + list(self._free_cached):
             if pid in seen:
                 raise RuntimeError(
                     f"page {pid}: double-free (appears more than once "
@@ -197,19 +419,26 @@ class PageAllocator:
                 raise RuntimeError(
                     f"page {pid}: refcount {ref} != {cnt} mapping table "
                     f"entries")
+        for pid in self._free_cached:
+            if self.index is None or pid not in self.index:
+                raise RuntimeError(
+                    f"page {pid}: on the cached-free list but evicted from "
+                    f"the prefix index (unreachable for reuse, unsafe to "
+                    f"leave unscrubbed)")
 
     def state_dict(self) -> dict:
         """Allocator metadata as JSON-native values, in the reference's
         snapshot format; free-list order is kept."""
         return {
             "free": [int(p) for p in self._free],
-            "free_cached": [],
+            "free_cached": [int(p) for p in self._free_cached],
             "block_table": self.block_table.tolist(),
             "seq_lens": self.seq_lens.tolist(),
             "ref": self.ref.tolist(),
             "ever_freed": sorted(int(p) for p in self._ever_freed),
             "stats": {k: int(v) for k, v in self.stats.items()},
-            "index": None,
+            "index": self.index.edges() if self.index is not None
+            else None,
         }
 
 
@@ -262,13 +491,15 @@ def init_paged_decode_state(cfg, slots: int, *, page_size: int = 8,
 def init_paged_serving(cfg, slots: int, cache_len: int, *,
                        page_size: int = 8, num_pages: int | None = None,
                        max_pages_per_slot: int | None = None, dtype=None,
-                       device=None):
-    """A :class:`PageAllocator` and its device state, agreeing on pool
-    size and block-table width."""
+                       prefix_sharing: bool = False, device=None):
+    """A :class:`PageAllocator` (with a :class:`PrefixIndex` when
+    ``prefix_sharing``) and its device state, agreeing on pool size and
+    block-table width."""
     num_pages = num_pages or default_pool_pages(slots, cache_len, page_size)
     max_pages_per_slot = max_pages_per_slot or default_slot_pages(
         num_pages, cache_len, page_size)
-    alloc = PageAllocator(num_pages, page_size, slots, max_pages_per_slot)
+    alloc = PageAllocator(num_pages, page_size, slots, max_pages_per_slot,
+                          prefix_sharing=prefix_sharing)
     state = init_paged_decode_state(
         cfg, slots, page_size=page_size, num_pages=num_pages,
         max_pages_per_slot=max_pages_per_slot, cache_len=cache_len,

@@ -1,8 +1,11 @@
-"""Port parity for the serving loop: ``repro_torch``'s lockstep paged
-``ServeLoop(device="cpu")`` emits exactly the greedy tokens, in the
-same admission order and with the same preemptions, as ``repro``'s
-lockstep paged ``ServeLoop`` with a Morton ``DotEngine``, on shared
-weights at the qwen3_1_7b SMOKE width (f32)."""
+"""Port parity for the serving loop: ``repro_torch``'s paged
+``ServeLoop(device="cpu")``, lockstep and continuous (chunked prefill,
+with and without copy-on-write prefix sharing), emits exactly the
+greedy tokens, in the same admission order and with the same
+preemptions, as ``repro``'s paged ``ServeLoop`` in the same mode with a
+Morton ``DotEngine``, on shared weights at the qwen3_1_7b SMOKE width
+(f32); in continuous mode the prompt tokens prefilled per step and the
+final allocator state are equal too."""
 import numpy as np
 import pytest
 torch = pytest.importorskip("torch")
@@ -37,10 +40,14 @@ def weights():
     return jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
-def _run_both(weights, prompts, max_new, **sc):
+def _run_both(weights, prompts, max_new, mode="lockstep", late=None,
+              **sc):
+    """Both loops on the same requests.  ``late`` = (iterations,
+    prompts): those prompts arrive after that many scheduler
+    iterations."""
     jp, tp = weights
     ref = JaxServeLoop(jax_smoke("qwen3_1_7b"), jp,
-                       JaxServeConfig(layout="paged", mode="lockstep", **sc),
+                       JaxServeConfig(layout="paged", mode=mode, **sc),
                        engine=JaxEngine(schedule="morton"))
     ref_order = []
     set_phase = ref._set_phase
@@ -52,11 +59,16 @@ def _run_both(weights, prompts, max_new, **sc):
 
     ref._set_phase = record
     mine = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
-                     ServeConfig(layout="paged", mode="lockstep", **sc),
+                     ServeConfig(layout="paged", mode=mode, **sc),
                      engine=DotEngine(schedule="morton"), device="cpu")
     for loop in (ref, mine):
         for r, p in enumerate(prompts):
             loop.submit(r, p)
+        if late is not None:
+            for _ in range(late[0]):
+                loop._iteration_body(max_new)
+            for r, p in enumerate(late[1], start=len(prompts)):
+                loop.submit(r, p)
     out_ref = ref.run(max_new=max_new)
     out = mine.run(max_new=max_new)
     return (out_ref, ref_order, ref), (out, mine.admitted, mine)
@@ -112,8 +124,6 @@ def test_eos_and_head_of_line_blocking_match_reference(weights):
 
 
 def test_unported_modes_and_layouts_raise(weights):
-    with pytest.raises(NotImplementedError, match="continuous"):
-        ServeConfig(mode="continuous")
     with pytest.raises(NotImplementedError, match="contiguous"):
         ServeConfig(layout="contiguous")
     _, tp = weights
@@ -122,3 +132,178 @@ def test_unported_modes_and_layouts_raise(weights):
     loop.submit(0, list(range(2, 14)))       # 12 tokens > 8-token pool
     with pytest.raises(RuntimeError, match="exceeds the whole page pool"):
         loop.run(max_new=2)
+
+
+def test_continuous_mode_runs(weights):
+    """``mode="continuous"`` is ported: it serves every request in
+    prefill chunks within the budget, and the CLI takes it."""
+    _, tp = weights
+    loop = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
+                     ServeConfig(mode="continuous", page_size=4,
+                                 prefill_budget=3), device="cpu")
+    prompts = [list(range(2, 9)), list(range(20, 25))]
+    for r, p in enumerate(prompts):
+        loop.submit(r, p)
+    out = loop.run(max_new=3)
+    assert [len(out[r]) for r in (0, 1)] == [10, 8]
+    assert loop.chunk_steps == sum(1 for n in loop.prefill_tokens_per_step
+                                   if n) >= 4
+    assert max(loop.prefill_tokens_per_step) <= 3
+    assert loop.alloc.pages_in_use == 0
+    from repro_torch.launch.serve import main
+    cli = main(["--arch", "qwen3_1_7b", "--smoke", "--device", "cpu",
+                "--mode", "continuous", "--prefill-budget", "5",
+                "--requests", "2", "--max-new", "2",
+                "--no-prefix-sharing"])
+    assert all(len(v) == 8 + 2 for v in cli.values())
+
+
+# ------------------------------------------------------------ continuous --
+SHARED = [9, 8, 7, 6, 5, 4, 3, 2]      # two 4-token pages, one 8-token
+
+
+def _shared_prompts():
+    """A page-aligned shared prefix with ragged tails, an identical
+    duplicate (cloned while its source decodes), the bare prefix (served
+    from the index alone) and an unrelated prompt."""
+    return [SHARED + [11, 12, 13], SHARED + [21], SHARED + [11, 12, 13],
+            list(SHARED), [40, 41, 42, 43, 44, 45, 46], SHARED + [31, 32]]
+
+
+def _final_state(alloc):
+    """The allocator's state_dict.  Where the reference's
+    PrefixIndex.edges raises (an edge orphaned by its parent's eviction,
+    ROADMAP.md queue C), its index's reachable edges stand in, which is
+    what the port's edges() lists."""
+    try:
+        return alloc.state_dict()
+    except KeyError:
+        index, alloc.index = alloc.index, None
+        try:
+            d = alloc.state_dict()
+        finally:
+            alloc.index = index
+        parent_of = {id(index._root): -1}
+        for pid, children in index._children.items():
+            parent_of[id(children)] = pid
+        d["index"] = [[parent_of[id(children)], list(key), int(pid)]
+                      for pid, (children, key) in index._owner.items()
+                      if id(children) in parent_of]
+        return d
+
+
+@pytest.mark.parametrize("sharing", [True, False])
+@pytest.mark.parametrize("page_size,budget", [(4, 4), (8, 3)])
+def test_continuous_equals_reference(weights, sharing, page_size, budget):
+    """Continuous batching over shared prefixes, more requests than
+    slots: three prompts at the start, three more once the first one
+    decodes (its duplicate clones its table and forks the shared tail
+    page on its first write; the bare prefix is adopted from the index,
+    live or revived).  Tokens, admission order, prompt tokens per step,
+    preemptions and the final allocator state equal the reference's."""
+    first, *rest = _shared_prompts()
+    initial = [first, rest[0], rest[3]]
+    late = [rest[1], rest[2], rest[4]]
+    decoding = -(-len(first) // budget) + 1     # iterations until it decodes
+    (out_ref, order_ref, ref), (out, order, loop) = _run_both(
+        weights, initial, 5, mode="continuous", late=(decoding, late),
+        slots=4, cache_len=48, page_size=page_size, prefill_budget=budget,
+        prefix_sharing=sharing)
+    assert out == out_ref
+    assert order == order_ref
+    assert loop.prefill_tokens_per_step == ref.prefill_tokens_per_step
+    assert max(loop.prefill_tokens_per_step) <= budget
+    assert loop.preemptions == ref.preemptions
+    assert _final_state(loop.alloc) == _final_state(ref.alloc)
+    st = loop.alloc.stats
+    assert (st["prefix_hits"] > 0 and st["cow_forks"] > 0) == sharing
+    assert out[3] == out[0]                   # the duplicate's tokens
+    loop.alloc.check_invariants()
+
+
+def test_continuous_pool_pressure_preempts_like_reference(weights):
+    """A pool too small for both slots: a mid-prefill or decoding slot
+    is preempted and re-admitted with its full context, as in the
+    reference."""
+    prompts = [list(range(2, 11)), list(range(20, 29)), [5, 6, 7]]
+    (out_ref, order_ref, ref), (out, order, loop) = _run_both(
+        weights, prompts, 6, mode="continuous", slots=2, cache_len=64,
+        page_size=4, num_pages=5, prefill_budget=3, eos_id=-1)
+    assert loop.preemptions == ref.preemptions > 0
+    assert out == out_ref and order == order_ref
+    assert loop.prefill_tokens_per_step == ref.prefill_tokens_per_step
+    assert _final_state(loop.alloc) == _final_state(ref.alloc)
+    loop.alloc.check_invariants()
+
+
+def test_continuous_matches_lockstep_and_sharing_off(weights):
+    """Within the port: lockstep, continuous with prefix sharing and
+    continuous without it emit the same greedy tokens."""
+    _, tp = weights
+    outs = []
+    for mode, sharing in (("lockstep", True), ("continuous", True),
+                          ("continuous", False)):
+        loop = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
+                         ServeConfig(slots=2, cache_len=64, page_size=4,
+                                     mode=mode, prefill_budget=4,
+                                     prefix_sharing=sharing), device="cpu")
+        for r, p in enumerate(_shared_prompts()):
+            loop.submit(r, p)
+        outs.append(loop.run(max_new=4))
+        loop.alloc.check_invariants()
+    assert outs[0] == outs[1] == outs[2]
+
+
+def _continuous_loop(weights, budget=16):
+    _, tp = weights
+    return ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
+                     ServeConfig(slots=2, cache_len=64, page_size=4,
+                                 mode="continuous", prefill_budget=budget),
+                     device="cpu")
+
+
+def _drive_until_active(loop, steps=64):
+    for _ in range(steps):
+        loop._admit_continuous()
+        loop.prefill_tokens_per_step.append(loop._prefill_step())
+        if loop.active.any():
+            return
+    raise AssertionError("no slot became active")
+
+
+def test_cow_fork_on_first_write_non_aligned_tail(weights):
+    """A clone whose first decode write lands inside a shared partial
+    tail page forks a private copy first, and both streams emit the same
+    greedy tokens (identical prompts); tests/test_serve_continuous.py's
+    case of the same name."""
+    prompt = [5, 6, 7, 8, 9]             # 5 tokens: page 1 is a partial tail
+    loop = _continuous_loop(weights)
+    loop.submit(0, prompt)
+    _drive_until_active(loop)
+    loop._decode_once(max_new=6)         # slot 0 decodes past the prompt
+    loop.submit(1, prompt)               # identical prompt, mid-flight
+    loop._admit_continuous()             # -> whole-table clone, no prefill
+    assert loop.alloc.stats["shared_pages"] > 0
+    assert loop.active.all()
+    before = loop.alloc.stats["cow_forks"]
+    out = loop.run(max_new=6)
+    assert loop.alloc.stats["cow_forks"] > before
+    assert out[1] == out[0]
+    loop.alloc.check_invariants()
+
+
+def test_no_fork_at_page_aligned_boundary(weights):
+    """A clone whose shared prefix ends on a page boundary writes its
+    first token into a fresh page: no fork; tests/test_serve_continuous
+    .py's case of the same name."""
+    prompt = [5, 6, 7, 8, 9, 10, 11, 12]  # 8 tokens: two full pages
+    loop = _continuous_loop(weights)
+    loop.submit(0, prompt)
+    _drive_until_active(loop)
+    loop.submit(1, prompt)
+    loop._admit_continuous()
+    assert loop.alloc.stats["shared_pages"] == 2
+    out = loop.run(max_new=4)
+    assert loop.alloc.stats["cow_forks"] == 0
+    assert out[1] == out[0]
+    loop.alloc.check_invariants()
