@@ -24,14 +24,35 @@ just before it and read just after:
   (B4) through ``sfc_matmul_cached``, whose in-kernel fetch counts must
   equal the direct-mapped cache's counts exactly.
 
+Energy is read from the card itself, through the port's
+``NvmlBackend`` (NVML's cumulative energy counter, bound with ctypes),
+named explicitly: auto-detection prefers RAPL, the CPU package's.  An
+idle phase first reads the counter's update interval and the idle
+watts; the serving runs meter every step on a backend whose counter
+is read by a sampling thread, off the serving loop's path (joules per
+generated token, the decode and chunk steps' shares, requests charged
+in full, the meter's host time a step); the
+paper's energy experiment runs B3 through ``DotEngine.dot_batched`` at
+both study shapes in row-major, Morton and Hilbert order (table and
+closed-form decode), each variant in NVML windows of >= 1 s taken in
+turns; and the tuner resolves ``schedule="auto"`` on the card for every
+serving, chunk and study GEMM under objective "time" and "edp",
+measuring every candidate, then runs one auto GEMM per serving shape.
+A missing NVML library or counter fails the run.
+
 It checks the launch counts and the outputs, times each kernel beside
 its bound, its plain version and the library call, and prints one JSON
-line of them (per serving decode step or per study; B1's and B2's
-launches are the continuous run's), then B2 per launch at 512, 4096
-and 32768 tokens per slot on a JSON line of its own
-(``b2_long_context``), the two serving modes side by side
-(``serve_modes``), B1 per launch at a prefill chunk's shapes
-(``b1_prefill``), and as its last line ``{"ok": true, "device":
+line of them (per serving decode step or per study; launches those
+of the main path, the continuous serving run's B1/B2 and the study's
+B3/B4, each read just after its own zeroing), then B2 per launch at
+512, 4096 and 32768 tokens per slot on a JSON line of its own
+(``b2_long_context``), the NVML phase (``nvml``), the two serving modes
+side by side with their joules (``serve_modes``), B1 per launch at a
+prefill chunk's shapes (``b1_prefill``), the energy per schedule
+(``study_energy``), the tuner's winners beside the analytic prediction
+and the library time (``tuner``), every path's launches
+(``launches_by_path``: the serving runs, the study, its energy windows
+and the tuner), the card's name and power limit, and as its last line ``{"ok": true, "device":
 {...}}``.  Any failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.
@@ -85,6 +106,14 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   from two chunks against one single-shot ``prefill_kv``: the same
   bounds (the chunk attends over its slot's gathered pages, the single
   shot over the prompt, so the attention sums differ in order).
+* The study's energy variants: each output within B1's f32 bound of
+  ``torch.bmm`` before its windows; B3's launches in the windows exact.
+* Serving energy: the joules charged to requests equal the report's
+  total within 1e-6 relative (every reading is charged in full).
+* The tuner's auto GEMMs: a curve winner's output within B1's bf16
+  bound of the plain version with the winner's tiles and order, with
+  exactly one B1 launch; an "xla" winner equal to the library call, with
+  none.
 """
 from __future__ import annotations
 
@@ -105,6 +134,10 @@ KV_BOUND = 0.25                # one bf16 prefill chunk's K/V, see above
 KV_BOUND_F32 = 1e-3            # the same chunk with f32 weights
 B2_SLOT_REL = 3e-2             # B2 per slot, against its largest output
 SLEEP_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz boost clock
+NVML_IDLE_S = 2.0              # idle read of the NVML energy counter
+ENERGY_WINDOW_S = 2.0          # least work in one metered study window
+ENERGY_WINDOWS = 3             # windows per study variant, in turns
+TUNER_TOPK = 10_000            # the tuner measures every candidate
 
 SLOTS = 4
 PAGE_SIZE = 16
@@ -687,10 +720,11 @@ def check_cached(gen) -> float:
 
 
 # ------------------------------------------------------------- serving ----
-def checked_loop(cfg, params, sc):
+def checked_loop(cfg, params, sc, power=None):
     """A ServeLoop whose sampler first checks each logit row (finite),
     and which marks each decode step and each prefill chunk with CUDA
-    events (no host sync added): the device-timeline span of each."""
+    events (no host sync added): the device-timeline span of each.
+    ``power`` meters every step (default: the loop's own detection)."""
     import numpy as np
     import torch
 
@@ -731,7 +765,7 @@ def checked_loop(cfg, params, sc):
                     if kind == "decode" or out]
 
     return CheckedLoop(cfg, params, sc, engine=DotEngine(schedule="morton"),
-                       device="cuda")
+                       power_backend=power, device="cuda")
 
 
 def serving_prompts(cfg):
@@ -764,10 +798,93 @@ def want_launches(cfg, loop) -> dict:
             "B2": loop.steps * n_l}
 
 
+class TimedNvml:
+    """The NVML backend the serving loop is given, its counter read on a
+    sampling thread (``poll_s=NVML_POLL_S``, as ``detect_backend``
+    builds it), with the host time of its ``start``/``stop`` counted:
+    the cost the meter adds to each serving step."""
+
+    def __init__(self):
+        from repro_torch.power import NVML_POLL_S, NvmlBackend
+        self.inner = NvmlBackend(poll_s=NVML_POLL_S)
+        self.name = self.inner.name
+        self.primary_domains = self.inner.primary_domains
+        self.seconds = 0.0
+        self.calls = 0
+
+    def start(self):
+        t0 = time.perf_counter()
+        tok = self.inner.start()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        if tok[0][0] is None:
+            raise SystemExit("chip_smoke: the NVML energy counter stopped "
+                             "answering during serving")
+        return tok
+
+    def stop(self, token, elapsed_s, hints=None):
+        t0 = time.perf_counter()
+        out = self.inner.stop(token, elapsed_s, hints)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def close(self):
+        self.inner.close()
+
+
+def serve_energy(loop, power: TimedNvml, run, gen_tokens: int,
+                 tag: str) -> dict:
+    """The serving run's joules (NVML, the card): the steps' total, per
+    generated token, the shares of decode steps, chunks and lockstep
+    prefills, sum(request_joules) against the report's total (equal
+    within 1e-6 relative, or the run fails), and the whole run's own
+    reading ``run`` (the steps' windows leave out the host work between
+    steps)."""
+    totals = loop.energy.totals()
+    joules = totals["joules"]
+    by_label = {}
+    for r in loop.energy.readings:
+        by_label[r.label] = by_label.get(r.label, 0.0) + r.joules
+    charged = sum(loop.request_joules.values())
+    if loop.energy.backend != "nvml" or joules <= 0 or \
+            abs(charged - joules) > 1e-6 * joules:
+        raise SystemExit(f"chip_smoke: {tag} energy report backend "
+                         f"{loop.energy.backend}, {joules} J, requests "
+                         f"charged {charged} J")
+    steps = len(loop.energy.readings)
+    rec = {"joules": joules, "j_per_token": joules / gen_tokens,
+           "mean_watts": joules / totals["seconds"],
+           "share": {k: v / joules for k, v in by_label.items()},
+           "request_joules_sum": charged, "readings": steps,
+           "zero_readings": sum(1 for r in loop.energy.readings
+                                if r.joules == 0.0),
+           "nvml_us_per_step": power.seconds * 1e6 / max(steps, 1),
+           "nvml_us_per_call": power.seconds * 1e6 / max(power.calls, 1),
+           "nvml_share_of_wall": power.seconds / run.seconds,
+           "run_joules": run.joules, "run_seconds": run.seconds,
+           "run_j_per_token": run.joules / gen_tokens,
+           "run_watts": run.watts,
+           "steps_share_of_run": joules / run.joules}
+    print(f"{tag} energy (nvml, the card): {joules:.3f} J over {steps} "
+          f"metered steps, {rec['j_per_token']:.4f} J per generated token, "
+          f"{rec['mean_watts']:.1f} W mean; shares "
+          + ", ".join(f"{k} {v:.1%}" for k, v in rec["share"].items())
+          + f"; requests charged {charged:.6f} J (equal to the total); "
+          f"{rec['zero_readings']} steps read 0 J (the counter's update "
+          f"interval); NVML {rec['nvml_us_per_step']:.1f} us a step "
+          f"({rec['nvml_share_of_wall']:.1%} of the run); the whole run "
+          f"{run.joules:.3f} J in {run.seconds:.3f} s ({run.watts:.1f} W, "
+          f"{rec['run_j_per_token']:.4f} J per token), the steps "
+          f"{rec['steps_share_of_run']:.1%} of it")
+    return rec
+
+
 def serve(cfg, params, mode: str = "lockstep") -> dict:
     """Phase 3: full-width paged serving through the kernels, lockstep
     or continuous (chunked prefill under PREFILL_BUDGET, prefix sharing
-    on), the same N_REQUESTS requests."""
+    on), the same N_REQUESTS requests, every step metered on NVML (the
+    card's energy counter)."""
     import torch
 
     from repro_torch.serve import ServeConfig
@@ -776,16 +893,21 @@ def serve(cfg, params, mode: str = "lockstep") -> dict:
     sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
                      eos_id=-1, layout="paged", mode=mode,
                      prefill_budget=PREFILL_BUDGET, seed=0)
-    loop = checked_loop(cfg, params, sc)
+    from repro_torch.power import EnergyMeter, NvmlBackend
+
+    power = TimedNvml()
+    loop = checked_loop(cfg, params, sc, power)
     prompts = serving_prompts(cfg)
     for r, p in enumerate(prompts):
         loop.submit(r, p)
     torch.cuda.synchronize()
     _zero_launches()
-    t0 = time.perf_counter()
-    out = loop.run(max_new=MAX_NEW)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # the whole run on a meter of its own: the steps' readings against it
+    with EnergyMeter("run", backend=NvmlBackend()) as run_em:
+        t0 = time.perf_counter()
+        out = loop.run(max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = _kernel_launches()
     steps, chunks = loop.steps, loop.chunk_steps
     want = want_launches(cfg, loop)
@@ -821,7 +943,10 @@ def serve(cfg, params, mode: str = "lockstep") -> dict:
     gen_tokens = N_REQUESTS * MAX_NEW
     decode_ms = loop.spans_ms("decode")
     chunk_ms = loop.spans_ms("chunk")
+    power.close()
+    energy = serve_energy(loop, power, run_em.reading, gen_tokens, tag)
     return {"mode": mode, "launches": launches, "steps": steps,
+            "energy": energy,
             "chunk_steps": chunks, "wall_s": wall, "tokens": gen_tokens,
             "tok_per_s": gen_tokens / wall,
             "ms_per_step": wall * 1e3 / (steps + chunks),
@@ -886,6 +1011,9 @@ def serve_shared(cfg, params) -> dict:
         loop.submit(r, p)
     out = loop.run(max_new=MAX_NEW)
     torch.cuda.synchronize()
+    close = getattr(loop.power, "close", None)   # an NVML sampling thread
+    if close is not None:
+        close()
     launches = _kernel_launches()
     want = want_launches(cfg, loop)
     st = loop.alloc.stats
@@ -922,7 +1050,7 @@ def serve_shared(cfg, params) -> dict:
     if bad:
         raise SystemExit(f"chip_smoke: prefix-sharing run failed: {bad}")
     print("[serve shared] allocator invariants hold after the drain")
-    return {"stats": dict(st), "steps": loop.steps,
+    return {"stats": dict(st), "steps": loop.steps, "launches": launches,
             "chunk_steps": loop.chunk_steps}
 
 
@@ -1698,6 +1826,351 @@ def time_study(b3_in, b4_in, smi: str) -> list[dict]:
     ]
 
 
+# ------------------------------------------------------------- energy ----
+def nvml_phase(smi: str) -> dict:
+    """Phase 1b: the card's energy counter, read through the port's
+    ``NvmlBackend`` (ctypes over ``libnvidia-ml.so.1``), built
+    directly and through ``detect_backend("nvml")``.  With the card
+    idle, reads the cumulative counter in a loop for NVML_IDLE_S: its
+    update interval (median time between changes), the idle watts (mJ
+    between the first and last change over that time) and the host cost
+    of one read.  Fails if the library, the handle or the counter is
+    missing, or if the counter does not move."""
+    import torch
+
+    from repro_torch.power import NvmlBackend, detect_backend
+
+    direct = NvmlBackend()
+    named = detect_backend("nvml")
+    auto = detect_backend()
+    bad = [f"{b.name} {b.primary_domains}" for b in (direct, named)
+           if b.name != "nvml" or b.primary_domains[:1] != ("gpu0",)]
+    if bad:
+        raise SystemExit(f"chip_smoke: NVML backend missing: {bad}")
+    handle = direct._handles[0]
+    torch.cuda.synchronize()
+    samples = []
+    t_end = time.perf_counter() + NVML_IDLE_S
+    while time.perf_counter() < t_end:
+        samples.append((time.perf_counter(), direct._energy_mj(handle)))
+    if any(e is None for _, e in samples):
+        raise SystemExit("chip_smoke: NVML has no total-energy counter")
+    changes = [(t, e) for (t, e), (_, prev) in zip(samples[1:], samples)
+               if e != prev]
+    if len(changes) < 2:
+        raise SystemExit(f"chip_smoke: the NVML energy counter moved "
+                         f"{len(changes)} times in {NVML_IDLE_S} s")
+    gaps = sorted(b[0] - a[0] for a, b in zip(changes, changes[1:]))
+    interval = gaps[len(gaps) // 2]
+    idle_w = (changes[-1][1] - changes[0][1]) * 1e-3 / \
+        (changes[-1][0] - changes[0][0])
+    power_w = direct._power_w(handle)
+    rec = {"backend": direct.name, "domain": direct.primary_domains[0],
+           "auto_detected": auto.name, "update_interval_ms": interval * 1e3,
+           "updates": len(changes), "idle_watts": idle_w,
+           "power_usage_watts": power_w,
+           "read_us": NVML_IDLE_S * 1e6 / len(samples),
+           "counter_mj": changes[-1][1]}
+    print(f"[nvml] NvmlBackend and detect_backend('nvml'): backend nvml, "
+          f"domain gpu0 (auto-detection picks {auto.name!r}); idle "
+          f"{NVML_IDLE_S} s: counter updated {len(changes)} times, every "
+          f"{interval * 1e3:.1f} ms (median), idle {idle_w:.2f} W "
+          f"(nvmlDeviceGetPowerUsage {power_w} W), one read "
+          f"{rec['read_us']:.2f} us ({smi})")
+    return rec
+
+
+STUDY_VARIANTS = (("rowmajor", True), ("morton", True), ("morton", False),
+                  ("hilbert", True), ("hilbert", False))
+
+
+def wait_tick(nvml) -> None:
+    """Return just after NVML's energy counter next updates (it moves
+    every ~100 ms: a window that starts and ends on an update holds no
+    part-interval of the counter)."""
+    h = nvml._handles[0]
+    e = nvml._energy_mj(h)
+    while nvml._energy_mj(h) == e:
+        pass
+
+
+def study_energy(b3_in, idle_w: float, smi: str) -> tuple[dict, int]:
+    """Phase 9: the paper's energy experiment on the card.  B3 through
+    ``DotEngine.dot_batched`` at the study's shapes (f32, TF32 off) in
+    row-major, Morton and Hilbert order, Morton and Hilbert also by
+    closed-form decode (``use_prefetch=False``).  Each variant's
+    launches repeat inside one ``EnergyMeter`` window on NVML of at
+    least ENERGY_WINDOW_S of work; ENERGY_WINDOWS windows per variant,
+    taken in turns across variants and shapes, each turn starting one
+    variant later (the card warms over the phase, and a variant's place
+    in a turn would otherwise bias it).  A window opens just
+    after a counter update and closes just after the first update past
+    the work's end (``wait_tick``); the card's idle draw (``idle_w``,
+    the NVML phase's) over the window's time outside the work is taken
+    off.  Per variant: J per launch, mean W, EDP per launch, J per
+    GFLOP, the windows' spread, its joules against row-major's in the
+    same turn (each turn's ratio and their mean), and the H100
+    ModelBackend's (unfitted) joules for the same hints and work time.
+    Returns the ``study_energy`` line's object and the B3 launches."""
+    import torch
+
+    import repro_torch.kernels.sfc_matmul as sfc_mod
+    from repro_torch.models import DotEngine
+    from repro_torch.power import EnergyMeter, ModelBackend, NvmlBackend, \
+        WorkloadHints
+
+    paper, _, _ = paper_study()
+    tile = paper.block
+    nvml, model = NvmlBackend(), ModelBackend()
+    engines = {(sched, pf): DotEngine(schedule=sched, block=(tile,) * 3,
+                                      use_prefetch=pf)
+               for sched, pf in STUDY_VARIANTS}
+    plan, bad = {}, []
+    for shape, (a, b) in b3_in.items():
+        ref = torch.bmm(a, b)
+        for key, eng in engines.items():
+            out = eng.dot_batched(a, b)
+            err = float((out - ref).abs().max())
+            if not (bool(torch.isfinite(out).all())
+                    and err <= 1e-4 + 1e-4 * float(ref.abs().max())):
+                bad.append(f"{shape} {key}")
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(3):
+                eng.dot_batched(a, b)
+            e.record()
+            e.synchronize()
+            per = s.elapsed_time(e) / 3e3
+            plan[(shape, key)] = max(1, int(ENERGY_WINDOW_S / per) + 1)
+    if bad:
+        raise SystemExit(f"chip_smoke: study energy outputs wrong: {bad}")
+    torch.cuda.synchronize()
+    sfc_mod.batched_launches = 0
+    readings = {k: [] for k in plan}
+    variants = list(engines.items())
+    for turn in range(ENERGY_WINDOWS):
+        for si, (shape, (a, b)) in enumerate(b3_in.items()):
+            bsz, m, k, n = shape
+            rot = (turn + si) % len(variants)
+            for key, eng in variants[rot:] + variants[:rot]:
+                reps = plan[(shape, key)]
+                hints = WorkloadHints(
+                    flops=2.0 * bsz * m * n * k * reps,
+                    hbm_bytes=4.0 * bsz * (m * k + k * n + m * n) * reps)
+                torch.cuda.synchronize()
+                wait_tick(nvml)
+                with EnergyMeter(f"B3 {key[0]}", backend=nvml,
+                                 hints=hints) as em:
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        eng.dot_batched(a, b)
+                    torch.cuda.synchronize()
+                    work_s = time.perf_counter() - t0
+                    wait_tick(nvml)
+                r = em.reading
+                work_j = r.joules - idle_w * (r.seconds - work_s)
+                predicted = sum(model.stop(None, work_s, hints).values())
+                readings[(shape, key)].append(
+                    (work_j, work_s, r, reps, predicted))
+    torch.cuda.synchronize()
+    launches = sfc_mod.batched_launches
+    want = sum(plan.values()) * ENERGY_WINDOWS
+    if launches != want:
+        raise SystemExit(f"chip_smoke: study energy B3 launches {launches} "
+                         f"!= {want}")
+    rows = []
+    print(f"[energy] B3 through DotEngine.dot_batched, f32, {tile}^3 tiles: "
+          f"{ENERGY_WINDOWS} NVML windows of >= {ENERGY_WINDOW_S} s of work "
+          f"per variant, in turns, each from one counter update to the "
+          f"first after the work, less {idle_w:.1f} W idle outside the work "
+          f"({smi})")
+    for (shape, (sched, pf)), rs in readings.items():
+        bsz, m, k, n = shape
+        jl = [j / reps for j, _, _, reps, _ in rs]
+        sl = [s_ / reps for _, s_, _, reps, _ in rs]
+        jpl = sum(jl) / len(jl)
+        spl = sum(sl) / len(sl)
+        gflop = 2.0 * bsz * m * n * k / 1e9
+        pred = sum(p / reps for _, _, _, reps, p in rs) / len(rs)
+        row = {"shape": list(shape), "schedule": sched,
+               "index": "table" if pf else "closed-form decode",
+               "launches_per_window": rs[0][3], "windows": len(rs),
+               "j_per_launch": jpl, "ms_per_launch": spl * 1e3,
+               "watts": sum(j / s_ for j, s_, _, _, _ in rs) / len(rs),
+               "edp_per_launch": jpl * spl, "j_per_gflop": jpl / gflop,
+               "spread": (max(jl) - min(jl)) / jpl,
+               "j_per_launch_windows": jl,
+               "raw_j_per_launch_windows": [r.joules / reps
+                                            for _, _, r, reps, _ in rs],
+               "idle_tail_s_windows": [r.seconds - s_
+                                       for _, s_, r, _, _ in rs],
+               "model_j_per_launch": pred}
+        rows.append(row)
+        print(f"  {'x'.join(map(str, shape))} {sched:8s} "
+              f"{row['index']:18s}: {jpl:.4f} J/launch "
+              f"({row['ms_per_launch']:.4f} ms, {row['watts']:.1f} W, "
+              f"{row['j_per_gflop']:.5f} J/GFLOP, EDP {row['edp_per_launch']:.3e}"
+              f" J*s), windows spread {row['spread']:.2%}; H100 model "
+              f"(unfitted) {pred:.4f} J")
+    for shape in b3_in:
+        base = next(r for r in rows if r["shape"] == list(shape)
+                    and r["schedule"] == "rowmajor")
+        for r in rows:
+            if r["shape"] == list(shape) and r is not base:
+                turns = [j / jb - 1 for j, jb in zip(
+                    r["j_per_launch_windows"], base["j_per_launch_windows"])]
+                r["vs_rowmajor_turns"] = turns
+                r["vs_rowmajor"] = sum(turns) / len(turns)
+        print(f"  {'x'.join(map(str, shape))} J against row-major's in the "
+              f"same turn, mean [range]: " + ", ".join(
+                  f"{r['schedule']} {r['index'].split()[0]} "
+                  f"{r['vs_rowmajor']:+.2%} [{min(r['vs_rowmajor_turns']):+.2%}"
+                  f", {max(r['vs_rowmajor_turns']):+.2%}]"
+                  for r in rows if "vs_rowmajor" in r
+                  and r["shape"] == list(shape))
+              + f" (row-major's windows spread {base['spread']:.2%})")
+    return {"study_energy": rows, "card": smi}, launches
+
+
+def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
+    """Phase 10: ``schedule="auto"`` on the card.  With a fresh cache
+    (a temporary ``REPRO_TUNE_CACHE``), the tuner searches each distinct
+    serving GEMM (M = SLOTS, bf16), each chunk GEMM (M = SLOTS x
+    PREFILL_BUDGET) and the study's B3 shapes (batched, f32) under
+    objective "time" and "edp", measuring every candidate with CUDA
+    events (B1/B3 launches, and torch.matmul for "xla").  Every search
+    shares the one cache, and none may hit another's entry: on "cuda"
+    a decode GEMM (M <= 8, the kernel's rows path) and a chunk GEMM of
+    the same N and K have different keys.  Then one
+    ``DotEngine(schedule="auto")`` GEMM per serving shape resolves from
+    that cache: a curve winner must launch B1 and agree with the plain
+    version within B1's bf16 bound; an "xla" winner launches nothing.
+    Returns the ``tuner`` line's object and the launches made."""
+    import os
+    import tempfile
+
+    import torch
+
+    import repro_torch.kernels.sfc_matmul as sfc_mod
+    from repro_torch.kernels.ref import matmul_fused_ref
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_plain, \
+        tile_schedule
+    from repro_torch.models import DotEngine
+    from repro_torch.tune import EpilogueSpec, GemmSpec, TuneCache, \
+        TuneConfig, resolve
+
+    ep_spec = {"none": None, "residual": EpilogueSpec(residual=True),
+               "silu": EpilogueSpec(activation="silu")}
+    paper, _, b3_shapes = paper_study()
+    problems = []
+    for group, gemms in (("serve", main_path_gemms(cfg)),
+                         ("chunk", chunk_gemms(cfg))):
+        for name, m, k, n, ep, _, _ in gemms:
+            problems.append((group, name, GemmSpec(
+                m, n, k, "bfloat16", epilogue=ep_spec[ep])))
+    for bsz, m, k, n in b3_shapes:
+        problems.append(("study", f"{bsz}x{m}x{k}x{n}", GemmSpec(
+            m, n, k, paper.dtype, batched=True)))
+    xla = repr(TuneConfig("xla"))
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tune.json")
+        old = os.environ.get("REPRO_TUNE_CACHE")
+        os.environ["REPRO_TUNE_CACHE"] = path
+        try:
+            cache = TuneCache(path)
+            torch.cuda.synchronize()
+            sfc_mod.launches = sfc_mod.batched_launches = 0
+            t0 = time.perf_counter()
+            for objective in ("time", "edp"):
+                for group, name, spec in problems:
+                    r = resolve(spec, backend="cuda", cache=cache,
+                                objective=objective, search=True,
+                                measure=True, topk=TUNER_TOPK)
+                    if r.from_cache:
+                        raise SystemExit(
+                            f"chip_smoke: the {group} GEMM {name} "
+                            f"({objective}) hit entry {r.key} of another "
+                            f"GEMM in a fresh cache")
+                    won = r.config.kernel_config()
+                    est = r.best_estimate
+                    rows.append({
+                        "group": group, "gemm": name, "objective": objective,
+                        "mnk": [spec.m, spec.n, spec.k], "dtype": spec.dtype,
+                        "winner": r.config.to_dict(),
+                        "winner_ms": r.measured[repr(won)] * 1e3,
+                        "predicted_ms": est.time * 1e3,
+                        "xla_ms": r.measured[xla] * 1e3,
+                        "candidates_measured": len(r.measured),
+                        "best_kernel_ms": min(
+                            (v for c, v in r.measured.items() if c != xla),
+                            default=float("nan")) * 1e3})
+            search_s = time.perf_counter() - t0
+            search = {"B1": sfc_mod.launches, "B3": sfc_mod.batched_launches}
+            # one auto GEMM per serving shape, from the "time" winners
+            gen = torch.Generator(device="cuda").manual_seed(77)
+            checks, bad = [], []
+            sfc_mod.launches = 0
+            for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
+                a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
+                od = torch.float32 if f32 else None
+                won = next(r["winner"] for r in rows
+                           if r["gemm"] == name and r["group"] == "serve"
+                           and r["objective"] == "time")
+                before = sfc_mod.launches
+                out = DotEngine(schedule="auto").dot(a, b, out_dtype=od, **kw)
+                torch.cuda.synchronize()
+                launched = sfc_mod.launches - before
+                if won["schedule"] == "xla":
+                    want = matmul_fused_ref(a, b, out_dtype=od, **kw)
+                    ok = launched == 0 and torch.equal(out, want)
+                else:
+                    sched = tile_schedule(
+                        won["schedule"], -(-m // won["bm"]),
+                        -(-n // won["bn"]), use_prefetch=won["use_prefetch"],
+                        g=won["g"], device="cuda")
+                    want = sfc_matmul_plain(a, b, sched=sched, bm=won["bm"],
+                                            bn=won["bn"], bk=won["bk"],
+                                            out_dtype=od, **kw)
+                    diff = (out.float() - want.float()).abs()
+                    ok = launched == 1 and bool(
+                        (diff <= 1e-3 + 2 ** -7 * want.float().abs()).all())
+                checks.append({"gemm": name, "winner": won["schedule"],
+                               "b1_launches": launched, "ok": ok})
+                if not ok:
+                    bad.append(name)
+            engine_b1 = sfc_mod.launches
+        finally:
+            if old is None:
+                os.environ.pop("REPRO_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = old
+    print(f"[tuner] schedule='auto' on the card, fresh cache: "
+          f"{len(problems)} GEMMs x 2 objectives searched in {search_s:.1f} s,"
+          f" every candidate measured (CUDA events, L2 flushed); launches "
+          f"B1 {search['B1']}, B3 {search['B3']} ({smi})")
+    for r in rows:
+        w = r["winner"]
+        print(f"  {r['group']:5s} {r['gemm']:10s} {r['objective']:4s}: "
+              f"{w['schedule']}"
+              + (f" {w['bm']}x{w['bn']}x{w['bk']}"
+                 f"{'' if w['use_prefetch'] else ' decode'}"
+                 if w["schedule"] != "xla" else "")
+              + f" f{w['f_scale']:g} {r['winner_ms']:.4f} ms (model "
+              f"{r['predicted_ms']:.4f}); xla {r['xla_ms']:.4f} ms, best "
+              f"kernel {r['best_kernel_ms']:.4f} ms of "
+              f"{r['candidates_measured']} measured")
+    print(f"[tuner] DotEngine(schedule='auto') per serving shape: "
+          + ", ".join(f"{c['gemm']} {c['winner']} (B1 {c['b1_launches']})"
+                      f"{'' if c['ok'] else ' FAIL'}" for c in checks))
+    if bad:
+        raise SystemExit(f"chip_smoke: auto GEMMs failed: {bad}")
+    launches = {"B1": search["B1"] + engine_b1, "B3": search["B3"]}
+    return {"tuner": rows, "auto_gemms": checks, "search_s": search_s,
+            "card": smi}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1725,6 +2198,7 @@ def main() -> int:
           f"{', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}; wall "
           f"{time.perf_counter() - t0:.1f}s into {_build.build_dir()}")
 
+    nvml = nvml_phase(smi)
     cfg = get_config("qwen3_1_7b")
     errs = check_kernels(cfg)
 
@@ -1769,7 +2243,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     study, b3_in, b4_in = locality_study()
     rows += time_study(b3_in, b4_in, smi)
+    energy, energy_b3 = study_energy(b3_in, nvml["idle_watts"], smi)
+    del b3_in, b4_in
+    torch.cuda.empty_cache()
+    tuner, tuner_launches = tuner_phase(cfg, smi)
+    # every path's launches, each read just after its own zeroing: the
+    # three serving runs, the study, the study's energy windows and the
+    # tuner's search and auto GEMMs.  The kernels line keeps the main
+    # path's: the continuous run's B1/B2 and the study's B3/B4, in the
+    # units of its times (per step, per study)
+    by_path = {"lockstep": sv["launches"], "continuous": cv["launches"],
+               "shared": shared["launches"], "study": study,
+               "study_energy": {"B3": energy_b3}, "tuner": tuner_launches}
     launches = {**cv["launches"], "B3": study["B3"], "B4": study["B4"]}
+    print(f"[launches] by path: {json.dumps(by_path)}; main path "
+          f"{launches}")
     for row, kid in zip(rows, ("B1", "B2", "B3", "B4")):
         row["launches"] = launches[kid]
         row["max_abs_err"] = errs[kid]
@@ -1792,11 +2280,15 @@ def main() -> int:
     for run in (sv, cv):
         modes.append({k: run[k] for k in (
             "mode", "tok_per_s", "tokens", "wall_s", "steps", "chunk_steps",
-            "ms_per_decode_step", "ms_per_chunk_step")})
+            "ms_per_decode_step", "ms_per_chunk_step", "energy")})
     modes[1]["agree_with_lockstep"] = agree
     modes[1]["chunk_profile"] = chunk_prof
+    print(json.dumps({"nvml": nvml, "card": smi}))
     print(json.dumps({"serve_modes": modes, "card": smi}))
     print(json.dumps(b1_prefill))
+    print(json.dumps(energy))
+    print(json.dumps(tuner))
+    print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

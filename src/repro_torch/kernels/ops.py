@@ -12,7 +12,13 @@ reference's ``via_vmap=True``).
 ``schedule="xla"`` is the library baseline the reference leaves to XLA:
 :func:`repro_torch.kernels.ref.matmul_fused_ref` and
 ``matmul_batched_fused_ref`` (``torch.matmul`` with the same f32
-epilogue).  ``schedule="auto"`` waits for the tuner's port.
+epilogue).
+
+``schedule="auto"`` consults the autotuner (``repro_torch.tune``): the
+(shape bucket, dtype, backend, epilogue) winner comes from the on-disk
+cache when present, otherwise from a search, analytic on the CPU and
+measured on the card (``"cuda"`` is the backend of a CUDA tensor).  The
+winner may be ``"xla"``, the library call, where it measures faster.
 """
 from __future__ import annotations
 
@@ -24,23 +30,48 @@ from .sfc_matmul import sfc_matmul_batched_cuda, sfc_matmul_cuda
 __all__ = ["sfc_matmul", "sfc_matmul_batched"]
 
 
-def _no_auto(schedule: str):
-    if schedule == "auto":
-        raise NotImplementedError(
-            "schedule='auto' needs the tuner (repro.tune), which is not "
-            "ported yet (ROADMAP queue A); pass a curve schedule or 'xla'")
+def _resolve_auto(a: torch.Tensor, m: int, n: int, k: int,
+                  batched: bool = False, objective: str = "time",
+                  has_bias: bool = False, activation: str = "none",
+                  has_residual: bool = False):
+    """Map schedule="auto" to a concrete (schedule, blocks, prefetch, g)
+    for operand ``a``'s dtype and device.
+
+    The epilogue shape keys the tuner (a fused epilogue removes whole
+    passes from the traffic model).  The winner's DVFS point
+    (``TuneConfig.f_scale``) is dropped here: it parameterises scoring
+    and energy accounting (``repro_torch.tune.resolved_f_scale``), never
+    the launch.  Imported lazily: the tuner imports this module to
+    measure."""
+    from repro_torch.tune import EpilogueSpec, resolve_config
+
+    ep = EpilogueSpec(bias=has_bias, activation=activation,
+                      residual=has_residual)
+    cfg = resolve_config(int(m), int(n), int(k), a.dtype,
+                         backend="cuda" if a.is_cuda else "cpu",
+                         batched=batched, objective=objective,
+                         epilogue=None if ep.is_noop else ep)
+    return cfg.schedule, cfg.bm, cfg.bn, cfg.bk, cfg.use_prefetch, cfg.g
 
 
 def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
                bm: int = 128, bn: int = 128, bk: int = 128, out_dtype=None,
-               use_prefetch: bool = True, g: int = 0, bias=None,
+               use_prefetch: bool = True, g: int = 0,
+               objective: str = "time", bias=None,
                activation: str = "none", residual=None) -> torch.Tensor:
     """C = act(A @ B + bias) + residual, tiles visited in ``schedule``
     order.  ``bias`` (N,), ``activation`` in {none, relu, gelu, silu}
     and ``residual`` (M, N) form the fused epilogue, applied to the f32
     accumulator before one cast to ``out_dtype`` (default ``a.dtype``).
+    ``schedule="auto"`` resolves (schedule, blocks, prefetch, g) through
+    the tuner under ``objective`` ("time", "energy" or "edp"; ignored
+    for explicit schedules).
     """
-    _no_auto(schedule)
+    if schedule == "auto":
+        schedule, bm, bn, bk, use_prefetch, g = _resolve_auto(
+            a, a.shape[0], b.shape[1], a.shape[1], objective=objective,
+            has_bias=bias is not None, activation=activation,
+            has_residual=residual is not None)
     if schedule == "xla":
         return matmul_fused_ref(a, b, bias=bias, activation=activation,
                                 residual=residual, out_dtype=out_dtype)
@@ -54,8 +85,8 @@ def sfc_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
                        schedule: str = "morton", bm: int = 128,
                        bn: int = 128, bk: int = 128, out_dtype=None,
                        use_prefetch: bool = True, per_element: bool = False,
-                       g: int = 0, bias=None, activation: str = "none",
-                       residual=None) -> torch.Tensor:
+                       g: int = 0, objective: str = "time", bias=None,
+                       activation: str = "none", residual=None) -> torch.Tensor:
     """Einsum ``bij,bjk->bik`` with SFC tile traversal per batch element.
 
     ``a`` (..., M, K) and ``b`` (..., K, N) have identical leading dims,
@@ -64,6 +95,8 @@ def sfc_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     the (..., M, N) output; both ride the fused epilogue.
     ``per_element=True`` runs one B1 launch per element instead of the
     batched kernel; the two agree bit for bit on the card.
+    ``schedule="auto"`` resolves through the tuner's batched keyspace,
+    keyed on the per-element GEMM shape and the epilogue.
     """
     if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
         raise ValueError(f"bad batched GEMM operands {tuple(a.shape)} @ "
@@ -74,7 +107,11 @@ def sfc_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     if residual is not None and residual.shape != (*lead, m, n):
         raise ValueError(f"residual shape {tuple(residual.shape)} != "
                          f"{(*lead, m, n)}")
-    _no_auto(schedule)
+    if schedule == "auto":
+        schedule, bm, bn, bk, use_prefetch, g = _resolve_auto(
+            a, m, n, k, batched=True, objective=objective,
+            has_bias=bias is not None, activation=activation,
+            has_residual=residual is not None)
     if schedule == "xla":
         return matmul_batched_fused_ref(a, b, bias=bias,
                                         activation=activation,

@@ -47,7 +47,8 @@ from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
 __all__ = ["sfc_matmul_cuda", "sfc_matmul_batched_cuda", "sfc_matmul_plain",
            "sfc_matmul_batched_plain", "decode_step", "tile_schedule",
            "split_plan", "split_ranges", "launch_plan", "sm_count",
-           "launches", "batched_launches"]
+           "tile_ok", "tile_smem_bytes", "ROWS_MAX_M", "launches",
+           "batched_launches"]
 
 # kernel launches made by sfc_matmul_cuda (B1) and sfc_matmul_batched_cuda
 # (B3); CPU calls are not counted
@@ -77,11 +78,27 @@ _DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
 _SM_COUNT: dict[str, int] = {}
 
 
+ROWS_MAX_M = 8        # the most rows the rows path takes (csrc: kRowsMaxM)
+
+
+def tile_ok(bm: int, bn: int) -> bool:
+    """Whether the kernel takes a bm x bn output tile: multiples of 16
+    up to 128."""
+    return bm % 16 == 0 and bn % 16 == 0 and 0 < bm <= 128 and 0 < bn <= 128
+
+
+def tile_smem_bytes(bm: int, bn: int, bk: int, itemsize: int) -> int:
+    """Bytes of an A (bm, bk) and a B (bk, bn) tile, which the wrapper
+    holds within one block's shared memory (``_SMEM_LIMIT``)."""
+    return (bm * bk + bk * bn) * itemsize
+
+
 def _rows_path(m: int, n: int, k: int, bn: int, itemsize: int) -> bool:
     """Whether the kernel takes its rows path at this shape (given
-    16-byte-aligned operands): M <= 8, bn = 128, N a multiple of 8 and K
-    of a 16-byte vector."""
-    return m <= 8 and bn == 128 and n % 8 == 0 and k % (16 // itemsize) == 0
+    16-byte-aligned operands): M <= ROWS_MAX_M, bn = 128, N a multiple of
+    8 and K of a 16-byte vector."""
+    return (m <= ROWS_MAX_M and bn == 128 and n % 8 == 0
+            and k % (16 // itemsize) == 0)
 
 
 def split_plan(m: int, n: int, k: int, bn: int, dtype: torch.dtype,
@@ -142,22 +159,29 @@ def sm_count(device: torch.device) -> int:
     return _SM_COUNT[key]
 
 
-def decode_step(t: torch.Tensor, schedule: str, mt: int, nt: int):
-    """Closed-form tile step -> (i, j) on integer tensors; the plain
-    twin of the kernel's in-kernel decode."""
-    if schedule == "rowmajor":
-        return t // nt, t % nt
-    if schedule == "colmajor":
-        return t % mt, t // mt
+def _check_closed_form(schedule: str, mt: int, nt: int) -> None:
+    """Raise unless ``schedule`` has a closed-form decode on an mt x nt
+    tile grid (host arithmetic only: the wrapper checks every launch)."""
     if schedule in ("morton", "hilbert"):
         if not (mt == nt and is_pow2(mt)):
             raise ValueError(
                 f"closed-form {schedule} decode needs a square power-of-two "
                 f"tile grid, got {mt}x{nt}; use use_prefetch=True otherwise")
-        if schedule == "morton":
-            return morton_decode(t)
-        return hilbert_decode(t, mt.bit_length() - 1)
-    raise ValueError(f"no closed-form decode for schedule {schedule!r}")
+    elif schedule not in ("rowmajor", "colmajor"):
+        raise ValueError(f"no closed-form decode for schedule {schedule!r}")
+
+
+def decode_step(t: torch.Tensor, schedule: str, mt: int, nt: int):
+    """Closed-form tile step -> (i, j) on integer tensors; the plain
+    twin of the kernel's in-kernel decode."""
+    _check_closed_form(schedule, mt, nt)
+    if schedule == "rowmajor":
+        return t // nt, t % nt
+    if schedule == "colmajor":
+        return t % mt, t // mt
+    if schedule == "morton":
+        return morton_decode(t)
+    return hilbert_decode(t, mt.bit_length() - 1)
 
 
 def tile_schedule(schedule: str, mt: int, nt: int, *, use_prefetch: bool,
@@ -259,11 +283,11 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
     if a.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda (or the plain version on "
                          f"cpu), got {a.device}")
-    if bm % 16 or bn % 16 or not (0 < bm <= 128 and 0 < bn <= 128):
+    if not tile_ok(bm, bn):
         raise ValueError(f"the kernel takes bm and bn in multiples of 16 up "
                          f"to 128, got {bm}x{bn}")
     itemsize = a.element_size()
-    if (bm * bk + bk * bn) * itemsize > _SMEM_LIMIT:
+    if tile_smem_bytes(bm, bn, bk, itemsize) > _SMEM_LIMIT:
         # bk sizes no buffer of the kernel (it names the plain version's k
         # blocking); the bound stays so the wrapper refuses what it did
         raise ValueError(f"tiles {bm}x{bk} + {bk}x{bn} exceed shared memory")
@@ -278,7 +302,7 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
         sched_t = _device_table(schedule, mt, nt, g, a.device)
         mode, order = 0, 0
     else:
-        decode_step(torch.zeros(1, dtype=torch.int64), schedule, mt, nt)
+        _check_closed_form(schedule, mt, nt)
         sched_t, mode = None, _MODE_CODE[schedule]
         order = mt.bit_length() - 1 if schedule == "hilbert" else 0
     vec, split = launch_plan(a, b, bk=bk, bn=bn, sms=sm_count(a.device))

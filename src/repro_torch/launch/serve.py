@@ -26,18 +26,36 @@ through the paged decode kernel when the engine has a curve schedule
 and the device is ``cuda``; a chunk's attention over its slots' pages
 is plain torch, as it is XLA in the reference.
 
+Energy, as in the reference: every lockstep prefill, prefill chunk and
+decode step runs inside an :class:`~repro_torch.power.EnergyMeter` on
+the loop's power backend (``power_backend=``, default
+:func:`~repro_torch.power.detect_backend`; name ``NvmlBackend(poll_s=
+NVML_POLL_S)`` for the card's own joules: auto-detection prefers RAPL,
+the CPU package's), with the reference's
+:class:`~repro_torch.power.WorkloadHints`; the readings land in
+``energy`` (an :class:`~repro_torch.power.EnergyReport`) and are charged
+to requests in ``request_joules``, weighted by the tokens each processed
+(a decode step splits evenly over its live slots).  The meter adds no
+device synchronisation: a reading holds what the counter saw between
+the window's ends, which on the H100 moves every 100 ms, so a step's
+reading is coarse and a run's sum is what is exact.  With
+``ServeConfig.objective`` set, the GEMMs run ``schedule="auto"`` under
+that metric and the DVFS points of the decode step's shapes
+(``f_scales``) come from the tuner.
+
 Not ported yet (ROADMAP.md): the contiguous layout, chaos injection,
-snapshots, energy metering, observability, the tuner, the NaN guard,
-deadlines and load shedding.
+snapshots, observability, the NaN guard, deadlines and load shedding.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \\
-      --mode continuous --requests 6 --max-new 16
+      --mode continuous --requests 6 --max-new 16 \\
+      --power-backend nvml --energy-report report.json
 
 (``--smoke --device cpu`` runs the SMOKE config on the CPU.)
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -45,11 +63,40 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models import DotEngine, decode_step, init_model, \
-    prefill_kv_chunk
+from repro_torch.models import DotEngine, decode_step, \
+    fused_epilogue_savings_bytes, init_model, prefill_kv_chunk
+from repro_torch.power import EnergyMeter, EnergyReport, WorkloadHints, \
+    detect_backend
 from repro_torch.serve import PoolExhausted, ServeConfig
 from repro_torch.serve.paged_kv import init_paged_serving, \
     page_permutation, pages_needed
+from repro_torch.tune.cost import AttnSpec, attn_decode_bytes
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _engine_for(engine: DotEngine | None,
+                objective: str | None) -> DotEngine:
+    """The loop's GEMM engine: without an objective the explicit engine
+    or the Morton default; with one, the tuner-routed engine under that
+    metric (an explicit engine is re-stamped with it)."""
+    if objective is None:
+        return engine or DotEngine()
+    from repro_torch.tune.objective import OBJECTIVES
+    if objective not in OBJECTIVES:
+        raise ValueError(
+            f"unknown objective {objective!r}; choose from {OBJECTIVES}")
+    if engine is None:
+        return DotEngine(schedule="auto", objective=objective)
+    if engine.objective != objective:
+        return dataclasses.replace(engine, objective=objective)
+    return engine
 
 
 class ServeLoop:
@@ -57,10 +104,13 @@ class ServeLoop:
 
     ``params`` must already live on ``device`` (``cuda`` unless the
     caller passes ``device="cpu"``).  ``engine`` defaults to
-    ``DotEngine()``, the Morton-scheduled SFC GEMM."""
+    ``DotEngine()``, the Morton-scheduled SFC GEMM (with an objective,
+    ``schedule="auto"``).  ``power_backend`` meters every step (default
+    :func:`~repro_torch.power.detect_backend`)."""
 
     def __init__(self, cfg, params, config: ServeConfig | None = None, *,
-                 engine: DotEngine | None = None, device=None):
+                 engine: DotEngine | None = None, power_backend=None,
+                 device=None):
         sc = config if config is not None else ServeConfig()
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -74,17 +124,41 @@ class ServeLoop:
             if cfg.swa_window is not None:
                 raise ValueError(
                     "continuous batching does not support SWA rings yet")
+        self.config = sc
         self.cfg = cfg
         self.params = params
-        self.engine = engine or DotEngine()
+        self.engine = _engine_for(engine, sc.objective)
+        self.objective = sc.objective or "time"
         self.mode = sc.mode
         self.slots = sc.slots
+        self.cache_len = sc.cache_len
         self.page_size = sc.page_size
         self.prefill_budget = sc.prefill_budget
         # prefix sharing needs the mid-flight admissions that make a
         # shared prefix reachable (continuous)
         self.prefix_sharing = bool(sc.prefix_sharing
                                    and sc.mode == "continuous")
+        self.attn_spec = AttnSpec("paged", sc.page_size)
+        # DVFS points of the decode step's shapes for the energy hints:
+        # the projection (slots x d x d, fused residual), the MLP
+        # up-projection (fused silu) and the decode attention, each under
+        # its own keyspace
+        self.f_scales = {"proj": 1.0, "mlp": 1.0, "attn": 1.0}
+        if sc.objective:
+            from repro_torch.tune import EpilogueSpec, GemmSpec, resolve
+            self.f_scales["proj"] = resolve(
+                GemmSpec(sc.slots, cfg.d_model, cfg.d_model, cfg.act_dtype,
+                         epilogue=EpilogueSpec(residual=True)),
+                backend=self.device.type, objective=sc.objective).f_scale
+            self.f_scales["mlp"] = resolve(
+                GemmSpec(sc.slots, cfg.d_ff or cfg.d_model, cfg.d_model,
+                         cfg.act_dtype,
+                         epilogue=EpilogueSpec(activation="silu")),
+                backend=self.device.type, objective=sc.objective).f_scale
+            if cfg.has_attention:
+                self.f_scales["attn"] = self._resolve_attn_f()
+        # the dominant projection's point is the hints' scalar
+        self.f_scale = self.f_scales["proj"]
         self.temperature = sc.temperature
         self.eos_id = sc.eos_id
         self.rng = np.random.default_rng(sc.seed)
@@ -117,6 +191,100 @@ class ServeLoop:
         self.prefill_tokens_per_step: list[int] = []
         self.steps = 0          # decode_step calls, lockstep prefill included
         self.chunk_steps = 0    # prefill_kv_chunk calls
+        # energy: one reading per prefill / prefill chunk / decode step,
+        # charged to requests by the tokens each processed in it
+        self.power = power_backend or detect_backend()
+        # modeled bytes one decode step over the slot pool no longer
+        # moves thanks to the fused epilogues
+        self.ep_saved_step = fused_epilogue_savings_bytes(cfg, sc.slots)
+        # modeled per-step traffic: the weights stream once a step
+        self._gemm_bytes_step = float(sum(
+            t.numel() * t.element_size() for t in _leaves(params)))
+        self._cache_dtype_bytes = cfg.act_torch_dtype().itemsize
+        self._min_share = 1.0
+        self._share_tag: str | None = None
+        self.energy = EnergyReport(backend=self.power.name,
+                                   meta={"driver": "serve",
+                                         "slots": sc.slots,
+                                         "mode": sc.mode,
+                                         "objective": self.objective,
+                                         "attn": self.attn_spec.tag(),
+                                         "attn_share": 1.0,
+                                         "f_scale": self.f_scale,
+                                         "f_scale_per_shape":
+                                         dict(self.f_scales),
+                                         "attn_bytes_step":
+                                         self._attn_bytes_step(),
+                                         "gemm_bytes_step":
+                                         self._gemm_bytes_step,
+                                         "fused_epilogue_saved_bytes_step":
+                                         self.ep_saved_step})
+        self.request_joules: dict[int, float] = {}
+        self._tok_flops = 2.0 * sum(t.numel() for t in _leaves(params))
+
+    # ----------------------------------------------------------- energy --
+    def _resolve_attn_f(self, share: float = 1.0) -> float:
+        """DVFS point of the decode-attention winner under the paged
+        layout; ``share`` < 1 resolves under the live sharing keyspace
+        (``.../attn=paged-p8-sX.XX``)."""
+        from repro_torch.tune import DecodeAttnSpec, resolve
+        spec = self.attn_spec
+        if share < 0.995:
+            spec = dataclasses.replace(spec, share=max(0.01, round(share, 2)))
+        return resolve(
+            DecodeAttnSpec(self.slots, self.cache_len,
+                           n_heads=self.cfg.n_heads,
+                           n_kv_heads=self.cfg.n_kv_heads,
+                           d_head=self.cfg.d_head,
+                           dtype=self.cfg.act_dtype, attn=spec),
+            backend=self.device.type,
+            objective=self.config.objective).f_scale
+
+    def _observe_share(self, share: float) -> None:
+        """Keep the lowest sharing ratio seen and, when it enters a new
+        0.01 bucket under an objective, re-resolve the attention point
+        under that keyspace."""
+        if share >= self._min_share:
+            return
+        self._min_share = share
+        tag = f"{max(0.01, round(share, 2)):.2f}"
+        if self.config.objective and tag != self._share_tag \
+                and self.cfg.has_attention:
+            self._share_tag = tag
+            self.f_scales["attn"] = self._resolve_attn_f(share)
+            self.energy.meta["f_scale_per_shape"] = dict(self.f_scales)
+
+    def _attn_share(self) -> float:
+        """Unique physical pages over logical block-table entries: shared
+        pages are gathered once a step.  1.0 without sharing."""
+        if not self.prefix_sharing:
+            return 1.0
+        logical = int(self.alloc.page_counts().sum())
+        if logical == 0:
+            return 1.0
+        unique = len({pid for s in range(self.slots)
+                      for pid in self.alloc.slot_pages(s)})
+        return unique / logical
+
+    def _attn_bytes_step(self) -> float:
+        """Modeled attention-cache bytes of one decode step, all layers:
+        the allocated pages, scaled by the sharing ratio."""
+        if not self.cfg.has_attention:
+            return 0.0
+        spec = self.attn_spec
+        # allocated pages as lengths: ceil(len / page) recovers them
+        lengths = [int(n) * self.page_size
+                   for n in self.alloc.page_counts()]
+        share = self._attn_share()
+        if share != 1.0:
+            spec = dataclasses.replace(spec, share=share)
+            self.energy.meta["attn_share"] = min(
+                self.energy.meta.get("attn_share", 1.0), share)
+            self._observe_share(share)
+        return self.cfg.n_layers * attn_decode_bytes(
+            spec, slots=self.slots, cache_len=self.cache_len,
+            lengths=lengths, n_kv_heads=self.cfg.n_kv_heads,
+            d_head=self.cfg.d_head, dtype_bytes=self._cache_dtype_bytes)
 
     # ------------------------------------------------------ paged helpers --
     def _sync_tables(self):
@@ -224,10 +392,22 @@ class ServeLoop:
             self._sync_tables()
             mask = np.zeros(self.slots, bool)
             mask[slot] = True
-            for i, tok in enumerate(prompt):
-                toks = np.zeros((self.slots, 1), np.int32)
-                toks[slot, 0] = tok
-                self._step(toks, i, mask)
+            # one "prefill" reading, all of it this request's
+            with EnergyMeter("prefill", backend=self.power,
+                             reporter=self.energy,
+                             hints=WorkloadHints(
+                                 flops=self._tok_flops * len(prompt),
+                                 hbm_bytes=self._gemm_bytes_step
+                                 * len(prompt),
+                                 gemm_bytes=self._gemm_bytes_step
+                                 * len(prompt),
+                                 f_scale=self.f_scale)) as em:
+                for i, tok in enumerate(prompt):
+                    toks = np.zeros((self.slots, 1), np.int32)
+                    toks[slot, 0] = tok
+                    self._step(toks, i, mask)
+            self.request_joules[req_id] = \
+                self.request_joules.get(req_id, 0.0) + em.reading.joules
             self.pos[slot] = len(prompt)
             self.active[slot] = True
             self.slot_req[slot] = req_id
@@ -361,11 +541,25 @@ class ServeLoop:
         for i in range(len(rows), self.slots):
             sl[i] = next(spare)
         dev = self.device
-        self.state = prefill_kv_chunk(
-            self.params, self.cfg, self.state, torch.tensor(toks, device=dev),
-            torch.tensor(sl, device=dev), torch.tensor(st, device=dev),
-            torch.tensor(ln, device=dev), self.engine)
+        total = sum(t for _, _, t in rows)
+        with EnergyMeter("prefill-chunk", backend=self.power,
+                         reporter=self.energy,
+                         hints=WorkloadHints(
+                             flops=self._tok_flops * total,
+                             hbm_bytes=self._gemm_bytes_step,
+                             gemm_bytes=self._gemm_bytes_step,
+                             f_scale=self.f_scale)) as em:
+            self.state = prefill_kv_chunk(
+                self.params, self.cfg, self.state,
+                torch.tensor(toks, device=dev), torch.tensor(sl, device=dev),
+                torch.tensor(st, device=dev), torch.tensor(ln, device=dev),
+                self.engine)
         self.chunk_steps += 1
+        # charged by the prompt tokens each row processed in the chunk
+        for s, done, take in rows:
+            r = self.slot_req[s]
+            self.request_joules[r] = self.request_joules.get(r, 0.0) \
+                + em.reading.joules * take / total
         for s, done, take in rows:
             self._prefill_done[s] = done + take
             if self._prefill_done[s] >= self._prefill_len[s]:
@@ -379,7 +573,7 @@ class ServeLoop:
                 self._prefill_done[s] = 0
                 self.pos[s] = len(self._slot_prompt[s])
                 self.active[s] = True
-        return sum(t for _, _, t in rows)
+        return total
 
     def _sample(self, logits_row: np.ndarray) -> int:
         if self.temperature <= 0:
@@ -411,8 +605,28 @@ class ServeLoop:
         for s in range(self.slots):
             if self.active[s]:
                 toks[s, 0] = self.out[self.slot_req[s]][-1]
-        logits = self._step(toks, self.pos, self.active)
-        logits = logits[:, 0].float().cpu().numpy()
+        n_active = int(self.active.sum())
+        attn_bytes = self._attn_bytes_step()
+        # the report keeps the peak per-step attention traffic
+        self.energy.meta["attn_bytes_step"] = max(
+            self.energy.meta["attn_bytes_step"], attn_bytes)
+        with EnergyMeter("decode-step", backend=self.power,
+                         reporter=self.energy,
+                         hints=WorkloadHints(
+                             flops=self._tok_flops * n_active,
+                             hbm_bytes=self._gemm_bytes_step + attn_bytes,
+                             attn_bytes=attn_bytes,
+                             gemm_bytes=self._gemm_bytes_step,
+                             f_scale=self.f_scale)) as em:
+            logits = self._step(toks, self.pos, self.active)
+            logits = logits[:, 0].float().cpu().numpy()   # synchronises
+        # one token per live slot: an even split
+        j_per_req = em.reading.joules / max(n_active, 1)
+        for s in range(self.slots):
+            if self.active[s]:
+                r = self.slot_req[s]
+                self.request_joules[r] = \
+                    self.request_joules.get(r, 0.0) + j_per_req
         for s in range(self.slots):
             if not self.active[s]:
                 continue
@@ -478,9 +692,21 @@ def main(argv=None):
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="turn copy-on-write prompt-prefix sharing off "
                          "(it applies with --mode continuous only)")
-    ap.add_argument("--schedule", default="morton",
-                    help="GEMM tile schedule of the SFC kernel, or 'xla' "
-                         "for the torch.matmul baseline")
+    ap.add_argument("--schedule", default=None,
+                    help="GEMM tile schedule of the SFC kernel, 'xla' for "
+                         "the torch.matmul baseline, or 'auto' for the "
+                         "tuner (default: morton, auto with --objective)")
+    ap.add_argument("--objective", default=None,
+                    choices=["time", "energy", "edp"],
+                    help="route every GEMM through the autotuner "
+                         "adjudicated on this metric")
+    ap.add_argument("--power-backend", default=None,
+                    choices=["rapl", "nvml", "model"],
+                    help="pin the energy telemetry backend (default: auto, "
+                         "which prefers RAPL, the CPU package, where it is "
+                         "readable; nvml is the card)")
+    ap.add_argument("--energy-report", default=None, metavar="PATH",
+                    help="write the per-step energy report JSON here")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -494,7 +720,8 @@ def main(argv=None):
         temperature=args.temperature, seed=args.seed, layout=args.layout,
         page_size=args.page_size, num_pages=args.num_pages, mode=args.mode,
         prefill_budget=args.prefill_budget,
-        prefix_sharing=not args.no_prefix_sharing)
+        prefix_sharing=not args.no_prefix_sharing,
+        objective=args.objective)
     if dev.type == "cuda" and args.schedule != "xla":
         from repro_torch.kernels import _build
         secs = _build.build()   # first-use nvcc, kept out of the timing
@@ -502,7 +729,10 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_model(cfg, gen, device=dev)
     loop = ServeLoop(cfg, params, serve_cfg,
-                     engine=DotEngine(schedule=args.schedule), device=dev)
+                     engine=DotEngine(schedule=args.schedule)
+                     if args.schedule else None,
+                     power_backend=detect_backend(args.power_backend),
+                     device=dev)
     rng = np.random.default_rng(args.seed)
     for r in range(args.requests):
         loop.submit(r, rng.integers(2, cfg.vocab, size=args.prompt_len).tolist())
@@ -518,9 +748,25 @@ def main(argv=None):
           f"{loop.steps} decode steps and {loop.chunk_steps} prefill chunks "
           f"in {dt:.2f}s ({total_new / max(dt, 1e-9):.1f} tok/s), "
           f"{loop.preemptions} preemptions")
+    totals = loop.energy.totals()
+    fs = loop.f_scales
+    print(f"[serve] energy ({loop.power.name}, objective={loop.objective}, "
+          f"f_scale proj {fs['proj']:g} / mlp {fs['mlp']:g} / attn "
+          f"{fs['attn']:g}): {totals['joules']:.2f} J over "
+          f"{len(loop.energy.readings)} readings, "
+          f"{totals['joules'] / max(total_new, 1):.3f} J/token")
+    print(f"[serve] modeled per decode step: "
+          f"~{loop.energy.meta['attn_bytes_step'] / 1e6:.2f} MB KV "
+          f"traffic ({loop.attn_spec.tag()}) next to "
+          f"~{loop.energy.meta['gemm_bytes_step'] / 1e6:.2f} MB of weights;"
+          f" fused epilogues save ~{loop.ep_saved_step / 1e6:.2f} MB")
     for r, toks in sorted(out.items()):
         print(f"  req {r}: {toks[:args.prompt_len]} -> "
-              f"{toks[args.prompt_len:][:8]}...")
+              f"{toks[args.prompt_len:][:8]}... "
+              f"({loop.request_joules.get(r, 0.0):.2f} J)")
+    if args.energy_report:
+        loop.energy.write(args.energy_report)
+        print(f"[serve] wrote energy report to {args.energy_report}")
     return out
 
 

@@ -2,6 +2,7 @@ from .config import SHAPES, ArchConfig, ShapeSpec  # noqa: F401
 from .layers import DotEngine  # noqa: F401
 from .transformer import (  # noqa: F401
     decode_step,
+    fused_epilogue_savings_bytes,
     init_model,
     prefill_kv,
     prefill_kv_chunk,

@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-
 import torch
 
 __all__ = ["DotEngine", "rms_norm", "rope", "apply_rope", "swiglu_mlp",
@@ -22,11 +21,20 @@ class DotEngine:
 
     schedule: an SFC schedule name run by the CUDA kernel ("morton",
     "hilbert", "rowmajor", ...; the default is "morton", the serving
-    path), or "xla" for the ``torch.matmul`` library baseline.  "auto"
-    raises until the tuner is ported.  ``block`` is (bm, bn, bk)."""
+    path), "xla" for the ``torch.matmul`` library baseline, or "auto":
+    each GEMM's (schedule, blocks, prefetch) resolved per shape bucket
+    through ``repro_torch.tune`` (the winner may be "xla").  ``block``
+    is (bm, bn, bk).
+
+    objective: the tuner's metric under "auto": "time" (default),
+    "energy" or "edp".  Ignored for explicit schedules.  An "energy" or
+    "edp" winner also carries a DVFS point that never changes the
+    launch; the serving loop reads it back for its energy accounting
+    (``repro_torch.tune.resolved_f_scale``)."""
     schedule: str = "morton"
     block: tuple = (128, 128, 128)
     use_prefetch: bool = True
+    objective: str = "time"
 
     def dot(self, x, w, *, bias=None, activation: str = "none",
             residual=None, out_dtype=None):
@@ -43,7 +51,8 @@ class DotEngine:
         bm, bn, bk = self.block
         out = sfc_matmul(x2, w, schedule=self.schedule, bm=bm, bn=bn, bk=bk,
                          use_prefetch=self.use_prefetch, out_dtype=out_dtype,
-                         bias=bias, activation=activation, residual=res2)
+                         objective=self.objective, bias=bias,
+                         activation=activation, residual=res2)
         return out.reshape(*lead, w.shape[-1])
 
     def dot_batched(self, x, w, *, bias=None, activation: str = "none",
@@ -57,7 +66,8 @@ class DotEngine:
         bm, bn, bk = self.block
         return sfc_matmul_batched(
             x, w, schedule=self.schedule, bm=bm, bn=bn, bk=bk,
-            use_prefetch=self.use_prefetch, out_dtype=out_dtype, bias=bias,
+            use_prefetch=self.use_prefetch, out_dtype=out_dtype,
+            objective=self.objective, bias=bias,
             activation=activation, residual=residual)
 
 

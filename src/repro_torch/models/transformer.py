@@ -21,7 +21,33 @@ from .config import ArchConfig
 from .layers import DotEngine, init_linear, init_rms, init_swiglu, rms_norm, \
     rope, swiglu_mlp
 
-__all__ = ["init_model", "decode_step", "prefill_kv", "prefill_kv_chunk"]
+__all__ = ["init_model", "decode_step", "prefill_kv", "prefill_kv_chunk",
+           "fused_epilogue_savings_bytes"]
+
+
+def fused_epilogue_savings_bytes(cfg: ArchConfig, tokens: int) -> float:
+    """Modeled device-memory bytes one forward pass over ``tokens`` no
+    longer moves because the epilogues are fused: each fused site drops
+    the C round trip (re-read + re-write of the projection output) a
+    dot-then-elementwise pipeline pays.  Dense: the attention
+    out-projection's residual (2*T*d), the MLP up-projection's
+    activation (2*T*d_ff) and down-projection's residual (2*T*d); the
+    vocab head's dtype cast (2*T*V_padded).  Other families as the
+    reference counts them."""
+    act_bytes = cfg.act_torch_dtype().itemsize
+    per_tok = 0.0
+    if cfg.family in ("dense", "encoder", "vlm"):
+        per_tok += 2.0 * cfg.d_model          # attn out-proj residual
+        per_tok += 2.0 * cfg.d_ff             # MLP up-proj activation
+        per_tok += 2.0 * cfg.d_model          # MLP down-proj residual
+    elif cfg.family == "moe":
+        per_tok += 2.0 * cfg.d_model          # attn out-proj residual
+    elif cfg.family == "hybrid":
+        per_tok += 2.0 * cfg.d_ff + 2.0 * cfg.d_model   # MLP sites only
+    saved = cfg.n_layers * per_tok * tokens * act_bytes
+    if cfg.vocab:
+        saved += 2.0 * tokens * cfg.padded_vocab * act_bytes  # head cast
+    return saved
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,

@@ -24,6 +24,9 @@ class ServeConfig:
     ``page_size``/``num_pages`` shape the paged pool.  The contiguous
     layout is not ported yet and raises.  Unlike the reference, the
     default layout is PAGED: it is the only one the port serves.
+    ``objective`` ("time", "energy" or "edp"), when set, routes the
+    loop's GEMMs through the tuner under that metric and resolves the
+    DVFS points its energy accounting uses.
     """
 
     slots: int = 4
@@ -31,6 +34,7 @@ class ServeConfig:
     temperature: float = 0.0
     eos_id: int = 1
     seed: int = 0
+    objective: str | None = None
     layout: KVLayout = KVLayout.PAGED
     page_size: int = 8
     num_pages: int | None = None

@@ -224,6 +224,11 @@ class PageAllocator:
     def slot_pages(self, slot: int) -> list[int]:
         return [int(p) for p in self.block_table[slot] if p >= 0]
 
+    def page_counts(self) -> np.ndarray:
+        """Per-slot count of allocated pages (the serve loop's traffic
+        accounting)."""
+        return (self.block_table >= 0).sum(axis=1)
+
     def refcount(self, pid: int) -> int:
         return int(self.ref[pid])
 

@@ -8,7 +8,9 @@
   launch error, and a missing ``nvcc`` raises instead of switching the
   path;
 * ``chip_smoke.py`` exits non-zero and prints no result without a card,
-  and in a directory that holds nothing else of the repository.
+  and in a directory that holds nothing else of the repository;
+* ``NvmlBackend()`` raises where the NVML library is missing: the card's
+  energy readings never degrade to another backend inside it.
 """
 import ast
 import json
@@ -165,3 +167,32 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
             except ValueError:
                 continue
             assert "ok" not in result, out.stdout
+
+
+def test_nvml_backend_raises_without_the_library(monkeypatch):
+    """The constructor raises (the library cannot load) and holds no
+    try/except: a missing library never degrades into a backend that
+    reads nothing.  available() reports it."""
+    from repro_torch.power import backends
+
+    monkeypatch.setattr(backends, "NVML_LIBRARY", "libnvidia-ml-missing.so.1")
+    with pytest.raises(OSError):
+        backends.NvmlBackend()
+    assert not backends.NvmlBackend.available()
+    tree = ast.parse(Path(backends.__file__).read_text())
+    cls = next(n for n in tree.body
+               if isinstance(n, ast.ClassDef) and n.name == "NvmlBackend")
+    init = next(n for n in cls.body
+                if isinstance(n, ast.FunctionDef) and n.name == "__init__")
+    assert not [n for n in ast.walk(init) if isinstance(n, ast.Try)]
+
+
+def test_chip_smoke_prints_no_json_line_without_a_card():
+    """Without a card no phase runs: no line of the result (kernels,
+    serve_modes, study_energy, tuner, ok) is printed, and nothing of the
+    NVML phase."""
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert not [line for line in out.stdout.splitlines()
+                if line.startswith("{")]
+    assert "[nvml]" not in out.stdout

@@ -41,14 +41,15 @@ def weights():
 
 
 def _run_both(weights, prompts, max_new, mode="lockstep", late=None,
-              **sc):
+              backends=(None, None), **sc):
     """Both loops on the same requests.  ``late`` = (iterations,
     prompts): those prompts arrive after that many scheduler
-    iterations."""
+    iterations.  ``backends``: the (reference, port) power backends."""
     jp, tp = weights
     ref = JaxServeLoop(jax_smoke("qwen3_1_7b"), jp,
                        JaxServeConfig(layout="paged", mode=mode, **sc),
-                       engine=JaxEngine(schedule="morton"))
+                       engine=JaxEngine(schedule="morton"),
+                       power_backend=backends[0])
     ref_order = []
     set_phase = ref._set_phase
 
@@ -60,7 +61,8 @@ def _run_both(weights, prompts, max_new, mode="lockstep", late=None,
     ref._set_phase = record
     mine = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
                      ServeConfig(layout="paged", mode=mode, **sc),
-                     engine=DotEngine(schedule="morton"), device="cpu")
+                     engine=DotEngine(schedule="morton"),
+                     power_backend=backends[1], device="cpu")
     for loop in (ref, mine):
         for r, p in enumerate(prompts):
             loop.submit(r, p)
@@ -307,3 +309,78 @@ def test_no_fork_at_page_aligned_boundary(weights):
     assert loop.alloc.stats["cow_forks"] == 0
     assert out[1] == out[0]
     loop.alloc.check_invariants()
+
+
+# ---------------------------------------------------------------- energy --
+class HintsBackend:
+    """A deterministic power backend for either package: joules from the
+    metered region's WorkloadHints alone (never from time), and a record
+    of every region's hints."""
+
+    name = "hints"
+    primary_domains = ("j",)
+
+    def __init__(self):
+        self.hints = []
+
+    def start(self):
+        return None
+
+    def stop(self, token, elapsed_s, hints=None):
+        self.hints.append(hints)
+        return {"j": 1e-12 * hints.flops + 1e-10 * hints.hbm_bytes
+                + 1e-9 * hints.attn_bytes + 0.1 * hints.f_scale}
+
+
+def _hint_dicts(backend):
+    return [{f: getattr(h, f) for f in ("flops", "hbm_bytes", "ici_bytes",
+                                        "dcn_bytes", "chips", "f_scale",
+                                        "hw", "attn_bytes", "gemm_bytes")}
+            for h in backend.hints]
+
+
+@pytest.mark.parametrize("mode,sharing,objective", [
+    ("lockstep", False, None), ("continuous", True, None),
+    ("continuous", False, None), ("continuous", True, "edp"),
+    ("lockstep", False, "edp")])
+def test_energy_accounting_equals_reference(weights, tmp_path, monkeypatch,
+                                            mode, sharing, objective):
+    """Every prefill, prefill chunk and decode step is metered with the
+    reference's WorkloadHints, in the same order and under the same
+    labels; the report's meta (latency aside: obs is not ported),
+    ``request_joules`` and, under ``objective="edp"``, the tuned DVFS
+    points equal the reference's; the greedy tokens are unchanged.  The
+    tuner cache is shared: the reference's loop resolves first and the
+    port reads its winners (the reference's constants live there)."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    first, *rest = _shared_prompts()
+    ref_be, my_be = HintsBackend(), HintsBackend()
+    kw = dict(slots=4, cache_len=48, page_size=4, prefill_budget=4,
+              prefix_sharing=sharing, objective=objective)
+    late = (-(-len(first) // 4) + 1, [rest[1], rest[2]]) \
+        if mode == "continuous" else None
+    (out_ref, _, ref), (out, _, loop) = _run_both(
+        weights, [first, rest[0], rest[3]], 4, mode=mode, late=late,
+        backends=(ref_be, my_be), **kw)
+    assert out == out_ref
+    assert _hint_dicts(my_be) == _hint_dicts(ref_be)
+    labels = [r.label for r in loop.energy.readings]
+    assert labels == [r.label for r in ref.energy.readings]
+    assert set(labels) == ({"prefill", "decode-step"} if mode == "lockstep"
+                           else {"prefill-chunk", "decode-step"})
+    meta_ref = {k: v for k, v in ref.energy.meta.items() if k != "latency"}
+    assert loop.energy.meta == meta_ref
+    assert loop.energy.backend == "hints"
+    assert loop.request_joules.keys() == ref.request_joules.keys()
+    for r, j in ref.request_joules.items():
+        assert loop.request_joules[r] == pytest.approx(j, rel=1e-12)
+    total = loop.energy.totals()["joules"]
+    assert sum(loop.request_joules.values()) == pytest.approx(total,
+                                                              rel=1e-9)
+    assert loop.f_scales == ref.f_scales
+    assert loop.f_scale == ref.f_scale
+    if objective:
+        assert loop.objective == objective
+        assert loop.engine.objective == objective
+    if sharing and mode == "continuous":
+        assert loop.energy.meta["attn_share"] < 1.0

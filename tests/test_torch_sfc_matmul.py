@@ -112,15 +112,37 @@ def test_bf16_matches_fused_ref(out_dtype):
                                np.asarray(ref, np.float32), **BF16)
 
 
-def test_xla_schedule_is_the_fused_reference_and_auto_raises():
+def test_xla_schedule_is_the_fused_reference_and_auto_raises(tmp_path,
+                                                             monkeypatch):
+    """"xla" is the fused library reference.  "auto" no longer raises: on
+    the CPU it resolves to the winner ``repro``'s tuner persisted for
+    this (shape bucket, epilogue) in the shared cache file, and the
+    output equals the reference's ``schedule="auto"`` within the f32
+    bound."""
+    from repro.tune import resolve_config as jax_resolve_config
+    from repro.tune.cost import EpilogueSpec as JaxEpilogueSpec
+    from repro_torch.tune import EpilogueSpec, resolve_config
+
     a, b, bias, _ = _inputs(24, 40, 16, 5)
     ta, tb, tbias = (torch.from_numpy(x) for x in (a, b, bias))
     ref = jax_matmul_fused_ref(jnp.asarray(a), jnp.asarray(b),
                                bias=jnp.asarray(bias), activation="relu")
     mine = sfc_matmul(ta, tb, schedule="xla", bias=tbias, activation="relu")
     np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **F32)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        sfc_matmul(ta, tb, schedule="auto")
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    a, b, _, res = _inputs(128, 256, 64, 6)
+    ref = jax_sfc_matmul(jnp.asarray(a), jnp.asarray(b), schedule="auto",
+                         residual=jnp.asarray(res))
+    mine = sfc_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                      schedule="auto", residual=torch.from_numpy(res))
+    np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **F32)
+    want = jax_resolve_config(128, 256, 64, "float32",
+                              epilogue=JaxEpilogueSpec(residual=True))
+    got = resolve_config(128, 256, 64, torch.float32, backend="cpu",
+                         epilogue=EpilogueSpec(residual=True))
+    assert got.to_dict() == want.to_dict()
+    assert got.schedule != "xla"   # a fused epilogue: the kernel wins
 
 
 @pytest.mark.parametrize("epilogue", [False, True])

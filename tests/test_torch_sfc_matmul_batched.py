@@ -173,11 +173,18 @@ def test_dot_engine_dot_batched_matches_reference(schedule, epilogue):
     np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **F32)
 
 
-def test_auto_raises_and_cpu_calls_do_not_count():
+def test_auto_raises_and_cpu_calls_do_not_count(tmp_path, monkeypatch):
+    """"auto" no longer raises: it resolves through the batched keyspace
+    to the winner ``repro``'s tuner persisted in the shared cache file
+    and agrees with the reference's output within the f32 bound.  CPU
+    calls count no launch."""
     a, b, _, _ = _inputs((2,), 16, 16, 16, 8)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
-    with pytest.raises(NotImplementedError, match="tuner"):
-        sfc_matmul_batched(ta, tb, schedule="auto")
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
+    ref = jax_sfc_matmul_batched(jnp.asarray(a), jnp.asarray(b),
+                                 schedule="auto")
+    mine = sfc_matmul_batched(ta, tb, schedule="auto")
+    np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **F32)
     before = (sfc_mod.launches, sfc_mod.batched_launches)
     sfc_matmul_batched(ta, tb, **BLK)
     sfc_matmul_batched(ta, tb, per_element=True, **BLK)
