@@ -17,7 +17,14 @@ just before it and read just after:
   continuous mode (chunked prefill under a 32-token budget, prefix
   sharing on), then a prefix-sharing run (a 64-token shared prefix with
   ragged tails and a duplicate prompt that arrives while its source
-  decodes: prefix hits, shared pages, copy-on-write forks);
+  decodes: prefix hits, shared pages, copy-on-write forks), then the
+  same requests with observability on (an enabled span tracer and a
+  metrics registry: TTFT, TPOT and end-to-end latency per mode; obs on
+  and off in turns) and through faults in continuous mode (a chaos
+  schedule of retried faults -- alloc, step, kernel, straggler, power
+  -- restored and replayed; a NaN quarantine; a snapshot and a restore
+  in memory and through the checkpoint store on disk; the guards on and
+  off in turns);
 * the paper's locality study (``configs/paper.py``, n = 2^10 and 2^12):
   the batched SFC GEMM (B3) through ``DotEngine.dot_batched`` under
   row-major, Morton and Hilbert order, and the software-cached SFC GEMM
@@ -50,10 +57,15 @@ B3/B4, each read just after its own zeroing), then B2 per launch at
 side by side with their joules (``serve_modes``), B1 per launch at a
 prefill chunk's shapes (``b1_prefill``), the energy per schedule
 (``study_energy``), the tuner's winners beside the analytic prediction
-and the library time (``tuner``), every path's launches
-(``launches_by_path``: the serving runs, the study, its energy windows
-and the tuner), the card's name and power limit, and as its last line ``{"ok": true, "device":
-{...}}``.  Any failed phase exits non-zero.  Without a CUDA device, or
+and the library time, with the ``"xla"`` baseline checked at every
+serving GEMM (``tuner``), the observed runs (``serve_obs``: latency
+percentiles, counters, tok/s with obs on and off), the faulted runs
+(``serve_faults``: the schedules' faults, restores, errors, snapshot and
+restore ms, tok/s with the guards on and off), every path's launches
+(``launches_by_path``: the serving runs, the observed and faulted runs,
+the study, its energy windows and the tuner), the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
+failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
 result.
 
@@ -112,8 +124,24 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   total within 1e-6 relative (every reading is charged in full).
 * The tuner's auto GEMMs: a curve winner's output within B1's bf16
   bound of the plain version with the winner's tiles and order, with
-  exactly one B1 launch; an "xla" winner equal to the library call, with
-  none.
+  exactly one B1 launch; an "xla" winner equal to the library call
+  (``ops.library_matmul``: bf16 GEMM, f32 output, f32 epilogue), with
+  none.  The library call itself within B1's bf16 bound of the plain
+  version (f32 products) at every serving GEMM.
+* Observability: the trace written as JSONL passes the port's
+  ``validate_trace``; the X spans' joules sum to the energy report's
+  total within 1e-6 relative; tokens with obs on equal tokens with obs
+  off (lockstep and continuous).
+* Faults (continuous): under RETRY_SPEC every request's tokens equal
+  the clean run's exactly (B1 and B2 are bit-equal run to run and a
+  replay runs the same batches), the schedule is spent, each point is
+  counted, >= 3 restores, the allocator's invariants hold, and the
+  launches equal ``steps * 197 + chunks * 196`` B1 and ``steps * 28``
+  B2 with the replayed steps counted; under NAN_SPEC ``errors == {1:
+  "nan"}`` and the other 5 requests finish (their token agreement with
+  the clean run is printed: a quarantined slot changes later batches);
+  after a restore from disk the run ends with an uninterrupted run's
+  tokens; tokens with the guards on equal tokens with them off.
 """
 from __future__ import annotations
 
@@ -720,11 +748,12 @@ def check_cached(gen) -> float:
 
 
 # ------------------------------------------------------------- serving ----
-def checked_loop(cfg, params, sc, power=None):
+def checked_loop(cfg, params, sc, power=None, **kw):
     """A ServeLoop whose sampler first checks each logit row (finite),
     and which marks each decode step and each prefill chunk with CUDA
     events (no host sync added): the device-timeline span of each.
-    ``power`` meters every step (default: the loop's own detection)."""
+    ``power`` meters every step (default: the loop's own detection);
+    ``kw`` (metrics, tracer) go to the loop."""
     import numpy as np
     import torch
 
@@ -765,7 +794,7 @@ def checked_loop(cfg, params, sc, power=None):
                     if kind == "decode" or out]
 
     return CheckedLoop(cfg, params, sc, engine=DotEngine(schedule="morton"),
-                       power_backend=power, device="cuda")
+                       power_backend=power, device="cuda", **kw)
 
 
 def serving_prompts(cfg):
@@ -1052,6 +1081,346 @@ def serve_shared(cfg, params) -> dict:
     print("[serve shared] allocator invariants hold after the drain")
     return {"stats": dict(st), "steps": loop.steps, "launches": launches,
             "chunk_steps": loop.chunk_steps}
+
+
+# ------------------------------------------------- observability, faults --
+RETRY_SPEC = ("alloc@step=2,step@step=4,kernel@step=6,"
+              "straggler@step=8:delay=0.2,power@step=10")
+NAN_SPEC = "nan@step=3:req=1"
+SNAPSHOT_AT = 8                # iteration of the disk snapshot/restore
+
+
+def serve_run(cfg, params, mode: str, **fields) -> dict:
+    """One full-width run of the serving requests (``ServeConfig``
+    fields, the loop's ``metrics``/``tracer`` in ``fields`` too), every
+    step metered on NVML; launches read just after the zeroing before
+    it and checked against the loop's own step counts (retried steps
+    included: a replay relaunches B1 and B2)."""
+    import torch
+
+    from repro_torch.serve import ServeConfig
+
+    loop_kw = {k: fields.pop(k) for k in ("metrics", "tracer")
+               if k in fields}
+    sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
+                     eos_id=-1, layout="paged", mode=mode,
+                     prefill_budget=PREFILL_BUDGET, seed=0, **fields)
+    power = TimedNvml()
+    loop = checked_loop(cfg, params, sc, power, **loop_kw)
+    prompts = serving_prompts(cfg)
+    for r, p in enumerate(prompts):
+        loop.submit(r, p)
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = loop.run(max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches()
+    power.close()
+    want = want_launches(cfg, loop)
+    if launches != want:
+        raise SystemExit(f"chip_smoke: {mode} run {fields}: launch counts "
+                         f"{launches} != {want}")
+    loop.alloc.check_invariants()
+    gen = sum(len(out[r]) - len(p) for r, p in enumerate(prompts)
+              if r in out)
+    return {"loop": loop, "out": out, "prompts": prompts, "wall_s": wall,
+            "tok_per_s": gen / wall, "launches": launches}
+
+
+def _tokens(run) -> dict:
+    return {r: run["out"][r] for r in sorted(run["out"])}
+
+
+def _latency(loop) -> dict:
+    lat = loop.latency_summary()
+    keep = ("count", "p50", "p95", "p99", "max")
+    return {k: {q: v[q] for q in keep if q in v}
+            for k, v in lat.items() if k != "slo"}
+
+
+def _counters(loop) -> dict:
+    return {k: v["value"] for k, v in
+            loop.metrics.snapshot()["series"].items()
+            if v["type"] == "counter"}
+
+
+def _add(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def serve_obs_phase(cfg, params, smi: str) -> tuple[dict, dict]:
+    """Observability at full width.  Lockstep and continuous with obs on
+    (a fresh registry and an enabled Tracer): TTFT, TPOT and e2e from
+    ``latency_summary`` and the registry's counters; gates: the written
+    JSONL validates (the port's validator), the X spans' joules sum to
+    the energy report's total within 1e-6 relative, and the tokens equal
+    an obs-off run's.  Continuous runs in turns on, off, off, on for
+    tok/s."""
+    import os
+    import tempfile
+
+    from repro_torch.obs import MetricsRegistry, Tracer, load_events, \
+        validate_trace
+
+    rec, launches, bad = {"card": smi}, {}, []
+
+    def observed(mode):
+        tracer = Tracer()
+        run = serve_run(cfg, params, mode, metrics=MetricsRegistry(),
+                        tracer=tracer)
+        _add(launches, run["launches"])
+        loop = run["loop"]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.jsonl")
+            tracer.write_jsonl(path)
+            errors = validate_trace(load_events(path))
+        total = loop.energy.totals()["joules"]
+        span_j = sum(e["args"].get("joules", 0.0) for e in tracer.events
+                     if e["ph"] == "X")
+        if errors:
+            bad.append(f"{mode} trace: {errors[:3]}")
+        if not (total > 0 and abs(span_j - total) <= 1e-6 * total):
+            bad.append(f"{mode} span joules {span_j} != total {total}")
+        return run, {"latency_ms": _latency(loop),
+                     "counters": _counters(loop),
+                     "trace_events": len(tracer.events),
+                     "trace_errors": len(errors), "span_joules": span_j,
+                     "report_joules": total}
+
+    lock_on, rec["lockstep"] = observed("lockstep")
+    lock_off = serve_run(cfg, params, "lockstep", obs=False)
+    _add(launches, lock_off["launches"])
+    if _tokens(lock_on) != _tokens(lock_off):
+        bad.append("lockstep tokens differ with obs on and off")
+    rec["lockstep"]["tok_per_s"] = {"on": lock_on["tok_per_s"],
+                                    "off": lock_off["tok_per_s"]}
+    turns = []
+    for on in (True, False, False, True):
+        if on:
+            run, info = observed("continuous")
+            rec.setdefault("continuous", info)
+        else:
+            run = serve_run(cfg, params, "continuous", obs=False)
+            _add(launches, run["launches"])
+        turns.append(run)
+    if any(_tokens(t) != _tokens(turns[0]) for t in turns):
+        bad.append("continuous tokens differ with obs on and off")
+    tps = [t["tok_per_s"] for t in turns]
+    rec["continuous"]["tok_per_s_turns"] = {"order": "on off off on",
+                                            "tok_per_s": tps}
+    on_mean, off_mean = (tps[0] + tps[3]) / 2, (tps[1] + tps[2]) / 2
+    rec["continuous"]["obs_cost"] = 1 - on_mean / off_mean
+    for mode in ("lockstep", "continuous"):
+        lat = rec[mode]["latency_ms"]
+        print(f"[serve_obs {mode}] " + "; ".join(
+            f"{k} n={v['count']} p50 {v.get('p50', 0):.2f} p95 "
+            f"{v.get('p95', 0):.2f} p99 {v.get('p99', 0):.2f} max "
+            f"{v.get('max', 0):.2f} ms" for k, v in lat.items())
+            + f"; {rec[mode]['trace_events']} trace events, valid; span "
+            f"joules {rec[mode]['span_joules']:.6f} = report "
+            f"{rec[mode]['report_joules']:.6f} J ({smi})")
+        print(f"[serve_obs {mode}] counters {rec[mode]['counters']}")
+    print(f"[serve_obs] continuous tok/s on, off, off, on: "
+          f"{', '.join(f'{t:.2f}' for t in tps)} (obs costs "
+          f"{rec['continuous']['obs_cost']:.2%}); lockstep on "
+          f"{lock_on['tok_per_s']:.2f}, off {lock_off['tok_per_s']:.2f}; "
+          f"tokens equal on and off ({smi})")
+    if bad:
+        raise SystemExit(f"chip_smoke: serve_obs failed: {bad}")
+    return rec, launches
+
+
+def check_b2_chaos_hook(cfg):
+    """B2's host wrapper checks the ``kernel`` chaos point just before
+    its launch: an injected fault raises InjectedFault with nothing
+    launched (and no device work), at the serving shape."""
+    import torch
+
+    import repro_torch.kernels.paged_attention as pa_mod
+    from repro_torch.runtime import chaos
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, kp, vp, phys = long_context_inputs(cfg, CACHE_LEN, torch.bfloat16,
+                                          gen)
+    before = pa_mod.launches
+    inj = chaos.ChaosInjector([chaos.ChaosEvent("kernel")])
+    with chaos.install(inj):
+        try:
+            pa_mod.paged_decode_attention_cuda(q, kp, vp, phys,
+                                               CACHE_LEN - 1)
+        except chaos.InjectedFault:
+            raised = True
+        else:
+            raised = False
+    torch.cuda.synchronize()
+    if not raised or pa_mod.launches != before or not inj.exhausted():
+        raise SystemExit("chip_smoke: B2's kernel chaos point did not raise "
+                         "before its launch")
+    print("[serve_faults] B2's wrapper raised InjectedFault on an injected "
+          "kernel fault, before any launch")
+
+
+def serve_faults_phase(cfg, params, smi: str) -> tuple[dict, dict]:
+    """Serving through faults, continuous mode at full width.
+    (a) the retry-only spec RETRY_SPEC: every request's tokens equal the
+    clean run's, the schedule is spent, each raising point is counted on
+    ``serve.faults.<point>`` (power on ``power.faults``), >= 3 restores,
+    the allocator's invariants hold.  (b) NAN_SPEC: request 1 fails with
+    "nan", the other 5 finish; their agreement with the clean run is
+    printed (a quarantined slot changes later batches, so exact equality
+    is not gated).  (c) one snapshot and one restore at SNAPSHOT_AT, in
+    memory (device clones) and through ``snapshot_dir`` (the disk),
+    timed; after the disk restore the run ends with an uninterrupted
+    run's tokens.  Guards on and off in turns for tok/s."""
+    import tempfile
+
+    from repro_torch.obs import MetricsRegistry, default_registry
+
+    rec, launches, bad = {"card": smi}, {}, []
+    check_b2_chaos_hook(cfg)
+    turns = []
+    for guards in (True, False, False, True):
+        run = serve_run(cfg, params, "continuous", fault_guards=guards)
+        _add(launches, run["launches"])
+        turns.append(run)
+    clean = _tokens(turns[0])
+    if any(_tokens(t) != clean for t in turns):
+        bad.append("tokens differ with guards on and off")
+    tps = [t["tok_per_s"] for t in turns]
+    rec["guards_tok_per_s_turns"] = {"order": "on off off on",
+                                     "tok_per_s": tps}
+    rec["guards_cost"] = 1 - (tps[0] + tps[3]) / (tps[1] + tps[2])
+
+    # (a) faults that are retried: restore and replay, tokens exact
+    power_faults = default_registry().counter("power.faults")
+    pf0 = power_faults.value
+    run = serve_run(cfg, params, "continuous", chaos=RETRY_SPEC,
+                    metrics=MetricsRegistry())
+    _add(launches, run["launches"])
+    loop, c = run["loop"], _counters(run["loop"])
+    faults = {p: c.get(f"serve.faults.{p}", 0)
+              for p in ("alloc", "step", "kernel", "straggler")}
+    faults["power"] = power_faults.value - pf0
+    rec["retry"] = {"spec": RETRY_SPEC, "fired": loop.chaos.fired,
+                    "faults": faults, "counters": c,
+                    "restores": loop.snapshotter.restores,
+                    "snapshots": loop.snapshotter.snapshots,
+                    "steps": loop.steps, "chunk_steps": loop.chunk_steps,
+                    "launches": run["launches"],
+                    "tok_per_s": run["tok_per_s"],
+                    "tokens_equal_clean": _tokens(run) == clean}
+    if _tokens(run) != clean:
+        bad.append("retry-spec tokens differ from the clean run's")
+    if not loop.chaos.exhausted() or min(faults.values()) < 1:
+        bad.append(f"retry spec not spent: fired {loop.chaos.fired}, "
+                   f"counted {faults}")
+    if loop.snapshotter.restores < 3 or loop.errors:
+        bad.append(f"{loop.snapshotter.restores} restores, errors "
+                   f"{loop.errors}")
+
+    # (b) the NaN quarantine: one request fails, the others finish
+    run = serve_run(cfg, params, "continuous", chaos=NAN_SPEC,
+                    metrics=MetricsRegistry())
+    _add(launches, run["launches"])
+    loop = run["loop"]
+    others = [r for r in range(N_REQUESTS) if r != 1]
+    agree = {r: sum(x == y for x, y in zip(
+        run["out"][r][len(run["prompts"][r]):],
+        clean[r][len(run["prompts"][r]):])) for r in others}
+    rec["nan"] = {"spec": NAN_SPEC, "errors": loop.errors,
+                  "agree_with_clean": agree,
+                  "counters": _counters(loop)}
+    if loop.errors != {1: "nan"} or any(
+            len(run["out"][r]) != len(run["prompts"][r]) + MAX_NEW
+            for r in others):
+        bad.append(f"nan spec: errors {loop.errors}")
+
+    # (c) one snapshot and one restore, device and disk, timed
+    with tempfile.TemporaryDirectory() as tmp:
+        sc_run = serve_run_partial(cfg, params, tmp, clean)
+    rec["snapshot"] = sc_run
+    if not sc_run["tokens_equal_uninterrupted"]:
+        bad.append("tokens after the disk restore differ")
+
+    print(f"[serve_faults] guards on, off, off, on: "
+          f"{', '.join(f'{t:.2f}' for t in tps)} tok/s (guards cost "
+          f"{rec['guards_cost']:.2%}); tokens equal ({smi})")
+    r = rec["retry"]
+    print(f"[serve_faults] {RETRY_SPEC}: fired {r['fired']}, counted "
+          f"{faults}, {r['snapshots']} snapshots, {r['restores']} restores, "
+          f"{r['steps']} decode steps and {r['chunk_steps']} chunks "
+          f"(retries included), launches {r['launches']}; tokens equal "
+          f"the clean run's: {r['tokens_equal_clean']}; "
+          f"{r['tok_per_s']:.2f} tok/s")
+    print(f"[serve_faults] {NAN_SPEC}: errors {loop.errors}; the others' "
+          f"tokens agreeing with the clean run {agree} of {MAX_NEW} "
+          f"(printed, not gated)")
+    s = rec["snapshot"]
+    print(f"[serve_faults] snapshot / restore at iteration {SNAPSHOT_AT}: "
+          f"device {s['device_snapshot_ms']:.3f} / "
+          f"{s['device_restore_ms']:.3f} ms (host enqueue "
+          f"{s['device_snapshot_host_ms']:.3f} / "
+          f"{s['device_restore_host_ms']:.3f}), disk "
+          f"{s['disk_snapshot_ms']:.3f} / {s['disk_restore_ms']:.3f} ms "
+          f"({s['state_mb']:.1f} MB of pool); tokens after the disk restore "
+          f"equal the uninterrupted run's: "
+          f"{s['tokens_equal_uninterrupted']} ({smi})")
+    if bad:
+        raise SystemExit(f"chip_smoke: serve_faults failed: {bad}")
+    return rec, launches
+
+
+def serve_run_partial(cfg, params, root: str, clean: dict) -> dict:
+    """Phase (c) of serve_faults: a continuous run with
+    ``snapshot_dir=root`` driven to SNAPSHOT_AT, one snapshot in each
+    form (device clones; device clones plus the disk), the run to its
+    end, then a restore in each form (synced around each for the device
+    time) and, after the disk restore, the run to its end again: its
+    tokens must equal those of the run's first end and of ``clean``, an
+    uninterrupted run of the same requests."""
+    import torch
+
+    from repro_torch.runtime import ServeSnapshotter
+    from repro_torch.serve import ServeConfig
+
+    sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
+                     eos_id=-1, layout="paged", mode="continuous",
+                     prefill_budget=PREFILL_BUDGET, seed=0,
+                     snapshot_dir=root)
+    loop = checked_loop(cfg, params, sc)
+    for r, p in enumerate(serving_prompts(cfg)):
+        loop.submit(r, p)
+    for _ in range(SNAPSHOT_AT):
+        loop._run_iteration(MAX_NEW)
+    mem = ServeSnapshotter(loop)
+    disk = ServeSnapshotter(loop, root=root)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rec = {"device_snapshot_ms": synced(lambda: mem.snapshot(SNAPSHOT_AT)),
+           "device_snapshot_host_ms": mem.last_snapshot_ms,
+           "disk_snapshot_ms": synced(lambda: disk.snapshot(SNAPSHOT_AT)),
+           "state_mb": sum(t.numel() * t.element_size()
+                           for t in loop.state.values()) / 1e6}
+    want = loop.run(max_new=MAX_NEW)
+    want = {r: list(t) for r, t in want.items()}
+    rec["device_restore_ms"] = synced(mem.restore)
+    rec["device_restore_host_ms"] = mem.last_restore_ms
+    rec["disk_restore_ms"] = synced(lambda: disk.restore(from_disk=True))
+    got = loop.run(max_new=MAX_NEW)
+    close = getattr(loop.power, "close", None)
+    if close is not None:
+        close()
+    rec["tokens_equal_uninterrupted"] = got == want == clean
+    return rec
 
 
 class plain_versions:
@@ -1365,6 +1734,7 @@ def time_kernels(cfg, state, pos, smi: str) -> tuple[list, list]:
     kernels line's B1 and B2 rows, the long-context rows)."""
     import torch
 
+    from repro_torch.kernels.ops import library_matmul
     from repro_torch.kernels.paged_attention import attn_launch_plan, \
         attn_split_plan, paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
@@ -1380,6 +1750,8 @@ def time_kernels(cfg, state, pos, smi: str) -> tuple[list, list]:
     gen = torch.Generator(device="cuda").manual_seed(99)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    # the "xla" baseline (ops.library_matmul) and its GEMM alone
+    xla = {"xla_ms": 0.0, "xla_gemm_ms": 0.0}
     print(f"[time] B1 sfc_matmul per launch at the main-path shapes, bf16, "
           f"morton table ({smi})")
     for name, m, k, n, ep, f32, count in main_path_gemms(cfg):
@@ -1393,6 +1765,12 @@ def time_kernels(cfg, state, pos, smi: str) -> tuple[list, list]:
             a, b, sched=sched, bm=128, bn=128, bk=128, out_dtype=out_dtype,
             **kw), 3, flush)
         lib = _time_ms(lambda: torch.matmul(a, b), 20, flush)
+        x_ms = _time_ms(lambda: library_matmul(a, b, out_dtype=out_dtype,
+                                               **kw), 20, flush)
+        x_gemm = _time_ms(lambda: torch.mm(a, b, out_dtype=torch.float32),
+                          20, flush)
+        xla["xla_ms"] += count * x_ms
+        xla["xla_gemm_ms"] += count * x_gemm
         out_b = 4 if f32 else 2
         nbytes = (m * k + k * n) * 2 + m * n * out_b + \
             (m * n * 2 if ep == "residual" else 0)
@@ -1403,12 +1781,18 @@ def time_kernels(cfg, state, pos, smi: str) -> tuple[list, list]:
               f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
               f"{bound:.4f} ms (bytes), x{count} per step; split {split}, "
               f"{-(-n // 128) * split} blocks, {nbytes / ms / 1e6:.0f} GB/s "
-              f"(torch.matmul {nbytes / lib / 1e6:.0f} GB/s)")
+              f"(torch.matmul {nbytes / lib / 1e6:.0f} GB/s); 'xla' "
+              f"{x_ms:.4f} ms, of which torch.mm(out_dtype=f32) {x_gemm:.4f}")
         b1["ms"] += count * ms
         b1["plain_ms"] += count * plain
         b1["library_ms"] += count * lib
         b1["bound_ms"] += count * bound
 
+    print(f"[time] per decode step: B1 {b1['ms']:.3f} ms, torch.matmul "
+          f"(bf16 out, no epilogue) {b1['library_ms']:.3f} ms, 'xla' "
+          f"(ops.library_matmul: bf16 GEMM, f32 out, f32 epilogue, cast) "
+          f"{xla['xla_ms']:.3f} ms, of which the GEMMs "
+          f"{xla['xla_gemm_ms']:.3f} ms ({smi})")
     # B2 at the serving shape, on the mid-serving state of phase 4
     kp, vp = state["k_pages"], state["v_pages"]
     bt = state["block_tables"]
@@ -2053,6 +2437,7 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
     import torch
 
     import repro_torch.kernels.sfc_matmul as sfc_mod
+    from repro_torch.kernels.ops import library_matmul
     from repro_torch.kernels.ref import matmul_fused_ref
     from repro_torch.kernels.sfc_matmul import sfc_matmul_plain, \
         tile_schedule
@@ -2123,7 +2508,7 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
                 torch.cuda.synchronize()
                 launched = sfc_mod.launches - before
                 if won["schedule"] == "xla":
-                    want = matmul_fused_ref(a, b, out_dtype=od, **kw)
+                    want = library_matmul(a, b, out_dtype=od, **kw)
                     ok = launched == 0 and torch.equal(out, want)
                 else:
                     sched = tile_schedule(
@@ -2141,6 +2526,27 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
                 if not ok:
                     bad.append(name)
             engine_b1 = sfc_mod.launches
+            # C2: the "xla" baseline (bf16 GEMM, f32 output, f32
+            # epilogue) against the plain version at every serving GEMM
+            xla_checks = []
+            for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
+                a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
+                od = torch.float32 if f32 else None
+                got = library_matmul(a, b, out_dtype=od, **kw)
+                want = matmul_fused_ref(a, b, out_dtype=od, **kw).float()
+                diff = (got.float() - want).abs()
+                row = next(r for r in rows if r["gemm"] == name
+                           and r["group"] == "serve"
+                           and r["objective"] == "time")
+                ok = bool((diff <= 1e-3 + 2 ** -7 * want.abs()).all()) \
+                    and got.dtype == (od or torch.bfloat16)
+                xla_checks.append({
+                    "gemm": name, "xla_ms": row["xla_ms"],
+                    "best_kernel_ms": row["best_kernel_ms"],
+                    "winner": row["winner"]["schedule"],
+                    "max_abs_err": float(diff.max()), "ok": ok})
+                if not ok:
+                    bad.append(f"xla {name}")
         finally:
             if old is None:
                 os.environ.pop("REPRO_TUNE_CACHE", None)
@@ -2164,11 +2570,18 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
     print(f"[tuner] DotEngine(schedule='auto') per serving shape: "
           + ", ".join(f"{c['gemm']} {c['winner']} (B1 {c['b1_launches']})"
                       f"{'' if c['ok'] else ' FAIL'}" for c in checks))
+    print(f"[C2] 'xla' = torch.mm/bmm(bf16, out_dtype=float32) + f32 "
+          f"epilogue (torch {torch.__version__}); per serving GEMM, time "
+          f"objective: " + "; ".join(
+              f"{c['gemm']} xla {c['xla_ms']:.4f} ms vs B1 "
+              f"{c['best_kernel_ms']:.4f} ms -> {c['winner']}, max err "
+              f"{c['max_abs_err']:.3e}{'' if c['ok'] else ' FAIL'}"
+              for c in xla_checks) + f" ({smi})")
     if bad:
         raise SystemExit(f"chip_smoke: auto GEMMs failed: {bad}")
     launches = {"B1": search["B1"] + engine_b1, "B3": search["B3"]}
-    return {"tuner": rows, "auto_gemms": checks, "search_s": search_s,
-            "card": smi}, launches
+    return {"tuner": rows, "auto_gemms": checks, "xla_serving": xla_checks,
+            "search_s": search_s, "card": smi}, launches
 
 
 def main() -> int:
@@ -2224,6 +2637,8 @@ def main() -> int:
           f"lockstep {sv['ms_per_decode_step']:.3f} ms a step) ({smi})")
     agree = token_agreement(sv, cv)
     shared = serve_shared(cfg, params)
+    obs, obs_launches = serve_obs_phase(cfg, params, smi)
+    faults, fault_launches = serve_faults_phase(cfg, params, smi)
     state, toks, pos = build_state(cfg, params)
     step = compare_step(cfg, params, state, toks, pos, LOGIT_BOUND)
     cstate, gang = chunk_state(cfg, params)
@@ -2248,12 +2663,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     tuner, tuner_launches = tuner_phase(cfg, smi)
     # every path's launches, each read just after its own zeroing: the
-    # three serving runs, the study, the study's energy windows and the
+    # three serving runs, the observed and the faulted runs (summed over
+    # each phase's runs), the study, the study's energy windows and the
     # tuner's search and auto GEMMs.  The kernels line keeps the main
     # path's: the continuous run's B1/B2 and the study's B3/B4, in the
     # units of its times (per step, per study)
     by_path = {"lockstep": sv["launches"], "continuous": cv["launches"],
-               "shared": shared["launches"], "study": study,
+               "shared": shared["launches"], "obs": obs_launches,
+               "faults": fault_launches, "study": study,
                "study_energy": {"B3": energy_b3}, "tuner": tuner_launches}
     launches = {**cv["launches"], "B3": study["B3"], "B4": study["B4"]}
     print(f"[launches] by path: {json.dumps(by_path)}; main path "
@@ -2288,6 +2705,8 @@ def main() -> int:
     print(json.dumps(b1_prefill))
     print(json.dumps(energy))
     print(json.dumps(tuner))
+    print(json.dumps({"serve_obs": obs}))
+    print(json.dumps({"serve_faults": faults}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)

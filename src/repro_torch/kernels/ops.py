@@ -9,10 +9,15 @@ number of leading batch dims, flattened into one for the batched kernel
 (:func:`repro_torch.kernels.sfc_matmul.sfc_matmul_batched_cuda`), or
 run as one B1 launch per element with ``per_element=True`` (the
 reference's ``via_vmap=True``).
-``schedule="xla"`` is the library baseline the reference leaves to XLA:
-:func:`repro_torch.kernels.ref.matmul_fused_ref` and
-``matmul_batched_fused_ref`` (``torch.matmul`` with the same f32
-epilogue).
+``schedule="xla"`` is the library baseline the reference leaves to XLA
+(``jnp.dot(a, b, preferred_element_type=f32)``: products in the input
+dtype, f32 accumulation), :func:`library_matmul`: on a CUDA tensor with
+bf16 operands one bf16 GEMM with f32 output (``torch.mm`` /
+``torch.bmm`` with ``out_dtype=torch.float32``), then the f32 epilogue
+and one cast -- the product is never rounded to bf16 before the
+epilogue; everywhere else :func:`repro_torch.kernels.ref.
+matmul_fused_ref` (``torch.matmul`` on f32 operands, the same epilogue),
+which on the CPU is exact for bf16 operands as well.
 
 ``schedule="auto"`` consults the autotuner (``repro_torch.tune``): the
 (shape bucket, dtype, backend, epilogue) winner comes from the on-disk
@@ -22,12 +27,48 @@ winner may be ``"xla"``, the library call, where it measures faster.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .ref import matmul_batched_fused_ref, matmul_fused_ref
+from .ref import apply_epilogue_ref, matmul_fused_ref
 from .sfc_matmul import sfc_matmul_batched_cuda, sfc_matmul_cuda
 
-__all__ = ["sfc_matmul", "sfc_matmul_batched"]
+__all__ = ["sfc_matmul", "sfc_matmul_batched", "library_matmul"]
+
+
+@functools.cache
+def _check_mm_out_dtype() -> None:
+    """The bf16-in, f32-out GEMM needs ``aten::mm.dtype`` and
+    ``aten::bmm.dtype`` on CUDA; a torch without them raises here, on
+    the first call, instead of computing another baseline."""
+    for op in ("aten::mm.dtype", "aten::bmm.dtype"):
+        if not torch._C._dispatch_has_kernel_for_dispatch_key(op, "CUDA"):
+            raise RuntimeError(
+                f"torch {torch.__version__} has no CUDA kernel for {op}: "
+                f"the 'xla' baseline (bf16 GEMM, f32 output) cannot run")
+
+
+def library_matmul(a: torch.Tensor, b: torch.Tensor, bias=None,
+                   activation: str = "none", residual=None,
+                   out_dtype=None) -> torch.Tensor:
+    """The ``schedule="xla"`` GEMM, ``(..., M, K) @ (..., K, N)`` with
+    the fused epilogue: on CUDA with bf16 operands a bf16 GEMM with f32
+    output, then the epilogue in f32 and one cast to ``out_dtype``
+    (default ``a.dtype``); otherwise :func:`matmul_fused_ref`."""
+    if not (a.is_cuda and a.dtype == b.dtype == torch.bfloat16):
+        return matmul_fused_ref(a, b, bias=bias, activation=activation,
+                                residual=residual, out_dtype=out_dtype)
+    _check_mm_out_dtype()
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if a.dim() == 2:
+        acc = torch.mm(a, b, out_dtype=torch.float32)
+    else:
+        acc = torch.bmm(a.reshape(-1, m, k), b.reshape(-1, k, n),
+                        out_dtype=torch.float32).reshape(*a.shape[:-2], m, n)
+    return apply_epilogue_ref(acc, bias, activation, residual,
+                              out_dtype or a.dtype)
 
 
 def _resolve_auto(a: torch.Tensor, m: int, n: int, k: int,
@@ -73,8 +114,8 @@ def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
             has_bias=bias is not None, activation=activation,
             has_residual=residual is not None)
     if schedule == "xla":
-        return matmul_fused_ref(a, b, bias=bias, activation=activation,
-                                residual=residual, out_dtype=out_dtype)
+        return library_matmul(a, b, bias=bias, activation=activation,
+                              residual=residual, out_dtype=out_dtype)
     return sfc_matmul_cuda(a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
                            out_dtype=out_dtype, use_prefetch=use_prefetch,
                            g=g, bias=bias, activation=activation,
@@ -113,10 +154,8 @@ def sfc_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
             has_bias=bias is not None, activation=activation,
             has_residual=residual is not None)
     if schedule == "xla":
-        return matmul_batched_fused_ref(a, b, bias=bias,
-                                        activation=activation,
-                                        residual=residual,
-                                        out_dtype=out_dtype)
+        return library_matmul(a, b, bias=bias, activation=activation,
+                              residual=residual, out_dtype=out_dtype)
     a3 = a.reshape(-1, m, k)
     b3 = b.reshape(-1, k, n)
     res3 = residual.reshape(-1, m, n) if residual is not None else None

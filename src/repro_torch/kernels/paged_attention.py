@@ -6,7 +6,10 @@ One query token per decode slot attends to that slot's KV pages,
 resolved through its block table of physical pool rows.  CUDA tensors
 launch the kernel or raise; CPU tensors take the plain version
 :func:`repro_torch.kernels.ref.paged_decode_attention_ref`.  There is
-no fallback: a kernel that fails to build or launch raises.
+no fallback: a kernel that fails to build or launch raises.  Just
+before the launch the wrapper checks the ``kernel`` chaos point
+(:func:`repro_torch.runtime.chaos.fire`): an injected fault raises
+``InjectedFault`` with nothing launched.
 
 On the card each (slot, kv-head) is a thread-block cluster of
 :func:`attn_split_plan` blocks; each rank streams its contiguous share
@@ -28,6 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 from repro_torch.kernels.sfc_matmul import sm_count
+from repro_torch.runtime.chaos import fire as _chaos_fire
 
 __all__ = ["paged_decode_attention_cuda", "attn_split_plan",
            "attn_stage_pages", "attn_smem_bytes", "attn_launch_plan",
@@ -188,6 +192,10 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     vec = int(vec and all(t.data_ptr() % 16 == 0
                           for t in (q, k_pages, v_pages, out)))
     lib = _build.load("paged_attention", _SIGNATURES)
+    # chaos point (host only, no device work): an injected ``kernel``
+    # fault raises InjectedFault here, before the launch, for the serve
+    # loop's retry; a real launch error is never turned into one
+    _chaos_fire("kernel")
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         phys_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),

@@ -43,12 +43,44 @@ reading is coarse and a run's sum is what is exact.  With
 that metric and the DVFS points of the decode step's shapes
 (``f_scales``) come from the tuner.
 
-Not ported yet (ROADMAP.md): the contiguous layout, chaos injection,
-snapshots, observability, the NaN guard, deadlines and load shedding.
+Observability, as in the reference: every request carries a lifecycle
+of async trace spans (``request`` enclosing ``request.queued`` /
+``request.prefill`` / ``request.decode``) and every scheduler iteration
+a ``serve.step`` span with ``serve.admit``, ``serve.prefill_chunk`` and
+``serve.decode`` children, on the loop's :class:`~repro_torch.obs.
+Tracer` (``tracer=``, default the process tracer, disabled until a
+caller installs one); metrics (time to first token, time per output
+token, end-to-end latency, step time, queue depth, pool occupancy,
+faults) go to ``metrics=`` (default the process registry, none with
+``ServeConfig(obs=False)``); :meth:`ServeLoop.latency_summary` gives
+exact percentiles and lands in the energy report's ``latency`` meta.
+Spans read the host clock and add no device sync.  The decode step
+ends in a copy of the logits to the host, so its span is true wall
+time; a prefill chunk does not, so ``serve.prefill_chunk`` is the
+host's enqueue time of the chunk (its device time shows in the next
+synchronising span).
+
+Fault tolerance, as in the reference: a deterministic chaos schedule
+(``ServeConfig.chaos``, :mod:`repro_torch.runtime.chaos`) injects
+faults at allocation, the decode step, the top of an iteration, the
+logits (NaN), a delay and the power counter.  An iteration that raises
+a :class:`~repro_torch.runtime.chaos.TransientFault` is restored from
+its snapshot (:class:`~repro_torch.runtime.ServeSnapshotter`, every
+iteration under chaos; device clones, no host copy unless
+``snapshot_dir``) and replayed, at most ``max_step_retries`` times.
+Logits that are not finite fail only their request (the NaN
+quarantine); requests past ``deadline_ms`` fail; a pool or SLO-
+violation rate over a watermark sheds the queue; an EMA watchdog flags
+straggling iterations.  There is no kernel fallback: a real CUDA error
+is not a transient fault and propagates.
+
+Not ported yet (ROADMAP.md): the contiguous layout.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \\
       --mode continuous --requests 6 --max-new 16 \\
-      --power-backend nvml --energy-report report.json
+      --power-backend nvml --energy-report report.json \\
+      --trace trace.jsonl --metrics-report metrics.json \\
+      --chaos "alloc@step=2,nan@step=3:req=1" --snapshot-dir snaps
 
 (``--smoke --device cpu`` runs the SMOKE config on the CPU.)
 """
@@ -65,8 +97,13 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import DotEngine, decode_step, \
     fused_epilogue_savings_bytes, init_model, prefill_kv_chunk
+from repro_torch.obs import MetricsRegistry, Tracer, default_registry, \
+    default_tracer, null_registry
 from repro_torch.power import EnergyMeter, EnergyReport, WorkloadHints, \
     detect_backend
+from repro_torch.runtime import InjectedFault, ServeSnapshotter, \
+    StragglerMonitor, TransientFault, parse_chaos_spec
+from repro_torch.runtime import chaos as _chaos
 from repro_torch.serve import PoolExhausted, ServeConfig
 from repro_torch.serve.paged_kv import init_paged_serving, \
     page_permutation, pages_needed
@@ -106,11 +143,15 @@ class ServeLoop:
     caller passes ``device="cpu"``).  ``engine`` defaults to
     ``DotEngine()``, the Morton-scheduled SFC GEMM (with an objective,
     ``schedule="auto"``).  ``power_backend`` meters every step (default
-    :func:`~repro_torch.power.detect_backend`)."""
+    :func:`~repro_torch.power.detect_backend`).  ``metrics`` and
+    ``tracer`` receive the loop's instruments and spans (defaults as in
+    the reference: the process registry and tracer, or no-ops with
+    ``ServeConfig(obs=False)``)."""
 
     def __init__(self, cfg, params, config: ServeConfig | None = None, *,
                  engine: DotEngine | None = None, power_backend=None,
-                 device=None):
+                 metrics: MetricsRegistry | None = None,
+                 tracer: Tracer | None = None, device=None):
         sc = config if config is not None else ServeConfig()
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -221,6 +262,199 @@ class ServeLoop:
                                          self.ep_saved_step})
         self.request_joules: dict[int, float] = {}
         self._tok_flops = 2.0 * sum(t.numel() for t in _leaves(params))
+        # --- observability ------------------------------------------------
+        self._bind_obs(
+            metrics if metrics is not None else (
+                default_registry() if sc.obs else null_registry()),
+            tracer if tracer is not None else (
+                default_tracer() if sc.obs else Tracer(enabled=False)))
+        # request lifecycle on the time.monotonic clock (seconds; trace
+        # timestamps are the same clock in us): arrival at submit, first
+        # decoded token, retirement
+        self.arrival_s: dict[int, float] = {}
+        self.first_token_s: dict[int, float] = {}
+        self.finish_s: dict[int, float] = {}
+        self.request_ttft_ms: dict[int, float] = {}
+        self.request_tpot_ms: dict[int, float] = {}
+        self.request_e2e_ms: dict[int, float] = {}
+        self.request_slo_ok: dict[int, bool] = {}
+        # current lifecycle phase per request (queued/prefill/decode):
+        # keeps the async phase spans balanced across preemption
+        self._req_phase: dict[int, str | None] = {}
+        self._revived_seen = 0
+        self.g_share.set(1.0)
+        # --- fault tolerance ----------------------------------------------
+        self.guards = sc.fault_guards
+        self.deadline_ms = sc.deadline_ms
+        self.errors: dict[int, str] = {}
+        # requests whose retirement already hit the metrics and spans: a
+        # restore can rewind a finished request into flight, and its
+        # replayed retirement must not count twice
+        self._finished: set[int] = set()
+        self._iter = 0
+        self.straggler = StragglerMonitor()
+        self.chaos = parse_chaos_spec(sc.chaos, seed=sc.seed) \
+            if sc.chaos else None
+        # under chaos, restore-and-replay must always be possible: snapshot
+        # every iteration unless the caller chose a cadence
+        every = sc.snapshot_every or (1 if self.chaos is not None else None)
+        self.snapshotter = ServeSnapshotter(
+            self, every=every, root=sc.snapshot_dir) if every else None
+
+    # -------------------------------------------------------------- obs --
+    def _bind_obs(self, metrics: MetricsRegistry, tracer: Tracer) -> None:
+        """Bind the metrics registry and tracer and hand out this loop's
+        instruments (the reference's names; ``serve.degraded`` stays 0:
+        the port has no kernel fallback)."""
+        self.metrics = m = metrics
+        self.tracer = tracer
+        self.m_ttft = m.histogram("serve.ttft_ms")
+        self.m_tpot = m.histogram("serve.tpot_ms")
+        self.m_e2e = m.histogram("serve.e2e_ms")
+        self.m_step = m.histogram("serve.step_ms")
+        self.m_prefill_tok = m.histogram("serve.prefill_tokens")
+        self.c_submitted = m.counter("serve.requests.submitted")
+        self.c_finished = m.counter("serve.requests.finished")
+        self.c_preempt = m.counter("serve.preemptions")
+        self.c_cow = m.counter("serve.cow_forks")
+        self.c_scrubbed = m.counter("serve.pages.scrubbed")
+        self.c_revived = m.counter("serve.pages.revived")
+        self.c_slo_met = m.counter("serve.slo.met")
+        self.c_slo_violation = m.counter("serve.slo.violations")
+        self.g_queue = m.gauge("serve.queue.depth")
+        self.g_occ = m.gauge("serve.pool.occupancy")
+        self.g_hit_ratio = m.gauge("serve.prefix.hit_ratio")
+        self.g_share = m.gauge("serve.attn.min_share")
+        self.c_failed = m.counter("serve.requests.failed")
+        self.c_shed = m.counter("serve.shed")
+        self.c_retries = m.counter("serve.retries")
+        self.c_restores = m.counter("serve.restores")
+        self.c_degraded = m.counter("serve.degraded")
+        self.h_restore_ms = m.histogram("serve.restore_ms")
+        self._fault_counters: dict[str, object] = {}
+
+    def _fault(self, point: str, **args) -> None:
+        """Count one observed or injected fault at ``point``: a
+        ``serve.faults.<point>`` counter plus an instant trace event."""
+        c = self._fault_counters.get(point)
+        if c is None:
+            c = self.metrics.counter(f"serve.faults.{point}")
+            self._fault_counters[point] = c
+        c.inc()
+        self.tracer.instant(f"serve.faults.{point}", **args)
+
+    # ------------------------------------------------- request lifecycle --
+    def _set_phase(self, req_id: int, phase: str | None) -> None:
+        """Move a request between lifecycle phases, keeping one async
+        span (``request.<phase>``) open per request at all times."""
+        prev = self._req_phase.get(req_id)
+        if prev:
+            self.tracer.end_async(f"request.{prev}", req_id)
+        self._req_phase[req_id] = phase
+        if phase:
+            self.tracer.begin_async(f"request.{phase}", req_id)
+
+    def _finish_request(self, req_id: int,
+                        error: str | None = None) -> None:
+        """Retirement: TTFT / TPOT / e2e histograms, SLO attainment
+        against ``config.latency_slo_ms`` (a TTFT target), and the
+        request's enclosing async span closed with its totals.  ``error``
+        retires a failed request (NaN quarantine, deadline, shed): it
+        counts on ``serve.requests.failed`` and skips the latency and
+        SLO accounting.  A replayed retirement (after a restore) is left
+        out of the metrics and spans."""
+        repeat = req_id in self._finished
+        self._finished.add(req_id)
+        now = time.monotonic()
+        self.finish_s[req_id] = now
+        n_out = self.request_emitted.get(req_id, 0)
+        ttft = tpot = slo_ok = None
+        if repeat:
+            pass
+        elif error is not None:
+            self.c_failed.inc()
+        else:
+            self.c_finished.inc()
+            arr = self.arrival_s.get(req_id)
+            first = self.first_token_s.get(req_id)
+            if arr is not None and first is not None:
+                ttft = (first - arr) * 1e3
+                self.request_ttft_ms[req_id] = ttft
+                self.m_ttft.observe(ttft)
+                e2e = (now - arr) * 1e3
+                self.request_e2e_ms[req_id] = e2e
+                self.m_e2e.observe(e2e)
+            if first is not None and n_out > 1:
+                tpot = (now - first) * 1e3 / (n_out - 1)
+                self.request_tpot_ms[req_id] = tpot
+                self.m_tpot.observe(tpot)
+            slo = self.config.latency_slo_ms
+            if slo is not None and ttft is not None:
+                slo_ok = bool(ttft <= slo)
+                self.request_slo_ok[req_id] = slo_ok
+                (self.c_slo_met if slo_ok else self.c_slo_violation).inc()
+        self._set_phase(req_id, None)
+        if not repeat:
+            self.tracer.end_async(
+                "request", req_id, tokens=n_out,
+                joules=self.request_joules.get(req_id, 0.0),
+                ttft_ms=ttft, tpot_ms=tpot, slo_ok=slo_ok, error=error)
+
+    def _finish_error(self, req_id: int, reason: str) -> None:
+        """Finish a request with an error instead of requeueing it; the
+        caller has already detached it from any slot or the queue."""
+        self.errors[req_id] = reason
+        self.tracer.instant("serve.request.failed", req=req_id,
+                            reason=reason)
+        self._finish_request(req_id, error=reason)
+
+    def _fail_slot(self, slot: int, reason: str) -> None:
+        """Evict a busy slot's request and finish it with ``reason`` (NaN
+        quarantine, deadline): deactivate, drop prefill state, release
+        its page references; co-resident slots never notice."""
+        req = self.slot_req[slot]
+        self.active[slot] = False
+        self._prefill_len[slot] = -1
+        self._prefill_done[slot] = 0
+        self._slot_prompt[slot] = None
+        self.alloc.release(slot)
+        self._sync_tables()
+        self._finish_error(req, reason)
+
+    def _pump_gauges(self) -> None:
+        """Per-iteration gauges: queue depth, pool occupancy, prefix hit
+        ratio, and the pages revived from the prefix cache."""
+        self.g_queue.set(len(self.queue))
+        st = self.alloc.stats
+        used = self.alloc.num_pages - self.alloc.free_pages
+        self.g_occ.set(used / max(self.alloc.num_pages, 1))
+        hits = st.get("prefix_hits", 0)
+        self.g_hit_ratio.set(hits / max(hits + st.get("allocated", 0), 1))
+        rev = st.get("revived", 0) - self._revived_seen
+        if rev:
+            self.c_revived.inc(rev)
+            self._revived_seen = st.get("revived", 0)
+
+    def latency_summary(self) -> dict:
+        """Exact percentiles over the per-request latencies (the
+        histograms hold the same data bucketed) and SLO attainment."""
+        def pct(vals: list[float]) -> dict:
+            if not vals:
+                return {"count": 0}
+            a = np.asarray(sorted(vals), np.float64)
+            return {"count": len(vals),
+                    "p50": float(np.percentile(a, 50)),
+                    "p95": float(np.percentile(a, 95)),
+                    "p99": float(np.percentile(a, 99)),
+                    "mean": float(a.mean()), "max": float(a.max())}
+        met = sum(1 for ok in self.request_slo_ok.values() if ok)
+        total = len(self.request_slo_ok)
+        return {"ttft_ms": pct(list(self.request_ttft_ms.values())),
+                "tpot_ms": pct(list(self.request_tpot_ms.values())),
+                "e2e_ms": pct(list(self.request_e2e_ms.values())),
+                "slo": {"target_ms": self.config.latency_slo_ms,
+                        "met": met, "violations": total - met,
+                        "attainment": met / total if total else None}}
 
     # ----------------------------------------------------------- energy --
     def _resolve_attn_f(self, share: float = 1.0) -> float:
@@ -247,6 +481,7 @@ class ServeLoop:
         if share >= self._min_share:
             return
         self._min_share = share
+        self.g_share.set(share)
         tag = f"{max(0.01, round(share, 2)):.2f}"
         if self.config.objective and tag != self._share_tag \
                 and self.cfg.has_attention:
@@ -299,6 +534,7 @@ class ServeLoop:
         dirty = [pid for pid in page_ids if self.alloc.was_freed(pid)]
         rows = [int(r) for pid in dirty for r in self._perm_np[:, pid]]
         if rows:
+            self.c_scrubbed.inc(len(dirty))
             idx = torch.as_tensor(rows, device=self.device)
             self.state["k_pages"][idx] = 0
             self.state["v_pages"][idx] = 0
@@ -328,6 +564,7 @@ class ServeLoop:
                                       device=self.device).long()
                 self.state["k_pages"][dst] = self.state["k_pages"][src]
                 self.state["v_pages"][dst] = self.state["v_pages"][src]
+                self.c_cow.inc()
                 forked = True
                 break
         return forked
@@ -362,16 +599,86 @@ class ServeLoop:
         self.alloc.release(victim)
         self._sync_tables()
         self.preemptions += 1
-        self.queue.insert(0, (req, list(self.out[req])))
+        self.c_preempt.inc()
+        self.tracer.instant("serve.preempt", req=req, needer=needer)
+        # a victim already past its deadline can never meet it again:
+        # finish it with an error instead of requeueing it
+        if self._deadline_expired(req, time.monotonic()):
+            self._fault("deadline", req=req)
+            self._finish_error(req, "deadline")
+        else:
+            self.queue.insert(0, (req, list(self.out[req])))
+            self._set_phase(req, "queued")
         return True
 
+    # ------------------------------------------------ deadlines / shed --
+    def _deadline_expired(self, req_id: int, now: float) -> bool:
+        if self.deadline_ms is None:
+            return False
+        arr = self.arrival_s.get(req_id)
+        return arr is not None and (now - arr) * 1e3 > self.deadline_ms
+
+    def _enforce_deadlines(self) -> None:
+        """Fail every request past its deadline (``deadline_ms`` on the
+        arrival clock): queued ones leave the queue, busy slots are
+        evicted.  Runs at the top of every iteration."""
+        if self.deadline_ms is None:
+            return
+        now = time.monotonic()
+        expired = [(r, p) for r, p in self.queue
+                   if self._deadline_expired(r, now)]
+        if expired:
+            self.queue = [(r, p) for r, p in self.queue
+                          if not self._deadline_expired(r, now)]
+            for r, _ in expired:
+                self._fault("deadline", req=r, where="queued")
+                self._finish_error(r, "deadline")
+        for s in range(self.slots):
+            busy = self.active[s] or self._prefill_len[s] >= 0
+            if busy and self._deadline_expired(self.slot_req[s], now):
+                self._fault("deadline", req=self.slot_req[s], where="slot")
+                self._fail_slot(s, "deadline")
+
+    def _should_shed(self) -> bool:
+        """True while pool occupancy or the observed SLO-violation rate
+        is at or above its watermark."""
+        sc = self.config
+        if sc.shed_occupancy is not None \
+                and self.alloc.occupancy() >= sc.shed_occupancy:
+            return True
+        if sc.shed_violation_rate is not None and self.request_slo_ok:
+            viol = sum(1 for ok in self.request_slo_ok.values() if not ok)
+            if viol / len(self.request_slo_ok) >= sc.shed_violation_rate:
+                return True
+        return False
+
+    def _shed_queue(self) -> None:
+        while self.queue and self._should_shed():
+            req_id, _ = self.queue.pop(0)
+            self.c_shed.inc()
+            self.tracer.instant("serve.shed", req=req_id)
+            self._finish_error(req_id, "shed")
+
     # -------------------------------------------------------- scheduling --
-    def submit(self, req_id: int, prompt: list[int]):
+    def submit(self, req_id: int, prompt: list[int],
+               arrival_ts: float | None = None):
+        """Queue a request.  ``arrival_ts`` is its arrival on the
+        ``time.monotonic`` clock in seconds (default: now); TTFT, e2e
+        latency, deadlines and SLO attainment count from it."""
+        t = time.monotonic() if arrival_ts is None else float(arrival_ts)
+        self.arrival_s[req_id] = t
         self.queue.append((req_id, list(prompt)))
+        self.c_submitted.inc()
+        self.tracer.begin_async("request", req_id, ts=t * 1e6,
+                                prompt_tokens=len(prompt))
+        self._req_phase[req_id] = None
+        self.tracer.begin_async("request.queued", req_id, ts=t * 1e6)
+        self._req_phase[req_id] = "queued"
 
     def _admit(self):
         """Lockstep admission: whole-prompt prefill, token by token
         through the decode step with only the admitted slot writing."""
+        self._shed_queue()
         for slot in range(self.slots):
             if self.active[slot] or not self.queue:
                 continue
@@ -388,20 +695,23 @@ class ServeLoop:
                 break   # head-of-line blocks until a release frees pages
             self.queue.pop(0)
             self.admitted.append(req_id)
+            self._set_phase(req_id, "prefill")
             self._scrub_pages(self.alloc.ensure_range(slot, len(prompt)))
             self._sync_tables()
             mask = np.zeros(self.slots, bool)
             mask[slot] = True
             # one "prefill" reading, all of it this request's
-            with EnergyMeter("prefill", backend=self.power,
-                             reporter=self.energy,
-                             hints=WorkloadHints(
-                                 flops=self._tok_flops * len(prompt),
-                                 hbm_bytes=self._gemm_bytes_step
-                                 * len(prompt),
-                                 gemm_bytes=self._gemm_bytes_step
-                                 * len(prompt),
-                                 f_scale=self.f_scale)) as em:
+            with self.tracer.span("serve.prefill", req=req_id,
+                                  tokens=len(prompt)), \
+                    EnergyMeter("prefill", backend=self.power,
+                                reporter=self.energy,
+                                hints=WorkloadHints(
+                                    flops=self._tok_flops * len(prompt),
+                                    hbm_bytes=self._gemm_bytes_step
+                                    * len(prompt),
+                                    gemm_bytes=self._gemm_bytes_step
+                                    * len(prompt),
+                                    f_scale=self.f_scale)) as em:
                 for i, tok in enumerate(prompt):
                     toks = np.zeros((self.slots, 1), np.int32)
                     toks[slot, 0] = tok
@@ -410,6 +720,7 @@ class ServeLoop:
                 self.request_joules.get(req_id, 0.0) + em.reading.joules
             self.pos[slot] = len(prompt)
             self.active[slot] = True
+            self._set_phase(req_id, "decode")
             self.slot_req[slot] = req_id
             self._slot_prompt[slot] = list(prompt)
             self.out[req_id] = list(prompt)
@@ -431,6 +742,7 @@ class ServeLoop:
         the prefix index already holds (or clone a live identical
         prompt's table), and leave the rest of the prompt to the chunked
         prefill stream."""
+        self._shed_queue()
         for slot in range(self.slots):
             if not self.queue:
                 break
@@ -460,6 +772,7 @@ class ServeLoop:
                 break   # head-of-line blocks until a release frees pages
             self.queue.pop(0)
             self.admitted.append(req_id)
+            self._set_phase(req_id, "prefill")
             self.slot_req[slot] = req_id
             self._slot_prompt[slot] = list(prompt)
             self.out[req_id] = list(prompt)
@@ -473,6 +786,7 @@ class ServeLoop:
                 self._sync_tables()
                 self.pos[slot] = len(prompt)
                 self.active[slot] = True
+                self._set_phase(req_id, "decode")
                 continue
             adopted = self.alloc.adopt_prefix(slot, prompt) \
                 if self.prefix_sharing else 0
@@ -482,6 +796,7 @@ class ServeLoop:
                 # a page-aligned prompt served whole from the index
                 self.pos[slot] = len(prompt)
                 self.active[slot] = True
+                self._set_phase(req_id, "decode")
             else:
                 self._prefill_len[slot] = len(prompt)
                 self._prefill_done[slot] = adopted
@@ -573,6 +888,7 @@ class ServeLoop:
                 self._prefill_done[s] = 0
                 self.pos[s] = len(self._slot_prompt[s])
                 self.active[s] = True
+                self._set_phase(self.slot_req[s], "decode")
         return total
 
     def _sample(self, logits_row: np.ndarray) -> int:
@@ -587,6 +903,10 @@ class ServeLoop:
         """One decode step over the live slots: page allocation (with
         preemption on exhaustion), copy-on-write forks, the step, then
         sampling and retirement.  Shared by both schedulers."""
+        if self.chaos is not None and self.chaos.match(
+                "kernel", step=self._iter) is not None:
+            # a launch fault of the step, injected before any launch
+            raise InjectedFault("kernel", f"step={self._iter}")
         new: list[int] = []
         for s in range(self.slots):
             while self.active[s]:
@@ -627,6 +947,26 @@ class ServeLoop:
                 r = self.slot_req[s]
                 self.request_joules[r] = \
                     self.request_joules.get(r, 0.0) + j_per_req
+        # NaN/Inf quarantine: injected poisoning first, then the scan.
+        # Only the offending slot's request fails; the others sample this
+        # very step.  It never raises and runs after every retryable
+        # fault point of the iteration, so a replay cannot revive a
+        # request failed here.
+        if self.chaos is not None:
+            for s in range(self.slots):
+                if self.active[s] and self.chaos.match(
+                        "nan", step=self._iter,
+                        request=self.slot_req[s]) is not None:
+                    if not logits.flags.writeable:
+                        logits = np.array(logits)
+                    logits[s, :] = np.nan
+        if self.guards:
+            finite = np.isfinite(logits).all(axis=1)
+            for s in range(self.slots):
+                if self.active[s] and not finite[s]:
+                    self._fault("nan", req=self.slot_req[s], slot=s)
+                    self._fail_slot(s, "nan")
+        t_tok = time.monotonic()
         for s in range(self.slots):
             if not self.active[s]:
                 continue
@@ -634,10 +974,13 @@ class ServeLoop:
             r = self.slot_req[s]
             self.out[r].append(tok)
             self.request_emitted[r] += 1
+            if r not in self.first_token_s:
+                self.first_token_s[r] = t_tok
             self.pos[s] += 1
             if tok == self.eos_id or self.request_emitted[r] >= max_new:
                 self.active[s] = False
                 self._slot_prompt[s] = None
+                self._finish_request(r)
                 # copy-free: the slot drops its references; pages return
                 # to a free pool only at refcount zero
                 self.alloc.release(s)
@@ -648,22 +991,95 @@ class ServeLoop:
                     or (self._prefill_len >= 0).any())
 
     def _iteration_body(self, max_new: int) -> None:
-        """One scheduler iteration: admission, then (continuous) one
-        prefill chunk, then one decode step over the live slots."""
-        if self.mode == "continuous":
-            self._admit_continuous()
-            self.prefill_tokens_per_step.append(self._prefill_step())
-        else:
-            self._admit()
-        if self.active.any():
-            self._decode_once(max_new)
+        """One scheduler iteration under the ``serve.step`` span:
+        injected straggler and step faults first, deadlines next, then
+        admission (alloc faults), prefill and decode (kernel faults), and
+        the NaN quarantine last -- every retryable point precedes the
+        quarantine, so a replay never revives a request it failed."""
+        tr = self.tracer
+        it = self._iter
+        if self.chaos is not None:
+            ev = self.chaos.match("straggler", step=it)
+            if ev is not None:
+                # counted at injection: the EMA watchdog needs warmup
+                self._fault("straggler", step=it, seconds=ev.seconds)
+                time.sleep(ev.seconds)
+            self.chaos.check("step", step=it)
+        with tr.span("serve.step", mode=self.mode):
+            self._enforce_deadlines()
+            if self.mode == "continuous":
+                with tr.span("serve.admit"):
+                    self._admit_continuous()
+                with tr.span("serve.prefill_chunk"):
+                    n = self._prefill_step()
+                self.prefill_tokens_per_step.append(n)
+                if n:
+                    self.m_prefill_tok.observe(n)
+            else:
+                with tr.span("serve.admit"):
+                    self._admit()
+            if self.active.any():
+                with tr.span("serve.decode"):
+                    self._decode_once(max_new)
+
+    def _recover(self, e: TransientFault, attempt: int) -> None:
+        """After a transient fault: rewind to the last snapshot
+        (restore-and-replay), then back off exponentially.  There is no
+        kernel fallback to engage."""
+        if self.snapshotter is not None:
+            t0 = time.perf_counter()
+            with self.tracer.span("serve.restore", attempt=attempt,
+                                  error=repr(e)):
+                self.snapshotter.restore()
+            self.c_restores.inc()
+            self.h_restore_ms.observe((time.perf_counter() - t0) * 1e3)
+        back = self.config.retry_backoff_s
+        if back:
+            time.sleep(min(back * 2 ** (attempt - 1), 1.0))
+
+    def _run_iteration(self, max_new: int) -> None:
+        """One iteration with bounded retry: snapshot on cadence, run the
+        body, and on a :class:`TransientFault` count it, restore and
+        replay, at most ``max_step_retries`` times (then it propagates).
+        Anything else propagates at once."""
+        if self.snapshotter is not None:
+            self.snapshotter.maybe_snapshot(self._iter)
+        if self.chaos is not None:
+            _chaos.set_context(step=self._iter)
+        t0 = time.perf_counter()
+        attempt = 0
+        while True:
+            try:
+                self._iteration_body(max_new)
+                break
+            except TransientFault as e:
+                attempt += 1
+                point = getattr(e, "point", "step")
+                self._fault(point, error=repr(e), attempt=attempt)
+                self.c_retries.inc()
+                if attempt > self.config.max_step_retries:
+                    raise
+                self._recover(e, attempt)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self.m_step.observe(dt_ms)
+        # EMA step-time watchdog; the first iterations are skipped
+        if self.guards and self._iter >= 2 \
+                and self.straggler.observe(self._iter, dt_ms / 1e3):
+            self._fault("straggler_detected", step=self._iter, ms=dt_ms)
+        self._pump_gauges()
+        self._iter += 1
 
     def run(self, max_new: int = 32) -> dict[int, list[int]]:
         """Serve until queue and slots drain (max_new tokens per
         request, tracked per request so a preempted request resumes its
-        budget).  Returns request id -> prompt + generated tokens."""
-        while self._pending():
-            self._iteration_body(max_new)
+        budget), each iteration under :meth:`_run_iteration` with the
+        chaos injector installed as this thread's fault source.  Returns
+        request id -> prompt + generated tokens (a failed request keeps
+        what it had; one failed before admission has no entry)."""
+        with _chaos.install(self.chaos):
+            while self._pending():
+                self._run_iteration(max_new)
+        self.energy.meta["latency"] = self.latency_summary()
         return self.out
 
 
@@ -707,6 +1123,43 @@ def main(argv=None):
                          "readable; nvml is the card)")
     ap.add_argument("--energy-report", default=None, metavar="PATH",
                     help="write the per-step energy report JSON here")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="time-to-first-token SLO target in ms; per-"
+                         "request attainment is counted and summarised")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the span trace as JSONL here (convert / "
+                         "validate with python -m repro_torch.obs.trace, "
+                         "load the converted JSON in Perfetto)")
+    ap.add_argument("--metrics-report", default=None, metavar="PATH",
+                    help="write the metrics registry snapshot JSON here")
+    ap.add_argument("--no-obs", action="store_true",
+                    help="turn the metrics and spans off entirely")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline on the arrival clock; "
+                         "expired requests finish with an error")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault-injection schedule, e.g. "
+                         "'alloc@step=2,nan@step=3:req=1,"
+                         "straggler@step=4:delay=0.3'")
+    ap.add_argument("--snapshot-every", type=int, default=None,
+                    help="serve-state snapshot cadence in scheduler "
+                         "iterations (default: 1 under --chaos, else "
+                         "off)")
+    ap.add_argument("--snapshot-dir", default=None, metavar="PATH",
+                    help="also write snapshots to disk through the "
+                         "checkpoint store (default: in memory only)")
+    ap.add_argument("--shed-occupancy", type=float, default=None,
+                    help="shed queued requests when page-pool occupancy "
+                         "crosses this watermark (0..1]")
+    ap.add_argument("--shed-violation-rate", type=float, default=None,
+                    help="shed queued requests when the observed SLO-"
+                         "violation rate crosses this watermark (0..1]")
+    ap.add_argument("--max-step-retries", type=int, default=2,
+                    help="bounded retries per scheduler iteration on a "
+                         "transient fault")
+    ap.add_argument("--no-fault-guards", action="store_true",
+                    help="turn off the NaN quarantine and the straggler "
+                         "watchdog")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
@@ -721,7 +1174,19 @@ def main(argv=None):
         page_size=args.page_size, num_pages=args.num_pages, mode=args.mode,
         prefill_budget=args.prefill_budget,
         prefix_sharing=not args.no_prefix_sharing,
-        objective=args.objective)
+        objective=args.objective, latency_slo_ms=args.slo_ms,
+        obs=not args.no_obs, fault_guards=not args.no_fault_guards,
+        deadline_ms=args.deadline_ms,
+        max_step_retries=args.max_step_retries,
+        snapshot_every=args.snapshot_every, snapshot_dir=args.snapshot_dir,
+        shed_occupancy=args.shed_occupancy,
+        shed_violation_rate=args.shed_violation_rate, chaos=args.chaos)
+    tracer = None
+    if args.trace and not args.no_obs:
+        from repro_torch.obs import set_default_tracer
+        # the process default, so spans opened below the loop land in it
+        tracer = Tracer(enabled=True)
+        set_default_tracer(tracer)
     if dev.type == "cuda" and args.schedule != "xla":
         from repro_torch.kernels import _build
         secs = _build.build()   # first-use nvcc, kept out of the timing
@@ -732,7 +1197,7 @@ def main(argv=None):
                      engine=DotEngine(schedule=args.schedule)
                      if args.schedule else None,
                      power_backend=detect_backend(args.power_backend),
-                     device=dev)
+                     tracer=tracer, device=dev)
     rng = np.random.default_rng(args.seed)
     for r in range(args.requests):
         loop.submit(r, rng.integers(2, cfg.vocab, size=args.prompt_len).tolist())
@@ -760,13 +1225,46 @@ def main(argv=None):
           f"traffic ({loop.attn_spec.tag()}) next to "
           f"~{loop.energy.meta['gemm_bytes_step'] / 1e6:.2f} MB of weights;"
           f" fused epilogues save ~{loop.ep_saved_step / 1e6:.2f} MB")
+    if args.chaos or loop.errors or loop.snapshotter is not None:
+        snaps = loop.snapshotter.snapshots if loop.snapshotter else 0
+        rests = loop.snapshotter.restores if loop.snapshotter else 0
+        print(f"[serve] fault tolerance: {snaps} snapshots, {rests} "
+              f"restores, {len(loop.errors)} failed requests")
+        for r, reason in sorted(loop.errors.items()):
+            print(f"  req {r}: failed ({reason})")
+        if loop.chaos is not None:
+            print(f"[serve] chaos: {len(loop.chaos.fired)} injected "
+                  f"faults {loop.chaos.fired}, schedule "
+                  f"{'exhausted' if loop.chaos.exhausted() else 'open'}")
     for r, toks in sorted(out.items()):
         print(f"  req {r}: {toks[:args.prompt_len]} -> "
               f"{toks[args.prompt_len:][:8]}... "
               f"({loop.request_joules.get(r, 0.0):.2f} J)")
+    lat = loop.energy.meta["latency"]
+    ttft, tpot, e2e = lat["ttft_ms"], lat["tpot_ms"], lat["e2e_ms"]
+    if ttft["count"]:
+        print(f"[serve] latency (host clock): TTFT p50 {ttft['p50']:.1f} / "
+              f"p95 {ttft['p95']:.1f} / p99 {ttft['p99']:.1f} ms, e2e p50 "
+              f"{e2e['p50']:.1f} / p99 {e2e['p99']:.1f} ms"
+              + (f", TPOT p50 {tpot['p50']:.2f} / p95 {tpot['p95']:.2f} / "
+                 f"p99 {tpot['p99']:.2f} ms a token" if tpot["count"]
+                 else ""))
+    slo = lat["slo"]
+    if slo["target_ms"] is not None:
+        n = slo["met"] + slo["violations"]
+        print(f"[serve] SLO (TTFT <= {slo['target_ms']:g} ms): "
+              f"{slo['met']}/{n} met, {slo['violations']} violations")
     if args.energy_report:
         loop.energy.write(args.energy_report)
         print(f"[serve] wrote energy report to {args.energy_report}")
+    if args.metrics_report:
+        loop.metrics.write(args.metrics_report)
+        print(f"[serve] wrote metrics snapshot to {args.metrics_report}")
+    if tracer is not None:
+        tracer.write_jsonl(args.trace)
+        print(f"[serve] wrote {len(tracer.events)} trace events to "
+              f"{args.trace} (python -m repro_torch.obs.trace {args.trace} "
+              f"-o trace.json for Perfetto)")
     return out
 
 

@@ -2,7 +2,7 @@
 with qwen3's per-head qk-norm and RoPE, full-sequence (prefill)
 attention with the reference's q-chunked exact softmax, and one-token
 decode against the paged KV pool.  The contiguous decode is not ported
-yet (ROADMAP.md queue A item 7)."""
+yet (ROADMAP.md queue A, A7)."""
 from __future__ import annotations
 
 import math

@@ -21,9 +21,9 @@ class DotEngine:
 
     schedule: an SFC schedule name run by the CUDA kernel ("morton",
     "hilbert", "rowmajor", ...; the default is "morton", the serving
-    path), "xla" for the ``torch.matmul`` library baseline, or "auto":
-    each GEMM's (schedule, blocks, prefetch) resolved per shape bucket
-    through ``repro_torch.tune`` (the winner may be "xla").  ``block``
+    path), "xla" for the library baseline (``ops.library_matmul``), or
+    "auto": each GEMM's (schedule, blocks, prefetch) resolved per shape
+    bucket through ``repro_torch.tune`` (the winner may be "xla").  ``block``
     is (bm, bn, bk).
 
     objective: the tuner's metric under "auto": "time" (default),

@@ -1,5 +1,5 @@
-# Observability (port of repro.obs): the metrics registry.  The span
-# tracer (repro.obs.trace) is not ported yet (ROADMAP queue A, A14).
+# Observability (port of repro.obs): the metrics registry and the span
+# tracer (Chrome trace events, JSONL, energy attributed to spans).
 from .metrics import (  # noqa: F401
     Counter,
     Gauge,
@@ -7,4 +7,13 @@ from .metrics import (  # noqa: F401
     MetricsRegistry,
     default_registry,
     null_registry,
+)
+from .trace import (  # noqa: F401
+    Tracer,
+    attribute_energy,
+    default_tracer,
+    load_events,
+    set_default_tracer,
+    trace_span,
+    validate_trace,
 )

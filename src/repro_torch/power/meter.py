@@ -12,8 +12,12 @@ Meters nest: an inner meter's reading is attached to the enclosing
 meter's ``children``.  An :class:`~repro_torch.power.report.
 EnergyReport` passed as ``reporter`` collects every top-level reading.
 A backend whose ``start`` raises gives a zero-joule reading and counts
-``power.faults``.  The reference's trace-span attribution and chaos
-hook wait for the port of ``obs.trace`` and ``runtime.chaos``.
+``power.faults``, and so does an injected ``power`` chaos event
+(:func:`repro_torch.runtime.chaos.fire`, checked in ``__enter__`` on
+the caller's thread, never on a backend's sampling thread).  A
+top-level reading's joules land on the innermost open trace span of
+the calling thread (:func:`repro_torch.obs.trace.attribute_energy`), so
+a trace's span joules sum to the report's total.
 
 The meter reads the counter on the host clock; it does not synchronise
 the device.  A caller metering asynchronous CUDA work synchronises
@@ -26,14 +30,17 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from repro_torch.obs.trace import attribute_energy
+from repro_torch.runtime.chaos import fire as _chaos_fire
+
 from .backends import PowerBackend, WorkloadHints, detect_backend
 
 __all__ = ["EnergyReading", "EnergyMeter", "default_backend"]
 
 # sentinel token for an interval whose backend failed to *start* (a
-# dying counter): the interval still times, reads zero joules, and never
-# calls backend.stop -- graceful degradation, metered on the
-# ``power.faults`` counter
+# dying counter or an injected ``power`` chaos event): the interval
+# still times, reads zero joules, and never calls backend.stop --
+# graceful degradation, metered on the ``power.faults`` counter
 _START_FAILED = object()
 
 
@@ -135,6 +142,7 @@ class EnergyMeter:
     # ---------------------------------------------------------- ctx manager
     def __enter__(self) -> "EnergyMeter":
         try:
+            _chaos_fire("power")
             token = self.backend.start()
         except Exception:  # degrade: meter the time, skip the joules
             token = _START_FAILED
@@ -170,6 +178,11 @@ class EnergyMeter:
         if active:
             # attach to the enclosing meter's innermost open interval
             active[-1]._open[-1][2].append(r)
+        if not active:
+            # a top-level reading's joules land on the innermost open
+            # trace span of this thread; nested readings ride inside
+            # their parent's total, so attributing them would count twice
+            attribute_energy(r.joules, r.seconds)
         if self.reporter is not None and not active:
             self.reporter.add(r)
         elif (self.reporter is not None and active

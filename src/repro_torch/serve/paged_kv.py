@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.schedule import grid_schedule
 from repro_torch.device import resolve_device
+from repro_torch.runtime.chaos import fire as _chaos_fire
 
 from .state import DecodeState, KVLayout
 
@@ -244,6 +245,9 @@ class PageAllocator:
         """A fresh page id: the plain LIFO pool first, then FIFO
         eviction from the prefix-cached pool (the coldest cached page
         loses its index entry)."""
+        # chaos point: fires before any mutation, so an injected
+        # allocation fault leaves the allocator consistent
+        _chaos_fire("alloc")
         if self._free:
             return self._free.pop()
         if self._free_cached:
@@ -445,6 +449,33 @@ class PageAllocator:
             "index": self.index.edges() if self.index is not None
             else None,
         }
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore :meth:`state_dict` (the reference's format; either
+        package's snapshot loads).  Pool geometry is construction-time:
+        a block table of another shape or a pool of another size raises
+        ``ValueError``; only the mutable metadata is replaced.  The
+        prefix index is rebuilt from the listed edges: the reachable
+        ones, which is all a walk can find."""
+        table = np.asarray(d["block_table"], np.int32)
+        if table.shape != self.block_table.shape:
+            raise ValueError(
+                f"snapshot block table {table.shape} does not fit this "
+                f"allocator {self.block_table.shape}")
+        ref = np.asarray(d["ref"], np.int32)
+        if ref.shape != self.ref.shape:
+            raise ValueError(
+                f"snapshot pool of {ref.shape[0]} pages does not fit this "
+                f"allocator's {self.num_pages}")
+        self._free = [int(p) for p in d["free"]]
+        self._free_cached = [int(p) for p in d["free_cached"]]
+        self.block_table = table
+        self.seq_lens = np.asarray(d["seq_lens"], np.int32)
+        self.ref = ref
+        self._ever_freed = {int(p) for p in d["ever_freed"]}
+        self.stats = {k: int(v) for k, v in d["stats"].items()}
+        if self.prefix_sharing:
+            self.index = PrefixIndex.from_edges(d["index"] or [])
 
 
 def default_pool_pages(slots: int, cache_len: int, page_size: int) -> int:

@@ -233,8 +233,10 @@ def measure_config(
 ) -> float:
     """Median seconds of one GEMM under ``cfg`` on ``device`` (default
     ``cuda``): the SFC kernel (B1, or B3 with ``batched=True``, a batch
-    of 2 reported per element) or, for ``"xla"``, ``torch.matmul`` with
-    the same epilogue, on operands made from ``seed``.  On a CUDA
+    of 2 reported per element) or, for ``"xla"``, the library GEMM the
+    serving path would run (``ops.library_matmul``: on bf16 CUDA
+    operands one bf16 GEMM with f32 output, then the same epilogue), on
+    operands made from ``seed``.  On a CUDA
     device the time is the device's, by CUDA events
     (:func:`_timeit`)."""
     from repro_torch.kernels.ops import sfc_matmul, sfc_matmul_batched

@@ -54,7 +54,8 @@ _IDX_OPS = {
 class TuneConfig:
     """One point of the autotuner's search space.
 
-    ``schedule="xla"`` is the library baseline (``torch.matmul``, no SFC kernel);
+    ``schedule="xla"`` is the library baseline (``ops.library_matmul``,
+    no SFC kernel);
     ``g`` is the supertile factor and only meaningful for
     ``schedule="supertile"``.  ``f_scale`` is the DVFS operating point
     the candidate is scored at (DESIGN.md §8): it changes the modelled

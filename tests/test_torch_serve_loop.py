@@ -347,7 +347,8 @@ def test_energy_accounting_equals_reference(weights, tmp_path, monkeypatch,
                                             mode, sharing, objective):
     """Every prefill, prefill chunk and decode step is metered with the
     reference's WorkloadHints, in the same order and under the same
-    labels; the report's meta (latency aside: obs is not ported),
+    labels; the report's meta (the latency summary's keys; its values
+    are wall clocks),
     ``request_joules`` and, under ``objective="edp"``, the tuned DVFS
     points equal the reference's; the greedy tokens are unchanged.  The
     tuner cache is shared: the reference's loop resolves first and the
@@ -369,7 +370,11 @@ def test_energy_accounting_equals_reference(weights, tmp_path, monkeypatch,
     assert set(labels) == ({"prefill", "decode-step"} if mode == "lockstep"
                            else {"prefill-chunk", "decode-step"})
     meta_ref = {k: v for k, v in ref.energy.meta.items() if k != "latency"}
-    assert loop.energy.meta == meta_ref
+    assert {k: v for k, v in loop.energy.meta.items()
+            if k != "latency"} == meta_ref
+    lat, lat_ref = loop.energy.meta["latency"], ref.energy.meta["latency"]
+    assert {k: sorted(v) for k, v in lat.items()} == \
+        {k: sorted(v) for k, v in lat_ref.items()}
     assert loop.energy.backend == "hints"
     assert loop.request_joules.keys() == ref.request_joules.keys()
     for r, j in ref.request_joules.items():
