@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/
 csrc`` (one ``nvcc`` per source, all started together) and holds each
 kernel against its plain PyTorch version at its main path's shapes.
-Two main paths follow, each driven with the launch counts set to 0
+Three main paths follow, each driven with the launch counts set to 0
 just before it and read just after:
 
 * serving: full-width qwen3-1.7b (random weights from a seed) through
@@ -29,7 +29,24 @@ just before it and read just after:
   the batched SFC GEMM (B3) through ``DotEngine.dot_batched`` under
   row-major, Morton and Hilbert order, and the software-cached SFC GEMM
   (B4) through ``sfc_matmul_cached``, whose in-kernel fetch counts must
-  equal the direct-mapped cache's counts exactly.
+  equal the direct-mapped cache's counts exactly;
+* both KV layouts and the dense archs, last: qwen3-1.7b again (the same
+  seed) served contiguous, lockstep and continuous, beside the paged
+  runs (per-request token agreement printed); h2o-danube-3-4b at full
+  width and depth (sliding window 4096) served contiguous and lockstep,
+  then its ring of one window (``swa_ring``: four slots prefilled to
+  4092, 4094, 100 and 300 tokens by ``prefill_kv``, 8 decode steps on
+  per-row positions, rows 0 and 1 wrapping); glm4-9b at full width and
+  depth (GQA group 16) served continuous, paged and contiguous, 4
+  requests of 8 new tokens; deepseek-coder-33b at full width and 4 of
+  its 62 layers (group 7): the port's ``init_model`` draws each stacked
+  tensor whole in f32 (a 34 GB temporary per MLP tensor at 62 layers),
+  so the full depth does not fit beside the 66.7 GB of bf16 weights;
+  the weights alone would fit the card's 80 GB.  Each
+  model's B1 shapes (and B2 head widths where it serves paged) are held
+  against the plain versions first; one decode step per (arch, layout)
+  against the plain versions (``layout_step``), timed; each model is
+  freed before the next.
 
 Energy is read from the card itself, through the port's
 ``NvmlBackend`` (NVML's cumulative energy counter, bound with ctypes),
@@ -61,9 +78,14 @@ and the library time, with the ``"xla"`` baseline checked at every
 serving GEMM (``tuner``), the observed runs (``serve_obs``: latency
 percentiles, counters, tok/s with obs on and off), the faulted runs
 (``serve_faults``: the schedules' faults, restores, errors, snapshot and
-restore ms, tok/s with the guards on and off), every path's launches
-(``launches_by_path``: the serving runs, the observed and faulted runs,
-the study, its energy windows and the tuner), the card's name and power
+restore ms, tok/s with the guards on and off), the layouts and archs
+(``serve_layouts``: tok/s, ms per decode and chunk step, J per token,
+token agreement with the paged run; ``layout_step``: logit errors,
+launches, B1 and B2 per step beside their bounds, qwen3's device busy
+time per layout; ``swa_ring``: prefill and decode ms, the ring's
+checks), every path's launches (``launches_by_path``: the serving runs,
+the observed and faulted runs, the study, its energy windows, the
+tuner and the layouts' runs), the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
@@ -142,6 +164,22 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   the clean run is printed: a quarantined slot changes later batches);
   after a restore from disk the run ends with an uninterrupted run's
   tokens; tokens with the guards on equal tokens with them off.
+* Layouts and archs: every served run's launches exact (7 B1 a layer
+  and the head a decode step, 7 B1 a layer a chunk, one B2 a layer a
+  paged decode step, none contiguous); each (arch, layout) decode step
+  within LOGIT_BOUND of the plain versions; qwen3's and deepseek's f32
+  decode step paged against contiguous from the same K/V within
+  LOGIT_BOUND_F32; the new archs' B1 and B2 shapes within the bounds
+  above, two B1 launches bit-equal.  ``swa_ring``: each slot's K/V
+  from ``prefill_kv`` over [0, L) within KV_BOUND of the same prefill
+  on the plain versions (B1 at M = 4092, 4094, 100 and 300 with N =
+  3840, 960 and 10240); every step within
+  LOGIT_BOUND of the plain versions, and after each step layer 0's
+  entry at ``pos % 4096`` of every row equal to its K and V computed
+  anew (exactly) with no other entry of any layer moved.  Token
+  agreement between layouts in bf16 is printed, not gated (B2 keeps
+  scores and weights in f32, the contiguous torch attention rounds
+  them to bf16 as the reference does).
 """
 from __future__ import annotations
 
@@ -297,13 +335,60 @@ def _gemm_inputs(m, k, n, dtype, gen, epilogue):
     return a, b, kw
 
 
-def check_kernels(cfg) -> dict:
-    """Phase 2: every kernel against its plain version at the main-path
-    shapes (and the variants around them).  Returns max errors."""
+def b1_check(rep: Report, gen, label, m, k, n, dtype, epilogue,
+             out_f32=False, schedule="morton", use_prefetch=True,
+             blk=(128, 128, 128)) -> float:
+    """B1 against its plain version on inputs drawn from ``gen``, within
+    B1's f32 or bf16 bound (the docstring); returns the max error."""
     import torch
 
     from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
         sfc_matmul_plain, tile_schedule
+
+    a, b, kw = _gemm_inputs(m, k, n, dtype, gen, epilogue)
+    out_dtype = torch.float32 if out_f32 else None
+    bm, bn, bk = blk
+    got = sfc_matmul_cuda(a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
+                          use_prefetch=use_prefetch, out_dtype=out_dtype,
+                          **kw)
+    sched = tile_schedule(schedule, -(-m // bm), -(-n // bn),
+                          use_prefetch=use_prefetch, device="cuda")
+    want = sfc_matmul_plain(a, b, sched=sched, bm=bm, bn=bn, bk=bk,
+                            out_dtype=out_dtype, **kw)
+    torch.cuda.synchronize()
+    if got.dtype == torch.float32:
+        tol = (1e-4, 1e-4)
+    else:
+        tol = (1e-3, 2.0 ** -7)
+    name = (f"B1 {label} {m}x{k}x{n} {str(dtype)[6:]} {schedule}"
+            f"{'' if use_prefetch else ' closed-form'} {epilogue}"
+            f"{' ->f32' if out_f32 else ''}")
+    return rep.check(name, got, want, *tol)
+
+
+def b1_same_twice(rep: Report, gen, label, m, k, n, dtype, epilogue,
+                  out_f32=False) -> None:
+    """Two B1 launches on the same inputs must agree bit for bit."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda
+
+    a, b, kw = _gemm_inputs(m, k, n, dtype, gen, epilogue)
+    out_dtype = torch.float32 if out_f32 else None
+    one = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
+    two = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
+    same = torch.equal(one, two)
+    label = f"B1 {label} {m}x{k}x{n} {str(dtype)[6:]}"
+    print(f"  {'ok  ' if same else 'FAIL'} {label}: two launches equal bit "
+          f"for bit")
+    if not same:
+        rep.failures.append(f"{label} run to run")
+
+
+def check_kernels(cfg) -> dict:
+    """Phase 2: every kernel against its plain version at the main-path
+    shapes (and the variants around them).  Returns max errors."""
+    import torch
 
     rep = Report()
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -312,25 +397,9 @@ def check_kernels(cfg) -> dict:
     def gemm_case(label, m, k, n, dtype, epilogue, out_f32=False,
                   schedule="morton", use_prefetch=True, blk=(128, 128, 128),
                   generator=gen):
-        a, b, kw = _gemm_inputs(m, k, n, dtype, generator, epilogue)
-        out_dtype = torch.float32 if out_f32 else None
-        bm, bn, bk = blk
-        got = sfc_matmul_cuda(a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
-                              use_prefetch=use_prefetch, out_dtype=out_dtype,
-                              **kw)
-        sched = tile_schedule(schedule, -(-m // bm), -(-n // bn),
-                              use_prefetch=use_prefetch, device="cuda")
-        want = sfc_matmul_plain(a, b, sched=sched, bm=bm, bn=bn, bk=bk,
-                                out_dtype=out_dtype, **kw)
-        torch.cuda.synchronize()
-        if got.dtype == torch.float32:
-            tol = (1e-4, 1e-4)
-        else:
-            tol = (1e-3, 2.0 ** -7)
-        name = (f"B1 {label} {m}x{k}x{n} {str(dtype)[6:]} {schedule}"
-                f"{'' if use_prefetch else ' closed-form'} {epilogue}"
-                f"{' ->f32' if out_f32 else ''}")
-        errs["B1"] = max(errs["B1"], rep.check(name, got, want, *tol))
+        errs["B1"] = max(errs["B1"], b1_check(
+            rep, generator, label, m, k, n, dtype, epilogue, out_f32,
+            schedule, use_prefetch, blk))
 
     print("[kernels] B1 sfc_matmul against its plain version")
     for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
@@ -360,16 +429,7 @@ def check_kernels(cfg) -> dict:
     # launches on the same inputs must agree bit for bit
     for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
         for dtype in (torch.bfloat16, torch.float32):
-            a, b, kw = _gemm_inputs(m, k, n, dtype, gen, ep)
-            out_dtype = torch.float32 if f32 else None
-            one = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
-            two = sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw)
-            same = torch.equal(one, two)
-            label = f"B1 {name} {m}x{k}x{n} {str(dtype)[6:]}"
-            print(f"  {'ok  ' if same else 'FAIL'} {label}: two launches "
-                  f"equal bit for bit")
-            if not same:
-                rep.failures.append(f"{label} run to run")
+            b1_same_twice(rep, gen, name, m, k, n, dtype, ep, f32)
     # a prefill chunk's GEMMs (M = 128, the tile path), from a generator
     # of their own so the later phases draw the inputs they always drew
     print("[kernels] B1 at a prefill chunk's shapes (tile path)")
@@ -377,15 +437,7 @@ def check_kernels(cfg) -> dict:
     for name, m, k, n, ep, f32, _ in chunk_gemms(cfg):
         for dtype in (torch.bfloat16, torch.float32):
             gemm_case(name, m, k, n, dtype, ep, f32, generator=gen_chunk)
-            a, b, kw = _gemm_inputs(m, k, n, dtype, gen_chunk, ep)
-            one = sfc_matmul_cuda(a, b, **kw)
-            two = sfc_matmul_cuda(a, b, **kw)
-            same = torch.equal(one, two)
-            label = f"B1 {name} {m}x{k}x{n} {str(dtype)[6:]}"
-            print(f"  {'ok  ' if same else 'FAIL'} {label}: two launches "
-                  f"equal bit for bit")
-            if not same:
-                rep.failures.append(f"{label} run to run")
+            b1_same_twice(rep, gen_chunk, name, m, k, n, dtype, ep)
     rep.raise_if_failed("B1 checks")
 
     errs.update(check_paged(cfg, gen))
@@ -821,10 +873,11 @@ def _zero_launches():
 def want_launches(cfg, loop) -> dict:
     """B1 and B2 launches of a serving run: 7 projections a layer and
     the head per decode step, the 7 projections a layer per prefill
-    chunk, one B2 a layer per decode step."""
+    chunk, one B2 a layer per paged decode step (the contiguous decode
+    attention is torch)."""
     n_l = cfg.n_layers
     return {"B1": loop.steps * (7 * n_l + 1) + loop.chunk_steps * 7 * n_l,
-            "B2": loop.steps * n_l}
+            "B2": loop.steps * n_l if loop.paged else 0}
 
 
 class TimedNvml:
@@ -909,24 +962,28 @@ def serve_energy(loop, power: TimedNvml, run, gen_tokens: int,
     return rec
 
 
-def serve(cfg, params, mode: str = "lockstep") -> dict:
-    """Phase 3: full-width paged serving through the kernels, lockstep
-    or continuous (chunked prefill under PREFILL_BUDGET, prefix sharing
-    on), the same N_REQUESTS requests, every step metered on NVML (the
-    card's energy counter)."""
+def serve(cfg, params, mode: str = "lockstep", layout: str = "paged",
+          prompts=None, max_new: int = MAX_NEW, tag: str | None = None) -> dict:
+    """Phase 3: full-width serving through the kernels, lockstep or
+    continuous (chunked prefill under PREFILL_BUDGET, prefix sharing on
+    when paged), in ``layout``, the N_REQUESTS requests of
+    ``serving_prompts`` unless ``prompts`` are given, every step metered
+    on NVML (the card's energy counter)."""
     import torch
 
     from repro_torch.serve import ServeConfig
 
-    tag = "[serve]" if mode == "lockstep" else f"[serve {mode}]"
+    if tag is None:
+        tag = "[serve]" if mode == "lockstep" else f"[serve {mode}]"
     sc = ServeConfig(slots=SLOTS, cache_len=CACHE_LEN, page_size=PAGE_SIZE,
-                     eos_id=-1, layout="paged", mode=mode,
+                     eos_id=-1, layout=layout, mode=mode,
                      prefill_budget=PREFILL_BUDGET, seed=0)
     from repro_torch.power import EnergyMeter, NvmlBackend
 
     power = TimedNvml()
     loop = checked_loop(cfg, params, sc, power)
-    prompts = serving_prompts(cfg)
+    prompts = prompts or serving_prompts(cfg)
+    n_req = len(prompts)
     for r, p in enumerate(prompts):
         loop.submit(r, p)
     torch.cuda.synchronize()
@@ -934,17 +991,17 @@ def serve(cfg, params, mode: str = "lockstep") -> dict:
     # the whole run on a meter of its own: the steps' readings against it
     with EnergyMeter("run", backend=NvmlBackend()) as run_em:
         t0 = time.perf_counter()
-        out = loop.run(max_new=MAX_NEW)
+        out = loop.run(max_new=max_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = _kernel_launches()
     steps, chunks = loop.steps, loop.chunk_steps
     want = want_launches(cfg, loop)
-    print(f"{tag} {N_REQUESTS} requests, prompts "
-          f"{[len(p) for p in prompts]}, max_new {MAX_NEW}, {SLOTS} slots, "
+    print(f"{tag} {cfg.name}, {layout}, {n_req} requests, prompts "
+          f"{[len(p) for p in prompts]}, max_new {max_new}, {SLOTS} slots, "
           f"admission order {loop.admitted}, {loop.preemptions} preemptions")
     if mode == "lockstep":
-        print(f"[serve] {steps} decode_step calls ({sum(len(p) for p in prompts)}"
+        print(f"{tag} {steps} decode_step calls ({sum(len(p) for p in prompts)}"
               f" prefill tokens); launches B1 {launches['B1']} (want "
               f"{want['B1']}), B2 {launches['B2']} (want {want['B2']})")
     else:
@@ -960,22 +1017,23 @@ def serve(cfg, params, mode: str = "lockstep") -> dict:
     if launches != want:
         raise SystemExit(f"chip_smoke: launch counts {launches} != {want}")
     for r, p in enumerate(prompts):
-        if len(out[r]) != len(p) + MAX_NEW or out[r][:len(p)] != p:
+        if len(out[r]) != len(p) + max_new or out[r][:len(p)] != p:
             raise SystemExit(f"chip_smoke: request {r} returned "
                              f"{len(out[r])} tokens")
-    if loop.rows_checked != N_REQUESTS * MAX_NEW:
+    if loop.rows_checked != n_req * max_new:
         raise SystemExit("chip_smoke: not every sampled row was checked")
-    loop.alloc.check_invariants()
-    if loop.alloc.pages_in_use:
-        raise SystemExit(f"chip_smoke: {loop.alloc.pages_in_use} pages "
-                         f"still in use after the drain")
-    gen_tokens = N_REQUESTS * MAX_NEW
+    if loop.paged:
+        loop.alloc.check_invariants()
+        if loop.alloc.pages_in_use:
+            raise SystemExit(f"chip_smoke: {loop.alloc.pages_in_use} pages "
+                             f"still in use after the drain")
+    gen_tokens = n_req * max_new
     decode_ms = loop.spans_ms("decode")
     chunk_ms = loop.spans_ms("chunk")
     power.close()
     energy = serve_energy(loop, power, run_em.reading, gen_tokens, tag)
-    return {"mode": mode, "launches": launches, "steps": steps,
-            "energy": energy,
+    return {"mode": mode, "layout": layout, "arch": cfg.name,
+            "launches": launches, "steps": steps, "energy": energy,
             "chunk_steps": chunks, "wall_s": wall, "tokens": gen_tokens,
             "tok_per_s": gen_tokens / wall,
             "ms_per_step": wall * 1e3 / (steps + chunks),
@@ -1458,33 +1516,43 @@ class plain_versions:
             self._saved
 
 
-def build_state(cfg, params, steps: int = 24):
-    """A mid-serving paged state: 4 slots at ragged positions, filled
-    by ``steps`` decode steps through the kernels."""
+def build_state(cfg, params, steps: int = 24, layout: str = "paged"):
+    """A mid-serving state in ``layout``: 4 slots at ragged positions,
+    filled by ``steps`` decode steps (per-row positions) through the
+    kernels."""
     import numpy as np
     import torch
 
-    from repro_torch.models import DotEngine, decode_step
+    from repro_torch.models import DotEngine, decode_step, init_decode_state
     from repro_torch.serve.paged_kv import init_paged_serving
 
-    alloc, state = init_paged_serving(cfg, SLOTS, CACHE_LEN,
-                                      page_size=PAGE_SIZE, device="cuda")
+    if layout == "paged":
+        alloc, state = init_paged_serving(cfg, SLOTS, CACHE_LEN,
+                                          page_size=PAGE_SIZE, device="cuda")
+    else:
+        alloc = None
+        state = init_decode_state(cfg, SLOTS, CACHE_LEN, layout=layout,
+                                  device="cuda")
+
+    def ensure(pos):
+        if alloc is not None:
+            for s in range(SLOTS):
+                alloc.ensure(s, int(pos[s]))
+            state["block_tables"] = torch.tensor(alloc.block_table,
+                                                 device="cuda")
+
     rng = np.random.default_rng(7)
     start = np.asarray([0, 5, 11, 17])
     eng = DotEngine(schedule="morton")
     for i in range(steps):
         pos = start + i
-        for s in range(SLOTS):
-            alloc.ensure(s, int(pos[s]))
-        state["block_tables"] = torch.tensor(alloc.block_table, device="cuda")
+        ensure(pos)
         toks = torch.tensor(rng.integers(2, cfg.vocab, size=(SLOTS, 1)),
                             device="cuda")
         decode_step(params, cfg, state, toks,
                     torch.tensor(pos, dtype=torch.int32, device="cuda"), eng)
     pos = start + steps
-    for s in range(SLOTS):
-        alloc.ensure(s, int(pos[s]))
-    state["block_tables"] = torch.tensor(alloc.block_table, device="cuda")
+    ensure(pos)
     toks = torch.tensor(rng.integers(2, cfg.vocab, size=(SLOTS, 1)),
                         device="cuda")
     return state, toks, torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -1505,7 +1573,8 @@ def compare_step(cfg, params, state, toks, pos, bound: float) -> dict:
     err = float((got - want).abs().max())
     agree = int((got[:, 0].argmax(-1) == want[:, 0].argmax(-1)).sum())
     finite = bool(torch.isfinite(got).all())
-    print(f"[step] full-width {cfg.param_dtype} decode step, kernels vs "
+    print(f"[step] {cfg.name} ({cfg.n_layers} layers) {state.layout.value} "
+          f"{cfg.param_dtype} decode step, kernels vs "
           f"plain versions: max |logit diff| {err:.4e} (bound {bound:g}), "
           f"greedy tokens agree {agree}/{SLOTS}, logit range "
           f"[{float(want.min()):.3f}, {float(want.max()):.3f}]")
@@ -2583,6 +2652,495 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
     return {"tuner": rows, "auto_gemms": checks, "xla_serving": xla_checks,
             "search_s": search_s, "card": smi}, launches
 
+# ------------------------------------------- layouts and dense archs ----
+GLM4_REQUESTS = 4              # glm4-9b serving: 4 of the 6 prompts
+GLM4_MAX_NEW = 8
+DEEPSEEK_LAYERS = 4            # of 62: see the module docstring
+SWA_CACHE = 4096               # h2o-danube-3-4b's window: one whole ring
+SWA_PREFILL = (4092, 4094, 100, 300)
+SWA_STEPS = 8                  # rows 0 and 1 wrap, rows 2 and 3 do not
+
+
+def init_arch(name: str, n_layers: int | None = None):
+    """(cfg, params) of a registered arch at full width, random bf16
+    weights from seed 0 on the card; ``n_layers`` cuts the depth."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+
+    cfg = get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[init] {cfg.name} full width, {cfg.n_layers} layers, "
+          f"{n_bytes / 1e9:.2f} GB bf16 weights on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def b2_check(rep: Report, label, q, kp, vp, tab, pos) -> float:
+    """B2 against its plain version within its absolute bound and, per
+    slot, B2_SLOT_REL of the slot's largest output; two launches equal
+    bit for bit.  Returns the max absolute error."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    got = paged_decode_attention_cuda(q, kp, vp, tab, pos)
+    again = paged_decode_attention_cuda(q, kp, vp, tab, pos)
+    want = paged_decode_attention_ref(q, kp, vp, tab, pos)
+    torch.cuda.synchronize()
+    tol = (2e-5, 0.0) if q.dtype == torch.float32 else (3e-2, 0.0)
+    name = f"B2 {str(q.dtype)[6:]} {label}"
+    err = rep.check(name, got, want, *tol)
+    scaled = slot_scaled_err(got, want)
+    same = torch.equal(got, again)
+    print(f"  {'ok  ' if scaled <= B2_SLOT_REL and same else 'FAIL'} {name}: "
+          f"per slot {scaled:.3e} (bound {B2_SLOT_REL:g}); two launches "
+          f"equal bit for bit: {same}")
+    if scaled > B2_SLOT_REL or not same:
+        rep.failures.append(f"{name} per slot or run to run")
+    return err
+
+
+def check_arch_kernels(cfg, paged: bool) -> dict:
+    """B1 against its plain version at ``cfg``'s decode shapes (M =
+    SLOTS, bf16 and f32) and prefill-chunk shapes (M = 128, bf16), two
+    launches bit-equal at each decode shape; with ``paged``, B2 at its
+    head widths (the serving shape, bf16 and f32).  Returns max errors."""
+    import torch
+
+    rep = Report()
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    errs = {"B1": 0.0, "B2": None}
+    print(f"[kernels] {cfg.name}: B1 at its decode and chunk shapes"
+          + (", B2 at its head widths" if paged else ""))
+    for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
+        for dtype in (torch.bfloat16, torch.float32):
+            errs["B1"] = max(errs["B1"], b1_check(rep, gen, name, m, k, n,
+                                                  dtype, ep, f32))
+        b1_same_twice(rep, gen, name, m, k, n, torch.bfloat16, ep, f32)
+    for name, m, k, n, ep, f32, _ in chunk_gemms(cfg):
+        errs["B1"] = max(errs["B1"], b1_check(rep, gen, name, m, k, n,
+                                              torch.bfloat16, ep, f32))
+    if paged:
+        errs["B2"] = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tab = long_context_inputs(cfg, CACHE_LEN, dtype, gen)
+            pos = serving_positions()
+            errs["B2"] = max(errs["B2"], b2_check(
+                rep, f"H={cfg.n_heads} Hkv={cfg.n_kv_heads} serving "
+                f"{pos.tolist()}", q, kp, vp, tab, pos))
+    rep.raise_if_failed(f"{cfg.name} kernel checks")
+    return errs
+
+
+def time_arch_step(cfg, state, pos, smi: str) -> dict:
+    """B1 per decode step at ``cfg``'s shapes (per-launch CUDA-event
+    times, L2 flushed, times the launches a step) beside its bytes
+    bound, its plain version and ``torch.matmul``; B2 per launch on a
+    paged ``state`` at ``pos`` beside its bound."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
+        sfc_matmul_plain, tile_schedule
+    from repro_torch.serve.paged_kv import physical_rows, zero_row_index
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for name, m, k, n, ep, f32, count in main_path_gemms(cfg):
+        a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
+        out_dtype = torch.float32 if f32 else None
+        sched = tile_schedule("morton", 1, -(-n // 128), use_prefetch=True,
+                              device="cuda")
+        ms = _time_ms(lambda: sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw),
+                      20, flush)
+        plain = _time_ms(lambda: sfc_matmul_plain(
+            a, b, sched=sched, bm=128, bn=128, bk=128, out_dtype=out_dtype,
+            **kw), 3, flush)
+        lib = _time_ms(lambda: torch.matmul(a, b), 20, flush)
+        nbytes = (m * k + k * n) * 2 + m * n * (4 if f32 else 2) + \
+            (m * n * 2 if ep == "residual" else 0)
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    2.0 * m * n * k / BF16_FLOPS_PER_S) * 1e3
+        print(f"  {cfg.name} {name:10s} {m}x{k}x{n}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f}, torch.matmul {lib:.4f}, bound "
+              f"{bound:.4f} (bytes), x{count} a step")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bound)):
+            b1[key] += count * v
+    rec = {"B1": {**b1, "bound_by": "bytes"}}
+    print(f"[time] {cfg.name} B1 per decode step: {b1['ms']:.3f} ms against "
+          f"a {b1['bound_ms']:.3f} ms bound ({b1['bound_ms'] / b1['ms']:.1%}),"
+          f" torch.matmul {b1['library_ms']:.3f} ms ({smi})")
+    if state is not None and state.layout.is_paged:
+        kp, vp = state["k_pages"], state["v_pages"]
+        phys = physical_rows(state["page_perm"], state["block_tables"],
+                             zero_row_index(kp))[0]
+        q = torch.randn(SLOTS, cfg.n_heads, cfg.d_head, generator=gen,
+                        device="cuda").to(kp.dtype)
+        ms = _time_ms(lambda: paged_decode_attention_cuda(q, kp, vp, phys,
+                                                          pos), 50, flush)
+        plain = _time_ms(lambda: paged_decode_attention_ref(q, kp, vp, phys,
+                                                            pos), 20, flush)
+        nbytes, bound = b2_bound(q, kp, phys, pos)
+        n_l = cfg.n_layers
+        rec["B2"] = {"ms": n_l * ms, "plain_ms": n_l * plain,
+                     "bound_ms": n_l * bound, "bound_by": "bytes",
+                     "per_launch_ms": ms, "group": cfg.n_heads
+                     // cfg.n_kv_heads}
+        print(f"[time] {cfg.name} B2 per launch (group {rec['B2']['group']}"
+              f", positions {pos.tolist()}): {ms:.4f} ms, plain "
+              f"{plain:.4f}, bound {bound:.5f} ms; x{n_l} a step ({smi})")
+    return rec
+
+
+def layout_step(cfg, params, layout: str, smi: str, cut: str = "",
+                timed: bool = True) -> dict:
+    """One decode step from a mid-serving state in ``layout``, kernels
+    against plain versions (``compare_step``) within LOGIT_BOUND, its
+    launches exact (7 B1 a layer and the head; one B2 a layer when
+    paged, none contiguous), then B1 (and B2) per step timed."""
+    state, toks, pos = build_state(cfg, params, layout=layout)
+    import torch
+
+    from repro_torch.models import DotEngine, decode_step
+    torch.cuda.synchronize()
+    _zero_launches()
+    decode_step(params, cfg, state.clone(), toks, pos,
+                DotEngine(schedule="morton"))
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    n_l = cfg.n_layers
+    want = {"B1": 7 * n_l + 1, "B2": n_l if layout == "paged" else 0}
+    if launches != want:
+        raise SystemExit(f"chip_smoke: {cfg.name} {layout} decode step "
+                         f"launched {launches}, want {want}")
+    rec = {"arch": cfg.name, "layout": layout, "layers": n_l, "cut": cut,
+           "launches": launches,
+           **compare_step(cfg, params, state, toks, pos, LOGIT_BOUND)}
+    if timed:
+        rec["times"] = time_arch_step(cfg, state, pos, smi)
+    return rec
+
+
+def strips_from_pages(state):
+    """The contiguous state holding a paged state's K/V: entry p of slot
+    s's strips is the pool row its block table maps position p to (the
+    zero row where unallocated); ``kv_pos`` = 0 .. CACHE_LEN - 1."""
+    import torch
+
+    from repro_torch.serve import DecodeState, KVLayout
+    from repro_torch.serve.paged_kv import physical_rows, zero_row_index
+
+    kp, vp = state["k_pages"], state["v_pages"]
+    ps = kp.shape[1]
+    phys = physical_rows(state["page_perm"], state["block_tables"],
+                         zero_row_index(kp)).long()        # (L, B, pages)
+    pos = torch.arange(CACHE_LEN, device=kp.device)
+    rows = phys[:, :, pos // ps]                           # (L, B, C)
+    return DecodeState({"k": kp[rows, pos % ps], "v": vp[rows, pos % ps],
+                        "kv_pos": pos.to(torch.int32)}, KVLayout.CONTIGUOUS)
+
+
+def layouts_agree_f32(cfg, params) -> dict:
+    """One f32 decode step through the kernels from a mid-serving paged
+    state and from the contiguous strips holding the same K/V: the two
+    layouts' logits within LOGIT_BOUND_F32 (B2's online softmax against
+    torch's over the strips, in f32)."""
+    import torch
+
+    from repro_torch.models import DotEngine, decode_step
+
+    state, toks, pos = build_state(cfg, params)
+    cfg32, params32, paged = to_f32(cfg, params, state)
+    del state
+    strips = strips_from_pages(paged)
+    eng = DotEngine(schedule="morton")
+    got_p, _ = decode_step(params32, cfg32, paged, toks, pos, eng)
+    got_c, _ = decode_step(params32, cfg32, strips, toks, pos, eng)
+    torch.cuda.synchronize()
+    err = float((got_p - got_c).abs().max())
+    agree = int((got_p[:, 0].argmax(-1) == got_c[:, 0].argmax(-1)).sum())
+    print(f"[layout_step] {cfg.name} ({cfg.n_layers} layers) f32 decode "
+          f"step, paged against contiguous from the same K/V: max |logit "
+          f"diff| {err:.4e} (bound {LOGIT_BOUND_F32:g}), greedy tokens agree "
+          f"{agree}/{SLOTS}")
+    if not bool(torch.isfinite(got_c).all()) or err > LOGIT_BOUND_F32:
+        raise SystemExit(f"chip_smoke: {cfg.name} paged and contiguous "
+                         f"decode steps disagree")
+    return {"max_abs_err": err, "agree": agree}
+
+
+def swa_ring(cfg, params, smi: str) -> tuple[dict, dict]:
+    """h2o at full width in one ring of SWA_CACHE = its window: four
+    slots prefilled by ``prefill_kv`` to SWA_PREFILL tokens (B1's tile
+    path at M = each prompt, N ragged at 960), each slot's strips over
+    [0, L) held to the same prefill on the plain versions from a clone
+    within KV_BOUND (its logits' difference printed), then SWA_STEPS
+    decode steps on per-row positions (rows 0 and 1 wrap the
+    ring), each against the plain versions from a clone within
+    LOGIT_BOUND; after each step every row's entry at ``pos % c`` of
+    layer 0 equals its K computed anew (exactly) and no other entry of
+    any layer moved.  Returns (record, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import DotEngine, decode_step, \
+        init_decode_state, prefill_kv
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import _decode_rope
+
+    eng = DotEngine(schedule="morton")
+    state = init_decode_state(cfg, SLOTS, SWA_CACHE, device="cuda")
+    c = state["k"].shape[2]
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(2, cfg.vocab, size=n).tolist()
+               for n in SWA_PREFILL]
+    n_l = cfg.n_layers
+    plain_state = state.clone()
+    torch.cuda.synchronize()
+    _zero_launches()
+    prefill_ms, logits = [], []
+    for s, p in enumerate(prompts):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got, _ = prefill_kv(params, cfg, state, p, slot=s, engine=eng)
+        e1.record()
+        e1.synchronize()
+        prefill_ms.append(e0.elapsed_time(e1))
+        logits.append(got)
+    pre_launches = _kernel_launches()
+    want = {"B1": SLOTS * (7 * n_l + 1), "B2": 0}
+    if pre_launches != want:
+        raise SystemExit(f"chip_smoke: swa_ring prefill launched "
+                         f"{pre_launches}, want {want}")
+    kv_errs, logit_errs, top = [], [], 0.0
+    for s, p in enumerate(prompts):
+        with plain_versions():
+            want_l, _ = prefill_kv(params, cfg, plain_state, p, slot=s,
+                                   engine=eng)
+        logit_errs.append(float((logits[s] - want_l).abs().max()))
+        err = 0.0
+        for key in ("k", "v"):
+            a = state[key][:, s, :len(p)].float()
+            b = plain_state[key][:, s, :len(p)].float()
+            if not bool(torch.isfinite(a).all()):
+                err = float("inf")
+            err = max(err, float((a - b).abs().max()))
+            top = max(top, float(b.abs().max()))
+            del a, b
+        kv_errs.append(err)
+        del want_l
+    del logits, plain_state
+    print(f"[swa_ring] prefill_kv on the kernels against the plain "
+          f"versions, per slot: max |K/V diff| over [0, L) of every layer "
+          f"{', '.join(f'{e:.4e}' for e in kv_errs)} (bound {KV_BOUND:g}; "
+          f"largest |K/V| {top:.3f}); max |logit diff| "
+          f"{', '.join(f'{e:.4e}' for e in logit_errs)}")
+    if max(kv_errs) > KV_BOUND:
+        raise SystemExit("chip_smoke: swa_ring prefill K/V disagree with "
+                         "the plain versions")
+    print(f"[swa_ring] {cfg.name}, {c}-entry ring (window "
+          f"{cfg.swa_window}), prefill_kv of {list(SWA_PREFILL)} tokens: "
+          f"{', '.join(f'{ms:.1f}' for ms in prefill_ms)} ms (CUDA events; "
+          f"B1's tile path at M = the prompt) ({smi})")
+    pos = np.asarray(SWA_PREFILL)
+    toks = np.asarray([[p[-1]] for p in prompts])
+    dec = {"B1": 0, "B2": 0}
+    errs, decode_ms, ring_ok = [], [], True
+    lp0 = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    rows = torch.arange(SLOTS, device="cuda")
+    for step in range(SWA_STEPS):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        tok_t = torch.tensor(toks, dtype=torch.int32, device="cuda")
+        before = state.clone()
+        plain_state = state.clone()
+        torch.cuda.synchronize()
+        _zero_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got, _ = decode_step(params, cfg, state, tok_t, pos_t, eng)
+        e1.record()
+        e1.synchronize()
+        decode_ms.append(e0.elapsed_time(e1))
+        for kid, v in _kernel_launches().items():
+            dec[kid] += v
+        with plain_versions():
+            want_l, _ = decode_step(params, cfg, plain_state, tok_t, pos_t,
+                                    eng)
+        err = float((got - want_l).abs().max())
+        errs.append(err)
+        if not bool(torch.isfinite(got).all()) or err > LOGIT_BOUND:
+            raise SystemExit(f"chip_smoke: swa_ring step {step} logits "
+                             f"{err} from the plain versions")
+        # the ring write: layer 0's K of each row, anew, at pos % c
+        slot = torch.remainder(pos_t.long(), c)
+        x = params["embed"][tok_t.long()].to(cfg.act_torch_dtype())
+        cos, sin = _decode_rope(cfg, pos_t, "cuda")
+        _, k0, v0 = attn_mod._project_qkv(
+            rms_norm(x, params["layers"]["norm1"][0]), lp0, cfg, eng, cos,
+            sin)
+        exact = torch.equal(state["k"][0, rows, slot], k0[:, 0]) and \
+            torch.equal(state["v"][0, rows, slot], v0[:, 0])
+        moved = torch.zeros(SLOTS, c, dtype=torch.bool, device="cuda")
+        for key in ("k", "v"):
+            moved |= (state[key] != before[key]).flatten(3).any(-1).any(0)
+        allowed = torch.zeros_like(moved)
+        allowed[rows, slot] = True
+        only = not bool((moved & ~allowed).any())
+        ring_ok &= exact and only
+        print(f"  step {step}: positions {pos.tolist()} -> entries "
+              f"{slot.tolist()}; logits vs plain {err:.4e} (bound "
+              f"{LOGIT_BOUND:g}); layer-0 entries exact {exact}, nothing "
+              f"else moved {only}; {decode_ms[-1]:.3f} ms")
+        del before, plain_state
+        toks = got[:, 0].argmax(-1).cpu().numpy()[:, None]
+        pos = pos + 1
+    if not ring_ok:
+        raise SystemExit("chip_smoke: swa_ring wrote a ring entry it should "
+                         "not have, or a wrong value")
+    want = {"B1": SWA_STEPS * (7 * n_l + 1), "B2": 0}
+    if dec != want:
+        raise SystemExit(f"chip_smoke: swa_ring decode launched {dec}, "
+                         f"want {want}")
+    wrapped = [r for r in range(SLOTS) if SWA_PREFILL[r] + SWA_STEPS > c]
+    rec = {"arch": cfg.name, "layout": "contiguous", "ring": c,
+           "window": cfg.swa_window, "cut": "none (full width and depth)",
+           "prefill_tokens": list(SWA_PREFILL), "prefill_ms": prefill_ms,
+           "decode_steps": SWA_STEPS, "decode_ms": decode_ms,
+           "rows_wrapped": wrapped, "max_abs_err": max(errs),
+           "prefill_kv_err": kv_errs, "prefill_logit_err": logit_errs,
+           "ring_entries_exact": ring_ok,
+           "launches": {"prefill": pre_launches, "decode": dec},
+           "strips_gb": 2 * state["k"].numel() * state["k"].element_size()
+           / 1e9, "card": smi}
+    print(f"[swa_ring] {SWA_STEPS} decode steps, rows {wrapped} wrapped: "
+          f"{np.mean(decode_ms):.3f} ms a step (CUDA events, host gaps "
+          f"included); logits max err {max(errs):.4e}; ring entries exact; "
+          f"launches B1 {dec['B1']} (want {want['B1']}), B2 0 ({smi})")
+    del state
+    total = {k: pre_launches[k] + dec[k] for k in dec}
+    return rec, total
+
+
+def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
+                  smi: str) -> tuple[list, list, dict, dict]:
+    """Slice 9's phases, after the others: qwen3-1.7b served contiguous
+    (lockstep and continuous) beside the paged runs ``sv``/``cv``, its
+    contiguous decode step against the plain versions and profiled
+    beside ``prof_paged``; h2o-danube-3-4b served contiguous at full
+    width and depth, its step and its SWA ring; glm4-9b served
+    continuous paged and contiguous, its paged step; deepseek-coder-33b
+    at 4 of 62 layers, its paged and contiguous steps.  Each model is
+    freed before the next.  Returns (serve_layouts rows, layout_step
+    rows, swa_ring record, launches by path)."""
+    import torch
+
+    def agreement(a: dict, b: dict) -> list[int]:
+        return [sum(x == y for x, y in zip(a["out"][r][len(p):],
+                                           b["out"][r][len(p):]))
+                for r, p in enumerate(a["prompts"])]
+
+    def row(run, against=None):
+        keep = ("arch", "layout", "mode", "tok_per_s", "tokens", "wall_s",
+                "steps", "chunk_steps", "ms_per_decode_step",
+                "ms_per_chunk_step", "launches")
+        rec = {k: run[k] for k in keep}
+        rec["j_per_token"] = run["energy"]["j_per_token"]
+        rec["run_j_per_token"] = run["energy"]["run_j_per_token"]
+        if against is not None:
+            rec["agree_with_paged"] = agreement(against, run)
+        return rec
+
+    serve_rows, step_rows, by_path = [], [], {}
+    cfg, params = init_arch("qwen3_1_7b")
+    for mode, paged in (("lockstep", sv), ("continuous", cv)):
+        run = serve(cfg, params, mode, "contiguous",
+                    tag=f"[serve {mode} contiguous]")
+        serve_rows.append({**row(run, paged), "cut": "none"})
+        by_path[f"qwen3 {mode} contiguous"] = run["launches"]
+        print(f"[serve_layouts] qwen3-1.7b {mode}: contiguous "
+              f"{run['tok_per_s']:.2f} tok/s, {run['ms_per_decode_step']:.3f}"
+              f" ms a decode step, against paged {paged['tok_per_s']:.2f} / "
+              f"{paged['ms_per_decode_step']:.3f}; generated tokens agreeing "
+              f"with the paged run {serve_rows[-1]['agree_with_paged']} of "
+              f"{MAX_NEW} (printed, not gated) ({smi})")
+    rec = layout_step(cfg, params, "contiguous", smi, timed=False)
+    rec["paged_vs_contiguous_f32"] = layouts_agree_f32(cfg, params)
+    torch.cuda.empty_cache()
+    state, toks, pos = build_state(cfg, params, layout="contiguous")
+    rec["profile"] = profile_steps(cfg, params, state, toks, pos, smi)
+    rec["profile_paged"] = prof_paged
+    step_rows.append(rec)
+    print(f"[layout_step] qwen3-1.7b decode step device busy: contiguous "
+          f"{rec['profile']['busy_ms']:.3f} ms, paged "
+          f"{prof_paged['busy_ms']:.3f} ms ({smi})")
+    del params, state
+    torch.cuda.empty_cache()
+
+    cfg, params = init_arch("h2o_danube_3_4b")
+    errs = {cfg.name: check_arch_kernels(cfg, paged=False)}
+    run = serve(cfg, params, "lockstep", "contiguous", tag="[serve h2o]")
+    serve_rows.append({**row(run), "cut": "none (full width and depth)"})
+    by_path["h2o lockstep contiguous"] = run["launches"]
+    step_rows.append(layout_step(cfg, params, "contiguous", smi,
+                                 cut="none"))
+    ring, ring_launches = swa_ring(cfg, params, smi)
+    by_path["h2o swa_ring"] = ring_launches
+    del params
+    torch.cuda.empty_cache()
+
+    cfg, params = init_arch("glm4_9b")
+    errs[cfg.name] = check_arch_kernels(cfg, paged=True)
+    prompts = serving_prompts(cfg)[:GLM4_REQUESTS]
+    runs = {}
+    for layout in ("paged", "contiguous"):
+        runs[layout] = serve(cfg, params, "continuous", layout, prompts,
+                             GLM4_MAX_NEW, tag=f"[serve glm4 {layout}]")
+        by_path[f"glm4 continuous {layout}"] = runs[layout]["launches"]
+    serve_rows.append({**row(runs["paged"]), "cut": "none"})
+    serve_rows.append({**row(runs["contiguous"], runs["paged"]),
+                       "cut": "none"})
+    step_rows.append(layout_step(cfg, params, "paged", smi, cut="none"))
+    del params, runs
+    torch.cuda.empty_cache()
+
+    cut = f"{DEEPSEEK_LAYERS} of 62 layers"
+    cfg, params = init_arch("deepseek_coder_33b", DEEPSEEK_LAYERS)
+    errs[cfg.name] = check_arch_kernels(cfg, paged=True)
+    for layout in ("paged", "contiguous"):
+        step_rows.append(layout_step(cfg, params, layout, smi, cut=cut,
+                                     timed=layout == "paged"))
+    step_rows[-1]["paged_vs_contiguous_f32"] = layouts_agree_f32(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    for r in step_rows:
+        r["kernel_checks"] = errs.get(r["arch"])
+        by_path[f"{r['arch']} {r['layout']} step"] = r["launches"]
+    return serve_rows, step_rows, ring, by_path
+
+
 
 def main() -> int:
     import torch
@@ -2652,7 +3210,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows, long_rows = time_kernels(cfg, state, pos, smi)
     b1_prefill = time_chunk_gemms(cfg, smi)
-    profile_steps(cfg, params, state, toks, pos, smi)
+    prof_paged = profile_steps(cfg, params, state, toks, pos, smi)
     chunk_prof = profile_chunk(cfg, params, cstate, gang, smi)
     del params, state
     torch.cuda.empty_cache()
@@ -2662,6 +3220,8 @@ def main() -> int:
     del b3_in, b4_in
     torch.cuda.empty_cache()
     tuner, tuner_launches = tuner_phase(cfg, smi)
+    serve_layouts, layout_steps, ring, layout_launches = layouts_phase(
+        sv, cv, prof_paged, smi)
     # every path's launches, each read just after its own zeroing: the
     # three serving runs, the observed and the faulted runs (summed over
     # each phase's runs), the study, the study's energy windows and the
@@ -2671,7 +3231,8 @@ def main() -> int:
     by_path = {"lockstep": sv["launches"], "continuous": cv["launches"],
                "shared": shared["launches"], "obs": obs_launches,
                "faults": fault_launches, "study": study,
-               "study_energy": {"B3": energy_b3}, "tuner": tuner_launches}
+               "study_energy": {"B3": energy_b3}, "tuner": tuner_launches,
+               **layout_launches}
     launches = {**cv["launches"], "B3": study["B3"], "B4": study["B4"]}
     print(f"[launches] by path: {json.dumps(by_path)}; main path "
           f"{launches}")
@@ -2707,6 +3268,9 @@ def main() -> int:
     print(json.dumps(tuner))
     print(json.dumps({"serve_obs": obs}))
     print(json.dumps({"serve_faults": faults}))
+    print(json.dumps({"serve_layouts": serve_layouts, "card": smi}))
+    print(json.dumps({"layout_step": layout_steps, "card": smi}))
+    print(json.dumps({"swa_ring": ring}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)

@@ -1,14 +1,15 @@
 """Architecture registry (port of ``repro.configs``).
 
-Only ``qwen3_1_7b`` is ported; the reference's other nine archs raise
-``KeyError`` until their model families are ported (ROADMAP.md, queue
-A item 11).
+The four dense archs are ported (``qwen3_1_7b``, ``glm4_9b``,
+``deepseek_coder_33b`` and ``h2o_danube_3_4b``, the last with a sliding
+window); the reference's other six raise ``KeyError`` until their model
+families are ported (ROADMAP.md, queue A item 11).
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen3_1_7b"]
+ARCHS = ["qwen3_1_7b", "glm4_9b", "deepseek_coder_33b", "h2o_danube_3_4b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

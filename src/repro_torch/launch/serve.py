@@ -1,9 +1,13 @@
-"""Batched serving loop over the paged KV cache, lockstep or continuous
-(port of the paged paths of ``repro.launch.serve.ServeLoop``).
+"""Batched serving loop, lockstep or continuous, over either KV layout
+(port of ``repro.launch.serve.ServeLoop`` for the dense archs).
 
-A fixed pool of decode slots shares one paged KV pool (Morton-ordered
-physical pages, per-slot block tables, copy-free release).  Two
-schedulers (:attr:`repro_torch.serve.ServeConfig.mode`):
+A fixed pool of decode slots keeps its KV cache in one of two layouts
+(:attr:`repro_torch.serve.ServeConfig.layout`): ``contiguous`` (the
+default, as in the reference), a strip of ``cache_len`` entries per
+slot, or a ring of one window under SWA; or ``paged``, one shared pool
+of Morton-ordered physical pages with per-slot block tables and
+copy-free release.  Two schedulers (:attr:`repro_torch.serve.
+ServeConfig.mode`):
 
 * ``lockstep``: a request's whole prompt is prefilled at admission,
   token by token through the decode step with a one-hot row mask; live
@@ -11,20 +15,26 @@ schedulers (:attr:`repro_torch.serve.ServeConfig.mode`):
 * ``continuous``: requests join and leave mid-flight.  Prompts are
   prefilled in chunks (``prefill_kv_chunk``, one gang of ``slots`` rows
   x ``prefill_budget`` tokens a step) interleaved with decode steps, so
-  a long prompt never stalls the slots already decoding.  With
-  ``prefix_sharing`` (the default), slots whose prompts share
+  a long prompt never stalls the slots already decoding (not under
+  SWA: a chunk has no ring).  With ``prefix_sharing`` (the default;
+  paged only), slots whose prompts share
   page-aligned prefixes map the same pages through a prefix index, an
   identical prompt clones its live source's whole block table, and a
   write into a shared page forks a private copy first (copy-on-write).
 
-Both schedulers give the same greedy tokens for the same requests, as
-in the reference.  Pool exhaustion preempts the most recently admitted
-other busy slot, which rejoins the queue with its full context.  Every
-projection runs through the SFC GEMM kernel (the rows path in decode,
-the tile path in a prefill chunk) and every decode step's attention
-through the paged decode kernel when the engine has a curve schedule
-and the device is ``cuda``; a chunk's attention over its slots' pages
-is plain torch, as it is XLA in the reference.
+Both schedulers and both layouts give the same greedy tokens for the
+same requests, as in the reference.  Every slot decodes on its own
+position, SWA archs included: the reference keeps those on one shared
+position, the oldest live slot's, so a request admitted later reads
+ring entries it never wrote (ROADMAP.md queue C); here a row's ring
+validity follows its own clock.  Pool exhaustion (paged) preempts the
+most recently admitted other busy slot, which rejoins the queue with
+its full context.  Every projection runs through the SFC GEMM kernel
+(the rows path in decode, the tile path in a prefill chunk) and every
+paged decode step's attention through the paged decode kernel when the
+engine has a curve schedule and the device is ``cuda``; the contiguous
+decode attention and a chunk's attention are plain torch, as they are
+XLA in the reference.
 
 Energy, as in the reference: every lockstep prefill, prefill chunk and
 decode step runs inside an :class:`~repro_torch.power.EnergyMeter` on
@@ -74,13 +84,14 @@ violation rate over a watermark sheds the queue; an EMA watchdog flags
 straggling iterations.  There is no kernel fallback: a real CUDA error
 is not a transient fault and propagates.
 
-Not ported yet (ROADMAP.md): the contiguous layout.
-
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \\
-      --mode continuous --requests 6 --max-new 16 \\
+      --layout paged --mode continuous --requests 6 --max-new 16 \\
       --power-backend nvml --energy-report report.json \\
       --trace trace.jsonl --metrics-report metrics.json \\
       --chaos "alloc@step=2,nan@step=3:req=1" --snapshot-dir snaps
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch h2o_danube_3_4b --cache-len 64 --requests 4 --max-new 16
 
 (``--smoke --device cpu`` runs the SMOKE config on the CPU.)
 """
@@ -96,7 +107,8 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import DotEngine, decode_step, \
-    fused_epilogue_savings_bytes, init_model, prefill_kv_chunk
+    fused_epilogue_savings_bytes, init_decode_state, init_model, \
+    prefill_kv_chunk
 from repro_torch.obs import MetricsRegistry, Tracer, default_registry, \
     default_tracer, null_registry
 from repro_torch.power import EnergyMeter, EnergyReport, WorkloadHints, \
@@ -137,7 +149,8 @@ def _engine_for(engine: DotEngine | None,
 
 
 class ServeLoop:
-    """Lockstep or continuous serving over the paged KV pool.
+    """Lockstep or continuous serving over the contiguous strips or the
+    paged KV pool.
 
     ``params`` must already live on ``device`` (``cuda`` unless the
     caller passes ``device="cpu"``).  ``engine`` defaults to
@@ -173,13 +186,15 @@ class ServeLoop:
         self.mode = sc.mode
         self.slots = sc.slots
         self.cache_len = sc.cache_len
+        self.paged = sc.paged
         self.page_size = sc.page_size
         self.prefill_budget = sc.prefill_budget
-        # prefix sharing needs the mid-flight admissions that make a
-        # shared prefix reachable (continuous)
-        self.prefix_sharing = bool(sc.prefix_sharing
+        # prefix sharing needs block tables (paged) and the mid-flight
+        # admissions that make a shared prefix reachable (continuous)
+        self.prefix_sharing = bool(sc.prefix_sharing and sc.paged
                                    and sc.mode == "continuous")
-        self.attn_spec = AttnSpec("paged", sc.page_size)
+        self.attn_spec = AttnSpec("paged", sc.page_size) if sc.paged \
+            else AttnSpec("contig")
         # DVFS points of the decode step's shapes for the energy hints:
         # the projection (slots x d x d, fused residual), the MLP
         # up-projection (fused silu) and the decode attention, each under
@@ -203,11 +218,17 @@ class ServeLoop:
         self.temperature = sc.temperature
         self.eos_id = sc.eos_id
         self.rng = np.random.default_rng(sc.seed)
-        self.alloc, self.state = init_paged_serving(
-            cfg, sc.slots, sc.cache_len, page_size=sc.page_size,
-            num_pages=sc.num_pages, prefix_sharing=self.prefix_sharing,
-            device=self.device)
-        self._perm_np = page_permutation(cfg.n_layers, self.alloc.num_pages)
+        if sc.paged:
+            self.alloc, self.state = init_paged_serving(
+                cfg, sc.slots, sc.cache_len, page_size=sc.page_size,
+                num_pages=sc.num_pages, prefix_sharing=self.prefix_sharing,
+                device=self.device)
+            self._perm_np = page_permutation(cfg.n_layers,
+                                             self.alloc.num_pages)
+        else:
+            self.alloc = None
+            self.state = init_decode_state(cfg, sc.slots, sc.cache_len,
+                                           device=self.device)
         self.pos = np.zeros(sc.slots, np.int32)   # next position per slot
         self.active = np.zeros(sc.slots, bool)
         self.out: dict[int, list[int]] = {}
@@ -417,14 +438,15 @@ class ServeLoop:
         self._prefill_len[slot] = -1
         self._prefill_done[slot] = 0
         self._slot_prompt[slot] = None
-        self.alloc.release(slot)
-        self._sync_tables()
+        self._release(slot)
         self._finish_error(req, reason)
 
     def _pump_gauges(self) -> None:
-        """Per-iteration gauges: queue depth, pool occupancy, prefix hit
-        ratio, and the pages revived from the prefix cache."""
+        """Per-iteration gauges: queue depth and, paged, pool occupancy,
+        prefix hit ratio and the pages revived from the prefix cache."""
         self.g_queue.set(len(self.queue))
+        if not self.paged:
+            return
         st = self.alloc.stats
         used = self.alloc.num_pages - self.alloc.free_pages
         self.g_occ.set(used / max(self.alloc.num_pages, 1))
@@ -503,25 +525,36 @@ class ServeLoop:
 
     def _attn_bytes_step(self) -> float:
         """Modeled attention-cache bytes of one decode step, all layers:
-        the allocated pages, scaled by the sharing ratio."""
+        paged, the allocated pages, scaled by the sharing ratio;
+        contiguous, the full strips."""
         if not self.cfg.has_attention:
             return 0.0
         spec = self.attn_spec
-        # allocated pages as lengths: ceil(len / page) recovers them
-        lengths = [int(n) * self.page_size
-                   for n in self.alloc.page_counts()]
-        share = self._attn_share()
-        if share != 1.0:
-            spec = dataclasses.replace(spec, share=share)
-            self.energy.meta["attn_share"] = min(
-                self.energy.meta.get("attn_share", 1.0), share)
-            self._observe_share(share)
+        lengths = None
+        if self.paged:
+            # allocated pages as lengths: ceil(len / page) recovers them
+            lengths = [int(n) * self.page_size
+                       for n in self.alloc.page_counts()]
+            share = self._attn_share()
+            if share != 1.0:
+                spec = dataclasses.replace(spec, share=share)
+                self.energy.meta["attn_share"] = min(
+                    self.energy.meta.get("attn_share", 1.0), share)
+                self._observe_share(share)
         return self.cfg.n_layers * attn_decode_bytes(
             spec, slots=self.slots, cache_len=self.cache_len,
             lengths=lengths, n_kv_heads=self.cfg.n_kv_heads,
             d_head=self.cfg.d_head, dtype_bytes=self._cache_dtype_bytes)
 
     # ------------------------------------------------------ paged helpers --
+    def _release(self, slot: int) -> None:
+        """Drop a slot's page references (paged; copy-free, pages return
+        to a free pool at refcount zero).  A contiguous slot's strips
+        are simply written over by its next request."""
+        if self.paged:
+            self.alloc.release(slot)
+            self._sync_tables()
+
     def _sync_tables(self):
         self.state["block_tables"] = torch.tensor(
             self.alloc.block_table, device=self.device)
@@ -596,8 +629,7 @@ class ServeLoop:
         self._prefill_len[victim] = -1
         self._prefill_done[victim] = 0
         self._slot_prompt[victim] = None
-        self.alloc.release(victim)
-        self._sync_tables()
+        self._release(victim)
         self.preemptions += 1
         self.c_preempt.inc()
         self.tracer.instant("serve.preempt", req=req, needer=needer)
@@ -643,7 +675,7 @@ class ServeLoop:
         """True while pool occupancy or the observed SLO-violation rate
         is at or above its watermark."""
         sc = self.config
-        if sc.shed_occupancy is not None \
+        if sc.shed_occupancy is not None and self.paged \
                 and self.alloc.occupancy() >= sc.shed_occupancy:
             return True
         if sc.shed_violation_rate is not None and self.request_slo_ok:
@@ -675,29 +707,28 @@ class ServeLoop:
         self.tracer.begin_async("request.queued", req_id, ts=t * 1e6)
         self._req_phase[req_id] = "queued"
 
-    def _admit(self):
+    def _admit(self, max_new: int = 0):
         """Lockstep admission: whole-prompt prefill, token by token
-        through the decode step with only the admitted slot writing."""
+        through the decode step with only the admitted slot writing.
+        ``max_new`` bounds the request's positions (:meth:`_fits`)."""
         self._shed_queue()
         for slot in range(self.slots):
             if self.active[slot] or not self.queue:
                 continue
             req_id, prompt = self.queue[0]
-            need = pages_needed(len(prompt), self.page_size)
-            if need > self.alloc.num_pages:
-                raise RuntimeError(
-                    f"prompt of {len(prompt)} tokens exceeds the whole page "
-                    f"pool ({self.alloc.num_pages} pages x {self.page_size} "
-                    f"tokens)")
-            # +1 decode-headroom page when the pool can ever supply it
-            want = min(need + 1, self.alloc.num_pages)
-            if want > self.alloc.free_pages:
-                break   # head-of-line blocks until a release frees pages
+            self._fits(req_id, prompt, max_new)
+            if self.paged:
+                need = self._pages_for(prompt)
+                # +1 decode-headroom page when the pool can ever supply it
+                want = min(need + 1, self.alloc.num_pages)
+                if want > self.alloc.free_pages:
+                    break   # head-of-line blocks until a release frees pages
             self.queue.pop(0)
             self.admitted.append(req_id)
             self._set_phase(req_id, "prefill")
-            self._scrub_pages(self.alloc.ensure_range(slot, len(prompt)))
-            self._sync_tables()
+            if self.paged:
+                self._scrub_pages(self.alloc.ensure_range(slot, len(prompt)))
+                self._sync_tables()
             mask = np.zeros(self.slots, bool)
             mask[slot] = True
             # one "prefill" reading, all of it this request's
@@ -728,6 +759,30 @@ class ServeLoop:
             self._admit_seq[slot] = self._admit_counter
             self._admit_counter += 1
 
+    def _fits(self, req_id: int, prompt: list[int], max_new: int) -> None:
+        """Contiguous strips without a ring: a request writes positions
+        [0, len(prompt) + the tokens it has left), and every one must
+        lie within ``cache_len``; raises otherwise, as a paged slot
+        that outgrows its block table does.  An SWA ring wraps."""
+        if self.paged or self.cfg.swa_window is not None:
+            return
+        left = max(max_new - self.request_emitted.get(req_id, 0), 0)
+        if len(prompt) + left > self.cache_len:
+            raise RuntimeError(
+                f"request {req_id}: a {len(prompt)}-token prompt and "
+                f"{left} new tokens outgrow the {self.cache_len}-entry "
+                f"strips; raise cache_len")
+
+    def _pages_for(self, prompt: list[int]) -> int:
+        """Pages a prompt needs; raises when the whole pool is too small."""
+        need = pages_needed(len(prompt), self.page_size)
+        if need > self.alloc.num_pages:
+            raise RuntimeError(
+                f"prompt of {len(prompt)} tokens exceeds the whole page "
+                f"pool ({self.alloc.num_pages} pages x {self.page_size} "
+                f"tokens)")
+        return need
+
     def _clone_source(self, prompt: list[int]) -> int | None:
         """A live, fully prefilled slot whose admitted prompt equals
         ``prompt``: its whole block table (partial tail included) can be
@@ -737,11 +792,12 @@ class ServeLoop:
                 return s
         return None
 
-    def _admit_continuous(self):
+    def _admit_continuous(self, max_new: int = 0):
         """Continuous admission: claim a free slot at once, share what
         the prefix index already holds (or clone a live identical
         prompt's table), and leave the rest of the prompt to the chunked
-        prefill stream."""
+        prefill stream.  ``max_new`` bounds the request's positions
+        (:meth:`_fits`)."""
         self._shed_queue()
         for slot in range(self.slots):
             if not self.queue:
@@ -749,27 +805,26 @@ class ServeLoop:
             if self.active[slot] or self._prefill_len[slot] >= 0:
                 continue
             req_id, prompt = self.queue[0]
-            need = pages_needed(len(prompt), self.page_size)
-            if need > self.alloc.num_pages:
-                raise RuntimeError(
-                    f"prompt of {len(prompt)} tokens exceeds the whole page "
-                    f"pool ({self.alloc.num_pages} pages x {self.page_size} "
-                    f"tokens)")
-            clone_src = self._clone_source(prompt) \
-                if self.prefix_sharing else None
-            if clone_src is not None:
-                cost = 0   # every page shared by reference
-            else:
-                # pages to draw from the free pools: the unmatched ones
-                # plus cached (ref 0) matches, which are revived out of
-                # the free pool; live matches are adopted for free
-                matched = self.alloc.index.match(prompt, self.page_size) \
-                    if self.prefix_sharing else []
-                cost = need - sum(1 for pid in matched
-                                  if self.alloc.refcount(pid) > 0)
-            want = min(cost + 1, self.alloc.num_pages)
-            if want > self.alloc.free_pages:
-                break   # head-of-line blocks until a release frees pages
+            self._fits(req_id, prompt, max_new)
+            clone_src = None
+            if self.paged:
+                need = self._pages_for(prompt)
+                clone_src = self._clone_source(prompt) \
+                    if self.prefix_sharing else None
+                if clone_src is not None:
+                    cost = 0   # every page shared by reference
+                else:
+                    # pages to draw from the free pools: the unmatched
+                    # ones plus cached (ref 0) matches, which are revived
+                    # out of the free pool; live matches are free
+                    matched = self.alloc.index.match(
+                        prompt, self.page_size) if self.prefix_sharing \
+                        else []
+                    cost = need - sum(1 for pid in matched
+                                      if self.alloc.refcount(pid) > 0)
+                want = min(cost + 1, self.alloc.num_pages)
+                if want > self.alloc.free_pages:
+                    break   # head-of-line blocks until a release frees pages
             self.queue.pop(0)
             self.admitted.append(req_id)
             self._set_phase(req_id, "prefill")
@@ -824,23 +879,25 @@ class ServeLoop:
             budget -= take
         if not rows:
             return 0
-        new: list[int] = []
-        for s, done, take in rows:
-            while True:
-                try:
-                    new += self.alloc.ensure_range(s, done + take)
-                    break
-                except PoolExhausted:
-                    if not self._preempt_victim(s):
-                        raise
-        # a preemption may have evicted a later gang member: keep only
-        # the rows still mid-prefill
-        rows = [(s, d, t) for s, d, t in rows if self._prefill_len[s] >= 0]
-        if new:
-            self._scrub_pages(new)
-        self._sync_tables()
-        if not rows:
-            return 0
+        if self.paged:
+            new: list[int] = []
+            for s, done, take in rows:
+                while True:
+                    try:
+                        new += self.alloc.ensure_range(s, done + take)
+                        break
+                    except PoolExhausted:
+                        if not self._preempt_victim(s):
+                            raise
+            # a preemption may have evicted a later gang member: keep
+            # only the rows still mid-prefill
+            rows = [(s, d, t) for s, d, t in rows
+                    if self._prefill_len[s] >= 0]
+            if new:
+                self._scrub_pages(new)
+            self._sync_tables()
+            if not rows:
+                return 0
         toks = np.zeros((self.slots, self.prefill_budget), np.int32)
         sl = np.zeros(self.slots, np.int32)
         st = np.zeros(self.slots, np.int32)
@@ -899,14 +956,9 @@ class ServeLoop:
         p /= p.sum()
         return int(self.rng.choice(len(p), p=p))
 
-    def _decode_once(self, max_new: int):
-        """One decode step over the live slots: page allocation (with
-        preemption on exhaustion), copy-on-write forks, the step, then
-        sampling and retirement.  Shared by both schedulers."""
-        if self.chaos is not None and self.chaos.match(
-                "kernel", step=self._iter) is not None:
-            # a launch fault of the step, injected before any launch
-            raise InjectedFault("kernel", f"step={self._iter}")
+    def _ensure_decode_pages(self) -> None:
+        """Every live slot's page for its next position (preempting on
+        exhaustion), copy-on-write forks, scrubs and the tables' upload."""
         new: list[int] = []
         for s in range(self.slots):
             while self.active[s]:
@@ -921,6 +973,17 @@ class ServeLoop:
             self._scrub_pages(new)
         if new or forked:
             self._sync_tables()
+
+    def _decode_once(self, max_new: int):
+        """One decode step over the live slots: page allocation (with
+        preemption on exhaustion), copy-on-write forks, the step, then
+        sampling and retirement.  Shared by both schedulers."""
+        if self.chaos is not None and self.chaos.match(
+                "kernel", step=self._iter) is not None:
+            # a launch fault of the step, injected before any launch
+            raise InjectedFault("kernel", f"step={self._iter}")
+        if self.paged:
+            self._ensure_decode_pages()
         toks = np.zeros((self.slots, 1), np.int32)
         for s in range(self.slots):
             if self.active[s]:
@@ -981,10 +1044,7 @@ class ServeLoop:
                 self.active[s] = False
                 self._slot_prompt[s] = None
                 self._finish_request(r)
-                # copy-free: the slot drops its references; pages return
-                # to a free pool only at refcount zero
-                self.alloc.release(s)
-                self._sync_tables()
+                self._release(s)
 
     def _pending(self) -> bool:
         return bool(self.queue or self.active.any()
@@ -1009,7 +1069,7 @@ class ServeLoop:
             self._enforce_deadlines()
             if self.mode == "continuous":
                 with tr.span("serve.admit"):
-                    self._admit_continuous()
+                    self._admit_continuous(max_new)
                 with tr.span("serve.prefill_chunk"):
                     n = self._prefill_step()
                 self.prefill_tokens_per_step.append(n)
@@ -1017,7 +1077,7 @@ class ServeLoop:
                     self.m_prefill_tok.observe(n)
             else:
                 with tr.span("serve.admit"):
-                    self._admit()
+                    self._admit(max_new)
             if self.active.any():
                 with tr.span("serve.decode"):
                     self._decode_once(max_new)
@@ -1092,9 +1152,10 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
-    ap.add_argument("--layout", default="paged",
+    ap.add_argument("--layout", default="contiguous",
                     choices=["contiguous", "paged"],
-                    help="KV cache layout (only paged is ported)")
+                    help="KV cache layout: per-slot strips (a ring of one "
+                         "window under SWA) or the paged pool")
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--mode", default="lockstep",
@@ -1209,7 +1270,7 @@ def main(argv=None):
     total_new = sum(len(v) - args.prompt_len for v in out.values())
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"[serve] {cfg.name} on {where}: {args.requests} requests "
-          f"({args.mode}, paged p{args.page_size}), {total_new} tokens, "
+          f"({args.mode}, {loop.attn_spec.tag()}), {total_new} tokens, "
           f"{loop.steps} decode steps and {loop.chunk_steps} prefill chunks "
           f"in {dt:.2f}s ({total_new / max(dt, 1e-9):.1f} tok/s), "
           f"{loop.preemptions} preemptions")

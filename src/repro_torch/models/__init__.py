@@ -3,6 +3,7 @@ from .layers import DotEngine  # noqa: F401
 from .transformer import (  # noqa: F401
     decode_step,
     fused_epilogue_savings_bytes,
+    init_decode_state,
     init_model,
     prefill_kv,
     prefill_kv_chunk,

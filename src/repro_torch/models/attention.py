@@ -1,8 +1,10 @@
 """GQA attention (port of ``repro.models.attention``): q/k/v projection
 with qwen3's per-head qk-norm and RoPE, full-sequence (prefill)
 attention with the reference's q-chunked exact softmax, and one-token
-decode against the paged KV pool.  The contiguous decode is not ported
-yet (ROADMAP.md queue A, A7)."""
+decode against the paged KV pool (the paged decode kernel) or against
+per-slot contiguous strips, a ring of one window under SWA (plain torch
+ops, as the reference's are XLA).  The sequence-parallel decode waits
+for the distributed slice (ROADMAP.md queue A, A15)."""
 from __future__ import annotations
 
 import math
@@ -14,7 +16,7 @@ from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from .layers import DotEngine, apply_rope, init_linear, init_rms, rms_norm
 
 __all__ = ["init_attention", "attention", "prefill_kv",
-           "paged_decode_attention"]
+           "decode_attention", "decode_plan", "paged_decode_attention"]
 
 
 def init_attention(generator, cfg, dtype=torch.float32, *, lead=(),
@@ -157,3 +159,86 @@ def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
                                       phys_tables, pos)
     out = engine.dot(out.reshape(b, 1, -1), p["wo"], residual=residual)
     return out, k_pages, v_pages
+
+
+def ring_positions(cur_pos, c: int):
+    """(B, c) token position each ring entry of a row holds when the row
+    writes position ``cur_pos[b]`` at entry ``cur_pos[b] % c``: entry j
+    holds ``cur_pos[b] - ((cur_pos[b] - j) mod c)`` (negative: never
+    written)."""
+    j = torch.arange(c, device=cur_pos.device)
+    return cur_pos[:, None] - torch.remainder(cur_pos[:, None] - j, c)
+
+
+def decode_plan(cfg, b: int, c: int, cache_positions, write_slot, cur_pos,
+                row_mask=None, device=None):
+    """What every layer of one contiguous decode step shares, since it
+    depends on the positions alone: ``(index, select, mask)``, the
+    index of the entry each row writes in a layer's (B, C, ...) strip,
+    the rows that write ((B, 1, 1) bool, ``row_mask`` or all) and the
+    attention mask over the C entries, broadcast against
+    :func:`_sdpa`'s (B, Hkv, G, 1, C).  The rules are
+    :func:`decode_attention`'s."""
+    window = cfg.swa_window
+    cur = torch.as_tensor(cur_pos, device=device).to(torch.int64)
+    ws = torch.as_tensor(write_slot, device=device).to(torch.int64)
+    sel = torch.ones(b, dtype=torch.bool, device=device) \
+        if row_mask is None else row_mask
+    if cur.dim() > 0:
+        ws = ws.reshape(-1).expand(b)
+        cur = cur.reshape(-1).expand(b)
+        held = ring_positions(cur, c)                          # (B, C)
+        valid = held >= 0
+        if window is not None:
+            valid &= held > cur[:, None] - window
+        return (torch.arange(b, device=device), ws), sel[:, None, None], \
+            valid[:, None, None, None, :]
+    slots = torch.arange(c, device=device)
+    held = torch.where(slots == ws, cur, cache_positions.to(torch.int64))
+    valid = (held >= 0) & (held <= cur)
+    if window is not None:
+        valid &= held > cur - window
+    return (slice(None), ws), sel[:, None, None], \
+        valid[None, None, None, None, :]
+
+
+def decode_attention(x, p, cfg, engine: DotEngine, k_cache, v_cache,
+                     cache_positions, write_slot, cur_pos, cos, sin,
+                     row_mask=None, residual=None, plan=None):
+    """One-token decode against contiguous per-slot strips.
+
+    x: (B, 1, d); k_cache/v_cache: (B, C, Hkv, dh); cache_positions:
+    (C,) position each entry holds, -1 if empty, shared by every row;
+    write_slot: the entry the new token goes to; cur_pos: its position.
+    ``row_mask`` (B,) bool: rows with False write nothing.  The new
+    token's K/V is written **in place** into the strips.
+
+    Scalar ``write_slot``/``cur_pos`` (lockstep): validity comes from
+    ``cache_positions`` (with the entry being written at ``cur_pos``),
+    ``0 <= pos <= cur_pos`` and, under SWA, ``pos > cur_pos - window``:
+    the reference's ring of one window.
+
+    (B,) vectors (each row on its own clock): row b writes at
+    ``write_slot[b]``, which must be ``cur_pos[b] % C``, and its validity
+    comes from ``cur_pos[b]`` alone (:func:`ring_positions`): entry j is
+    valid iff its position is >= 0 and, under SWA, > ``cur_pos[b] -
+    window``.  So a row never reads an entry another row's clock marked.
+    Without a window and before a row wraps this is the reference's
+    vector path exactly (entries ``[0, cur_pos[b]]``); the reference
+    rejects SWA there, the port carries the same rule to the ring.
+
+    ``plan``: :func:`decode_plan` of these arguments, computed once for
+    all layers of a step (the positions and ``row_mask`` are then not
+    read again); None computes it here.
+
+    Returns (out (B, 1, d), k_cache, v_cache)."""
+    b, c = k_cache.shape[:2]
+    q, k_new, v_new = _project_qkv(x, p, cfg, engine, cos, sin)
+    idx, sel, mask = plan or decode_plan(cfg, b, c, cache_positions,
+                                         write_slot, cur_pos, row_mask,
+                                         x.device)
+    k_cache[idx] = torch.where(sel, k_new[:, 0], k_cache[idx])
+    v_cache[idx] = torch.where(sel, v_new[:, 0], v_cache[idx])
+    out = _sdpa(q, k_cache, v_cache, mask, 1.0 / math.sqrt(cfg.d_head))
+    out = engine.dot(out.reshape(b, 1, -1), p["wo"], residual=residual)
+    return out, k_cache, v_cache

@@ -1,10 +1,12 @@
 """Dense transformer backbone (port of ``repro.models.transformer``):
-parameter init with the reference's distributions, single-shot and
-chunked prefill into the paged pool, and the paged decode step.
+parameter init with the reference's distributions, the decode state of
+either KV layout (:func:`init_decode_state`), single-shot and chunked
+prefill and the decode step, each into the paged pool or into the
+contiguous per-slot strips (a ring of one window under SWA).
 Per-layer parameters are stacked on a leading ``n_layers`` axis as in
 the reference; a Python loop over that axis takes the place of
-``lax.scan``.  The full-sequence forward, the loss and the contiguous
-layout wait for later slices (ROADMAP.md).
+``lax.scan``.  The full-sequence forward and the loss wait for later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from .config import ArchConfig
 from .layers import DotEngine, init_linear, init_rms, init_swiglu, rms_norm, \
     rope, swiglu_mlp
 
-__all__ = ["init_model", "decode_step", "prefill_kv", "prefill_kv_chunk",
-           "fused_epilogue_savings_bytes"]
+__all__ = ["init_model", "init_decode_state", "decode_step", "prefill_kv",
+           "prefill_kv_chunk", "fused_epilogue_savings_bytes"]
 
 
 def fused_epilogue_savings_bytes(cfg: ArchConfig, tokens: int) -> float:
@@ -89,6 +91,44 @@ def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
     return params
 
 
+def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
+                      dtype=None, *, layout=None, page_size: int = 8,
+                      num_pages: int | None = None,
+                      max_pages_per_slot: int | None = None, device=None):
+    """The decode state of ``layout`` (a
+    :class:`~repro_torch.serve.state.KVLayout` or its name; None means
+    CONTIGUOUS, as in the reference).
+
+    PAGED: :func:`~repro_torch.serve.paged_kv.init_paged_decode_state`
+    (``cache_len`` only sizes the default pool).  CONTIGUOUS: ``k`` and
+    ``v`` strips of shape (n_layers, batch, c, n_kv_heads, d_head), c =
+    ``cache_len`` or, under SWA, ``min(cache_len, swa_window)`` (a ring
+    of one window), zero, and ``kv_pos`` (c,) int32 filled with -1, the
+    position each entry holds.  On ``device`` (``cuda`` unless the
+    caller asks for cpu)."""
+    from repro_torch.serve.state import DecodeState, KVLayout, \
+        resolve_layout
+
+    layout = resolve_layout(layout)
+    if layout is KVLayout.PAGED:
+        from repro_torch.serve.paged_kv import init_paged_decode_state
+        return init_paged_decode_state(
+            cfg, batch, page_size=page_size, num_pages=num_pages,
+            max_pages_per_slot=max_pages_per_slot, cache_len=cache_len,
+            dtype=dtype, device=device)
+    _require_dense(cfg, "the contiguous decode state")
+    dev = resolve_device(device)
+    dtype = dtype or cfg.act_torch_dtype()
+    c = cache_len if cfg.swa_window is None \
+        else min(cache_len, cfg.swa_window)
+    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.d_head)
+    return DecodeState({
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "kv_pos": torch.full((c,), -1, dtype=torch.int32, device=dev),
+    }, KVLayout.CONTIGUOUS)
+
+
 def _layer(tree, i: int):
     """Layer ``i``'s slice of the stacked per-layer parameter tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -134,12 +174,35 @@ def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
     return _mask_padded_vocab(logits, cfg), state
 
 
-def _require_paged(state, what: str):
-    layout = getattr(state, "layout", None)
-    if layout is None or not layout.is_paged:
-        raise NotImplementedError(
-            f"{what}: only the paged KV layout is ported (ROADMAP.md queue "
-            f"A); build the state with serve.paged_kv.init_paged_serving")
+def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
+                            engine: DotEngine, row_mask):
+    """The contiguous strips: the new token goes to entry ``pos % c``
+    of its row (c the strips' length: a ring when SWA bounds it).  The
+    write index and the attention mask are computed once for all
+    layers (:func:`~repro_torch.models.attention.decode_plan`).  A
+    scalar ``pos`` then sets ``kv_pos`` at that entry, as the reference
+    does; per-row positions leave ``kv_pos`` alone, since their
+    validity comes from each row's own clock and never reads it."""
+    dev = tokens.device
+    x = params["embed"][tokens.long()].to(cfg.act_torch_dtype())
+    cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
+    k, v, kv_pos = state["k"], state["v"], state["kv_pos"]
+    p = torch.as_tensor(pos, device=dev).to(torch.int64)
+    slot = torch.remainder(p, k.shape[2])
+    plan = attn_mod.decode_plan(cfg, k.shape[1], k.shape[2], kv_pos, slot,
+                                p, row_mask, dev)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        x, _, _ = attn_mod.decode_attention(
+            rms_norm(x, lp["norm1"]), lp["attn"], cfg, engine, k[i], v[i],
+            kv_pos, slot, p, cos, sin, row_mask, residual=x, plan=plan)
+        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
+                       residual=x)
+    if p.dim() == 0:
+        kv_pos[slot] = p.to(kv_pos.dtype)
+    x = rms_norm(x, params["final_norm"])
+    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
+    return _mask_padded_vocab(logits, cfg), state
 
 
 def _require_dense(cfg: ArchConfig, what: str):
@@ -153,29 +216,32 @@ def _require_dense(cfg: ArchConfig, what: str):
 
 def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
                engine: DotEngine | None = None):
-    """Prefill one slot's paged KV cache from a prompt in one forward.
+    """Prefill one slot's KV cache from a prompt in one forward.
 
     ``tokens``: (L,) prompt.  The per-layer post-rope (k, v), what
     ``decode_step`` would have cached token by token, are written at
-    positions [0, L) through the slot's block table; the pages must be
-    allocated already (``PageAllocator.ensure_range``), and entries of
-    -1 write nothing.  Returns ``(logits (1, L, padded_vocab) f32,
-    state)``: the pool in ``state`` is updated **in place** (the
-    returned state is the same object).  Dense family, paged layout."""
-    from repro_torch.serve.paged_kv import pages_needed, physical_rows, \
-        zero_row_index
-
+    positions [0, L): paged, through the slot's block table (the pages
+    must be allocated already, ``PageAllocator.ensure_range``; entries
+    of -1 write nothing); contiguous, into the slot's strips at entries
+    [0, L) (L must fit them), with ``kv_pos[:L] = 0 .. L-1``.  Returns
+    ``(logits (1, L, padded_vocab) f32, state)``: the cache in
+    ``state`` is updated **in place** (the returned state is the same
+    object).  Dense family."""
     engine = engine or DotEngine()
     _require_dense(cfg, "prefill_kv")
-    _require_paged(state, "prefill_kv")
-    kp, vp = state["k_pages"], state["v_pages"]
-    dev = kp.device
+    paged = state.layout.is_paged
+    dev = (state["k_pages"] if paged else state["k"]).device
     toks = torch.as_tensor(tokens, device=dev).to(torch.int64).reshape(1, -1)
     seq = toks.shape[1]
-    ps = kp.shape[1]
-    npg = pages_needed(seq, ps)
-    if npg > state["block_tables"].shape[1]:
-        raise ValueError(f"a {seq}-token prompt outgrows the block table")
+    if paged:
+        from repro_torch.serve.paged_kv import pages_needed
+        ps = state["k_pages"].shape[1]
+        npg = pages_needed(seq, ps)
+        if npg > state["block_tables"].shape[1]:
+            raise ValueError(f"a {seq}-token prompt outgrows the block table")
+    elif seq > state["k"].shape[2]:
+        raise ValueError(f"a {seq}-token prompt outgrows the "
+                         f"{state['k'].shape[2]}-entry strips")
     x = params["embed"][toks].to(cfg.act_torch_dtype())
     cos, sin = rope(torch.arange(seq, device=dev), cfg.d_head,
                     cfg.rope_theta) if cfg.rope else (None, None)
@@ -191,6 +257,24 @@ def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
                        residual=x)
         ks.append(k[0])
         vs.append(v[0])
+    if paged:
+        _write_prompt_pages(state, slot, seq, npg, ks, vs)
+    else:
+        state["k"][:, slot, :seq] = torch.stack(ks)
+        state["v"][:, slot, :seq] = torch.stack(vs)
+        state["kv_pos"][:seq] = torch.arange(seq, dtype=torch.int32,
+                                             device=dev)
+    x = rms_norm(x, params["final_norm"])
+    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
+    return _mask_padded_vocab(logits, cfg), state
+
+
+def _write_prompt_pages(state, slot: int, seq: int, npg: int, ks, vs):
+    """Scatter a prompt's per-layer K/V into the slot's allocated pages."""
+    from repro_torch.serve.paged_kv import physical_rows, zero_row_index
+
+    kp, vp = state["k_pages"], state["v_pages"]
+    ps = kp.shape[1]
     bt_row = state["block_tables"][slot, :npg]
     keep = bt_row >= 0
     phys = physical_rows(state["page_perm"], bt_row,
@@ -203,40 +287,41 @@ def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
 
     kp[phys] = to_pages(ks)
     vp[phys] = to_pages(vs)
-    x = rms_norm(x, params["final_norm"])
-    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
-    return _mask_padded_vocab(logits, cfg), state
 
 
 def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
                      starts, lengths, engine: DotEngine | None = None):
     """Chunked, batched prefill: one prompt chunk per row, written
-    through the block tables into the paged pool.
+    through the block tables into the paged pool or into the contiguous
+    strips.
 
     tokens: (G, L) -- G gang rows padded to a common chunk width L;
     slots: (G,) distinct decode-slot ids; starts: (G,) absolute position
     of each row's first token; lengths: (G,) valid tokens per row (pad
     columns, and whole pad rows of length 0, write nothing).  Chunk
     queries attend to the slot's whole written span [0, start + length)
-    (earlier chunks are read back from the pool), so chunks interleaved
+    (earlier chunks are read back from the cache), so chunks interleaved
     with decode steps give the single-shot :func:`prefill_kv` K/V.  The
     positions written must be covered by allocated pages
-    (``PageAllocator.ensure_range``).
+    (``PageAllocator.ensure_range``), or lie within the strips (a
+    position past them raises: chunked prefill has no ring).
 
-    Only the valid entries whose page is allocated are written (the
-    reference writes every entry back and keeps the rest unchanged; a
-    pad column clamped onto the table's last page could alias a valid
-    entry, an index write with two values).  Returns the state, whose
-    pool is updated **in place** (the same object).  No logits: the
+    Only the valid entries (paged: whose page is allocated) are written.
+    The reference writes every entry back and keeps the rest unchanged;
+    a pad column clamped onto the table's last page, or onto the strips'
+    last entry, can alias a valid entry there: an index write with two
+    values.  Contiguous, ``kv_pos`` takes the max of itself and each
+    valid position at that position's entry, as in the reference (a
+    loop on per-row positions never reads it).  Returns the state, whose
+    cache is updated **in place** (the same object).  No logits: the
     serving loop samples the first token from a decode step fed the
-    prompt's last token.  Dense family, paged layout."""
-    from repro_torch.serve.paged_kv import physical_rows, zero_row_index
-
+    prompt's last token.  Dense family."""
     engine = engine or DotEngine()
     _require_dense(cfg, "chunked prefill")
-    _require_paged(state, "prefill_kv_chunk")
-    kp, vp = state["k_pages"], state["v_pages"]
-    dev = kp.device
+    paged = state.layout.is_paged
+    kc, vc = (state["k_pages"], state["v_pages"]) if paged \
+        else (state["k"], state["v"])
+    dev = kc.device
     toks = torch.as_tensor(tokens, device=dev).to(torch.int64)
     g, chunk = toks.shape
     slots_v = torch.as_tensor(slots, device=dev).to(torch.int64).reshape(-1)
@@ -249,39 +334,63 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
     cos, sin = rope(pos2d, cfg.d_head, cfg.rope_theta) if cfg.rope \
         else (None, None)                                      # (G, L, dh/2)
     scale = 1.0 / math.sqrt(cfg.d_head)
-    ps = kp.shape[1]
-    bt = state["block_tables"]
-    max_pages = bt.shape[1]
-    span = max_pages * ps
-    pg2d = torch.clamp(pos2d // ps, max=max_pages - 1)
-    off2d = pos2d % ps
-    wmask = valid & (torch.gather(bt[slots_v].long(), 1, pg2d) >= 0)
+    if paged:
+        from repro_torch.serve.paged_kv import physical_rows, zero_row_index
+        ps = kc.shape[1]
+        bt = state["block_tables"]
+        max_pages = bt.shape[1]
+        span = max_pages * ps
+        pg2d = torch.clamp(pos2d // ps, max=max_pages - 1)
+        wmask = valid & (torch.gather(bt[slots_v].long(), 1, pg2d) >= 0)
+        # physical rows of every layer: (n_layers, G, max_pages)
+        phys_all = physical_rows(state["page_perm"], bt[slots_v],
+                                 zero_row_index(kc)).long()
+        ent = (pos2d % ps).reshape(-1)
+    else:
+        span = kc.shape[2]
+        # the last valid position of each row (pad rows: -1) must fit
+        last = int(torch.where(lens_v > 0, starts_v + lens_v - 1, -1).max())
+        if last >= span:
+            raise ValueError(f"chunked prefill writes position {last}, past "
+                             f"the {span}-entry strips")
+        wmask = valid
+        ent = pos2d.reshape(-1)
     # the entries written, flattened over (G, L): one host sync a chunk
     wi = wmask.reshape(-1).nonzero().squeeze(1)
-    offs = off2d.reshape(-1)[wi]
+    ent = ent[wi]
     # causal over the written extent: key t is visible to the query at
     # position p iff t <= min(p, start + length - 1)
     kpos = torch.arange(span, device=dev)[None, None, :]
     mask = kpos <= torch.minimum(
         pos2d, (starts_v + lens_v - 1)[:, None])[:, :, None]   # (G, L, span)
     mask = mask[:, None, None]
-    # physical rows of every layer: (n_layers, G, max_pages)
-    phys_all = physical_rows(state["page_perm"], bt[slots_v],
-                             zero_row_index(kp)).long()
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
         q, k, v = attn_mod._project_qkv(h, lp["attn"], cfg, engine, cos, sin)
-        phys = phys_all[i]
-        rows = torch.gather(phys, 1, pg2d).reshape(-1)[wi]
-        kp[rows, offs] = k.reshape(g * chunk, *k.shape[2:])[wi]
-        vp[rows, offs] = v.reshape(g * chunk, *v.shape[2:])[wi]
-        kf = kp[phys].reshape(g, span, *k.shape[2:])
-        vf = vp[phys].reshape(g, span, *v.shape[2:])
+        k_rows = k.reshape(g * chunk, *k.shape[2:])[wi]
+        v_rows = v.reshape(g * chunk, *v.shape[2:])[wi]
+        if paged:
+            phys = phys_all[i]
+            rows = torch.gather(phys, 1, pg2d).reshape(-1)[wi]
+            kc[rows, ent] = k_rows
+            vc[rows, ent] = v_rows
+            kf = kc[phys].reshape(g, span, *k.shape[2:])
+            vf = vc[phys].reshape(g, span, *v.shape[2:])
+        else:
+            rows = slots_v[:, None].expand(g, chunk).reshape(-1)[wi]
+            kc[i, rows, ent] = k_rows
+            vc[i, rows, ent] = v_rows
+            kf = kc[i, slots_v]                                # (G, C, ...)
+            vf = vc[i, slots_v]
         o = attn_mod._sdpa(q, kf, vf, mask, scale)
         x = engine.dot(o.reshape(g, chunk, -1), lp["attn"]["wo"], residual=x)
         x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
                        residual=x)
+    if not paged:
+        kv_pos = state["kv_pos"]
+        flat = pos2d.reshape(-1)[wi]
+        kv_pos.scatter_reduce_(0, flat, flat.to(kv_pos.dtype), "amax")
     return state
 
 
@@ -291,11 +400,17 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos,
     shared by every row or a (B,) vector of per-row positions; row_mask
     (B,) bool: rows with False leave the cache untouched.
 
-    Returns (logits (B, 1, padded_vocab) f32, state).  The paged pool
-    in ``state`` is updated **in place** (the returned state is the
-    same object); clone the state first to keep the old one.  Only the
-    paged layout is ported: a contiguous state raises."""
+    The layout is read off the state: the paged pool (its decode
+    kernel) or the contiguous strips, a ring of one window under SWA
+    (``slot = pos % c``; a vector ``pos`` then takes each row's
+    validity from its own clock, :func:`~repro_torch.models.attention.
+    decode_attention`).  Dense family.
+
+    Returns (logits (B, 1, padded_vocab) f32, state).  The cache in
+    ``state`` is updated **in place** (the returned state is the same
+    object); clone the state first to keep the old one."""
     engine = engine or DotEngine()
-    _require_paged(state, "decode_step")
-    return _decode_step_paged(params, cfg, state, tokens, pos, engine,
-                              row_mask)
+    _require_dense(cfg, "decode_step")
+    step = _decode_step_paged if state.layout.is_paged \
+        else _decode_step_contiguous
+    return step(params, cfg, state, tokens, pos, engine, row_mask)

@@ -1,16 +1,18 @@
 """Serve-state snapshot/restore (port of ``repro.runtime.snapshot``).
 
 Lightweight snapshots of everything the serving loop needs to replay a
-failed iteration: the ``DecodeState`` tensors (the paged KV pool, the
-page permutation, the block tables), the page allocator's metadata
-(block tables, free lists, refcounts, prefix-index edges via
+failed iteration: the ``DecodeState`` tensors (the contiguous strips and
+``kv_pos``, or the paged KV pool, the page permutation and the block
+tables), the page allocator's metadata when the loop is paged (block
+tables, free lists, refcounts, prefix-index edges via
 :meth:`PageAllocator.state_dict`), and the scheduler's host state
 (queue, outputs, per-slot bookkeeping), in the reference's format.
 
 In memory by default: a snapshot clones the state's tensors on their
 own device, in stream order, with no host synchronisation and no copy
 to the host; a restore writes them back into the live tensors with
-``copy_`` and rebuilds the block-table tensor from the allocator.  Both
+``copy_`` and, paged, rebuilds the block-table tensor from the
+allocator.  Both
 are cheap enough that chaos runs snapshot every iteration.  With a
 ``root`` directory each snapshot *also* goes through
 :mod:`repro_torch.checkpoint.store` (atomic rename, per-leaf crc32, the
@@ -19,7 +21,7 @@ tensors to the host; a restarted process can restore from it, and
 corruption surfaces as :class:`~repro_torch.checkpoint.
 CheckpointCorruptionError` instead of garbage KV.
 
-Every restore re-audits the allocator via
+Every paged restore re-audits the allocator via
 :meth:`PageAllocator.check_invariants` -- a snapshot that resurrects a
 corrupted page table fails loudly at restore time, never by serving
 another request's KV rows.  ``last_snapshot_ms`` / ``last_restore_ms``
@@ -96,7 +98,7 @@ class ServeSnapshotter:
         lp = self.loop
         tensors = {k: v.clone() for k, v in lp.state.items()}
         sched = self._sched_state()
-        alloc = lp.alloc.state_dict()
+        alloc = lp.alloc.state_dict() if lp.alloc is not None else None
         self._mem = (int(iteration), tensors, sched, alloc)
         if self.root is not None:
             from repro_torch.checkpoint.store import save_checkpoint
@@ -110,8 +112,8 @@ class ServeSnapshotter:
     # ------------------------------------------------------------ restore --
     def restore(self, *, from_disk: bool = False) -> int:
         """Rewind the loop to the last snapshot; returns its iteration.
-        The restored allocator is invariant-audited before the loop
-        touches it again."""
+        A restored allocator (paged) is invariant-audited before the
+        loop touches it again."""
         t0 = time.perf_counter()
         lp = self.loop
         if from_disk or self._mem is None:
@@ -120,7 +122,8 @@ class ServeSnapshotter:
             iteration, tensors, sched, alloc = self._mem
         for k, v in tensors.items():
             lp.state[k].copy_(v)
-        lp.alloc.load_state_dict(alloc)
+        if alloc is not None:
+            lp.alloc.load_state_dict(alloc)
         # scheduler fields: fresh copies so a second restore of the same
         # snapshot starts from identical state
         lp.pos = np.asarray(sched["pos"], np.int32)
@@ -139,8 +142,9 @@ class ServeSnapshotter:
                            for p in sched["slot_prompt"]]
         lp.preemptions = int(sched["preemptions"])
         self._reconcile_phases(_int_keys(sched["phases"]))
-        lp._sync_tables()
-        lp.alloc.check_invariants()
+        if lp.paged:
+            lp._sync_tables()
+            lp.alloc.check_invariants()
         self.restores += 1
         self.last_restore_ms = (time.perf_counter() - t0) * 1e3
         return int(iteration)

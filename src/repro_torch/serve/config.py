@@ -1,5 +1,5 @@
-"""ServeConfig (port of ``repro.serve.config``: the fields of the paged
-lockstep and continuous paths, observability and fault tolerance)."""
+"""ServeConfig (port of ``repro.serve.config``: both KV layouts, lockstep
+and continuous, observability and fault tolerance)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -20,11 +20,9 @@ class ServeConfig:
     with decode.  ``prefix_sharing`` (continuous only) maps page-aligned
     common prompt prefixes onto shared pages with copy-on-write; it
     changes memory behaviour, never tokens.  ``layout`` is the
-    :class:`~repro_torch.serve.state.KVLayout` (names accepted);
-    ``page_size``/``num_pages`` shape the paged pool.  The contiguous
-    layout is not ported yet and raises.  Unlike the reference, the
-    default layout is PAGED: it is the only one the port serves.
-    ``objective`` ("time", "energy" or "edp"), when set, routes the
+    :class:`~repro_torch.serve.state.KVLayout` (names accepted; default
+    CONTIGUOUS, per-slot ``cache_len`` strips, as in the reference);
+    ``page_size``/``num_pages`` shape the paged pool.  ``objective`` ("time", "energy" or "edp"), when set, routes the
     loop's GEMMs through the tuner under that metric and resolves the
     DVFS points its energy accounting uses.
 
@@ -58,7 +56,7 @@ class ServeConfig:
     eos_id: int = 1
     seed: int = 0
     objective: str | None = None
-    layout: KVLayout = KVLayout.PAGED
+    layout: KVLayout = KVLayout.CONTIGUOUS
     page_size: int = 8
     num_pages: int | None = None
     mode: str = "lockstep"
@@ -81,10 +79,6 @@ class ServeConfig:
         if self.mode not in ("lockstep", "continuous"):
             raise ValueError(
                 f"mode must be 'lockstep' or 'continuous', got {self.mode!r}")
-        if not self.layout.is_paged:
-            raise NotImplementedError(
-                "the contiguous KV layout is not ported yet (ROADMAP.md "
-                "queue A, A7); use layout='paged'")
         if self.slots < 1 or self.cache_len < 1 or self.page_size < 1:
             raise ValueError((self.slots, self.cache_len, self.page_size))
         if self.prefill_budget < 1:
@@ -109,3 +103,7 @@ class ServeConfig:
             if v is not None and not (0 < v <= 1):
                 raise ValueError(
                     f"{name} must be a watermark in (0, 1], got {v}")
+
+    @property
+    def paged(self) -> bool:
+        return self.layout.is_paged

@@ -25,9 +25,9 @@ class KVLayout(enum.Enum):
 
 def resolve_layout(layout: "KVLayout | str | None") -> KVLayout:
     """A layout from the enum or its name (CLI plumbing); None means
-    PAGED, the only layout the port serves so far."""
+    CONTIGUOUS, as in the reference."""
     if layout is None:
-        return KVLayout.PAGED
+        return KVLayout.CONTIGUOUS
     if isinstance(layout, str):
         return KVLayout(layout.lower())
     return KVLayout(layout)
@@ -39,7 +39,7 @@ class DecodeState(Mapping):
     __slots__ = ("_data", "layout")
 
     def __init__(self, data: Mapping[str, Any],
-                 layout: KVLayout = KVLayout.PAGED):
+                 layout: KVLayout = KVLayout.CONTIGUOUS):
         self._data = dict(data)
         self.layout = layout
 

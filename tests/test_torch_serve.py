@@ -115,11 +115,21 @@ def test_paged_decode_step_logits_match_reference(dtype, page_size):
 
 
 def test_decode_step_rejects_contiguous_state():
+    """The contiguous layout is ported: a contiguous state without its
+    strips is rejected (no fall-through to the paged path), one built by
+    ``init_decode_state`` is served."""
+    from repro_torch.models import init_decode_state
     from repro_torch.serve.state import DecodeState, KVLayout
     cfg = get_smoke_config("qwen3_1_7b")
     st = DecodeState({}, KVLayout.CONTIGUOUS)
-    with pytest.raises(NotImplementedError, match="paged"):
-        decode_step({}, cfg, st, torch.zeros(1, 1, dtype=torch.int32), 0)
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(KeyError, match="'k'"):
+        decode_step(params, cfg, st, torch.zeros(1, 1, dtype=torch.int32), 0)
+    st = init_decode_state(cfg, 1, 8, device="cpu")
+    logits, st = decode_step(params, cfg, st,
+                             torch.zeros(1, 1, dtype=torch.int32), 0)
+    assert logits.shape == (1, 1, cfg.padded_vocab)
+    assert st["kv_pos"].tolist() == [0] + [-1] * 7
 
 
 @pytest.mark.parametrize("get_t,get_j", [(get_config, jax_config),

@@ -126,11 +126,20 @@ def test_eos_and_head_of_line_blocking_match_reference(weights):
 
 
 def test_unported_modes_and_layouts_raise(weights):
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        ServeConfig(layout="contiguous")
+    """Both layouts are ported (contiguous the default, as in the
+    reference); an unknown mode or layout name raises, and so does a
+    prompt larger than the whole page pool."""
+    from repro_torch.serve import KVLayout
+    assert ServeConfig().layout is KVLayout.CONTIGUOUS
+    assert ServeConfig(layout="paged").paged
+    with pytest.raises(ValueError, match="mode"):
+        ServeConfig(mode="speculative")
+    with pytest.raises(ValueError, match="ring"):
+        ServeConfig(layout="ring")
     _, tp = weights
     loop = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
-                     ServeConfig(page_size=4, num_pages=2), device="cpu")
+                     ServeConfig(layout="paged", page_size=4, num_pages=2),
+                     device="cpu")
     loop.submit(0, list(range(2, 14)))       # 12 tokens > 8-token pool
     with pytest.raises(RuntimeError, match="exceeds the whole page pool"):
         loop.run(max_new=2)
@@ -141,8 +150,9 @@ def test_continuous_mode_runs(weights):
     prefill chunks within the budget, and the CLI takes it."""
     _, tp = weights
     loop = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
-                     ServeConfig(mode="continuous", page_size=4,
-                                 prefill_budget=3), device="cpu")
+                     ServeConfig(layout="paged", mode="continuous",
+                                 page_size=4, prefill_budget=3),
+                     device="cpu")
     prompts = [list(range(2, 9)), list(range(20, 25))]
     for r, p in enumerate(prompts):
         loop.submit(r, p)
@@ -247,7 +257,8 @@ def test_continuous_matches_lockstep_and_sharing_off(weights):
                           ("continuous", False)):
         loop = ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
                          ServeConfig(slots=2, cache_len=64, page_size=4,
-                                     mode=mode, prefill_budget=4,
+                                     layout="paged", mode=mode,
+                                     prefill_budget=4,
                                      prefix_sharing=sharing), device="cpu")
         for r, p in enumerate(_shared_prompts()):
             loop.submit(r, p)
@@ -260,7 +271,8 @@ def _continuous_loop(weights, budget=16):
     _, tp = weights
     return ServeLoop(get_smoke_config("qwen3_1_7b"), tp,
                      ServeConfig(slots=2, cache_len=64, page_size=4,
-                                 mode="continuous", prefill_budget=budget),
+                                 layout="paged", mode="continuous",
+                                 prefill_budget=budget),
                      device="cpu")
 
 

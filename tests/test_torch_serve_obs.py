@@ -181,8 +181,8 @@ def test_latency_summary_and_span_joules(weights, scenario):
 
 def test_obs_off_is_metric_free(weights):
     _, tp = weights
-    sc = ServeConfig(slots=1, cache_len=32, page_size=8, mode="continuous",
-                     prefill_budget=8, obs=False)
+    sc = ServeConfig(slots=1, cache_len=32, page_size=8, layout="paged",
+                     mode="continuous", prefill_budget=8, obs=False)
     loop = ServeLoop(get_smoke_config("qwen3_1_7b"), tp, sc,
                      engine=DotEngine(schedule="morton"), device="cpu")
     loop.submit(0, [5, 6, 7, 8])
