@@ -46,7 +46,19 @@ just before it and read just after:
   model's B1 shapes (and B2 head widths where it serves paged) are held
   against the plain versions first; one decode step per (arch, layout)
   against the plain versions (``layout_step``), timed; each model is
-  freed before the next.
+  freed before the next;
+* training, after them (``train_phase``): qwen3-1.7b at full width and
+  depth in bf16 (random weights from seed 0, ``PackedSyntheticData``
+  seed 0 batches of 4 x 256 tokens), 4 steps of ``make_train_step``
+  under Morton, every projection's forward, dgrad and wgrad GEMM
+  through B1 (``repro_torch.kernels.grad``), and the same 4 steps under
+  ``"xla"`` from the same state; B1's backward GEMMs against the plain
+  version first; an f32 step at 2 of 28 layers against the plain
+  versions; the SMOKE config through ``launch/train.py``'s ``main``
+  with a failure injected and a resume (a qwen3-1.7b checkpoint, ~24
+  GB of f32 optimizer state, is too large to write in a smoke run);
+  then timings: ms and J per step, B1 per step by role beside
+  ``torch.matmul`` and the bound, a profile of one step per schedule.
 
 Energy is read from the card itself, through the port's
 ``NvmlBackend`` (NVML's cumulative energy counter, bound with ctypes),
@@ -83,7 +95,9 @@ restore ms, tok/s with the guards on and off), the layouts and archs
 token agreement with the paged run; ``layout_step``: logit errors,
 launches, B1 and B2 per step beside their bounds, qwen3's device busy
 time per layout; ``swa_ring``: prefill and decode ms, the ring's
-checks), every path's launches (``launches_by_path``: the serving runs,
+checks), the training path (``train``: losses, ms, tok/s, J and peak
+memory per step per schedule, B1 by role, the profiles, the gates'
+errors), every path's launches (``launches_by_path``: the serving runs,
 the observed and faulted runs, the study, its energy windows, the
 tuner and the layouts' runs), the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -180,6 +194,26 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   agreement between layouts in bf16 is printed, not gated (B2 keeps
   scores and weights in f32, the contiguous torch attention rounds
   them to bf16 as the reference does).
+* Training: B1's dgrad and wgrad at one qwen3 layer's 7 projections
+  (bf16, 1024 tokens) and the vocab head's pair (f32, K or N = 151936)
+  within B1's bf16 and f32 bounds above, two launches bit-equal.  The
+  step-0 loss within LOSS0_BOUND (1.0) of ln(vocab): random logits of
+  unit variance add ~0.5.  The loss falls over the 4 steps.  |loss
+  Morton - loss "xla"| <= TRAIN_LOSS_BOUND (0.1) at every step: the
+  two differ in f32 summation order, rounded to bf16 at every
+  activation, and Adam's first update is lr x sign(g), so an element
+  whose tiny gradient changes sign moves 2 lr the other way.  Step-0
+  gradients per leaf ||Morton - "xla"|| / ||"xla"|| <= TRAIN_GRAD_REL
+  (0.1; bf16 gradients through 28 layers).  One step repeated from the
+  same state, and remat off and "full", give loss and gradients
+  bit-equal to the first (remat "dots") run.  B1's launches exactly 22
+  L + 3 a step (29 L + 3 under "full"), none under "xla", and no torch
+  GEMM but the attention's ``bmm`` on the Morton path.  f32 at 2
+  layers: every gradient leaf within TRAIN_F32_REL (1e-3) of the plain
+  versions' largest magnitude.  Through the CLI (SMOKE): a run with a
+  failure injected ends with the clean run's loss and parameters bit
+  for bit; the resumed run ends at optimizer count 12; B1's launches
+  exact.
 """
 from __future__ import annotations
 
@@ -3142,6 +3176,555 @@ def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
 
 
 
+# ------------------------------------------------------------ training ----
+TRAIN_BATCH, TRAIN_SEQ = 4, 256   # 1024 tokens a step
+TRAIN_STEPS = 4
+TRAIN_LR = 3e-4         # Adam's first updates move every weight by ~lr
+LOSS0_BOUND = 1.0       # |step-0 loss - ln(vocab)|, see train_phase
+TRAIN_LOSS_BOUND = 0.1  # |loss morton - loss xla| at every step, bf16
+TRAIN_GRAD_REL = 0.1    # per leaf ||g morton - g xla|| / ||g xla||, bf16
+TRAIN_F32_REL = 1e-3    # per leaf max|g kernels - g plain| / max|g plain|
+TRAIN_F32_LAYERS = 2
+CLI_STEPS, CLI_FAIL_AT, CLI_RESUME_STEPS = 8, 5, 4
+
+
+def train_gemms(cfg, tokens: int):
+    """(role, name, M, K, N, operand dtype, out f32, count per step) of
+    every B1 launch of one train step (remat "dots" or none): each
+    projection forward, its dgrad (dz @ w^T) and wgrad (x^T @ dz), w1's
+    pre-activation recomputed (f32 out) for silu's derivative, the
+    vocab head's forward (bf16, f32 out) and its dgrad and wgrad in f32
+    (dLogits is f32).  The counts sum to 22 L + 3."""
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    t, d, v = tokens, cfg.d_model, cfg.padded_vocab
+    hd, kvd, n_l = (cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head,
+                    cfg.n_layers)
+    rows = []
+    for name, k, n, c in (("wq", d, hd, n_l), ("wk|wv", d, kvd, 2 * n_l),
+                          ("wo", hd, d, n_l), ("w1", d, cfg.d_ff, n_l),
+                          ("w3", d, cfg.d_ff, n_l), ("w2", cfg.d_ff, d, n_l)):
+        rows += [("fwd", name, t, k, n, bf, False, c),
+                 ("dgrad", name, t, n, k, bf, False, c),
+                 ("wgrad", name, k, t, n, bf, False, c)]
+        if name == "w1":
+            rows.append(("recompute", name, t, k, n, bf, True, c))
+    rows += [("fwd", "head", t, d, v, bf, True, 1),
+             ("dgrad", "head", t, v, d, f32, False, 1),
+             ("wgrad", "head", d, t, v, f32, False, 1)]
+    return rows
+
+
+def train_launches_per_step(cfg, remat_full: bool = False) -> int:
+    """B1 launches of one train step: 7 forward, 7 dgrad, 7 wgrad and
+    one recompute a layer, and the head's three; a "full" remat
+    recomputes the layer's 7 forward GEMMs in the backward too."""
+    n_l = cfg.n_layers
+    return 22 * n_l + 3 + (7 * n_l if remat_full else 0)
+
+
+def check_train_gemms(cfg) -> float:
+    """Train phase (a): B1's backward GEMMs at the train step's shapes
+    against the plain version (B1's bf16 and f32 bounds) and two
+    launches bit-equal: one layer's 7 projections' dgrad and wgrad in
+    bf16 at TRAIN_BATCH x TRAIN_SEQ tokens, the vocab head's pair in
+    f32."""
+    import torch
+
+    rep = Report()
+    gen = torch.Generator(device="cuda").manual_seed(2323)
+    t = TRAIN_BATCH * TRAIN_SEQ
+    err = 0.0
+    print(f"[train] (a) B1's dgrad and wgrad GEMMs against the plain "
+          f"version, {t} tokens")
+    for role, name, m, k, n, dtype, out_f32, _ in train_gemms(cfg, t):
+        if role not in ("dgrad", "wgrad"):
+            continue
+        label = f"{role} {name}"
+        err = max(err, b1_check(rep, gen, label, m, k, n, dtype, "none",
+                                out_f32))
+        b1_same_twice(rep, gen, label, m, k, n, dtype, "none", out_f32)
+    rep.raise_if_failed("train (a) backward GEMMs")
+    return err
+
+
+def train_batches(cfg, n: int, seed: int = 0):
+    from repro_torch.data import PackedSyntheticData
+    from repro_torch.data.pipeline import batch_to_device
+    from repro_torch.models.config import ShapeSpec
+
+    data = PackedSyntheticData(cfg, ShapeSpec(
+        "chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+        seed=seed)
+    return [batch_to_device(data.batch(i), "cuda") for i in range(n)]
+
+
+def train_params(cfg):
+    """Parameters from seed 0 on the card."""
+    import torch
+
+    from repro_torch.models import init_model
+
+    return init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+
+
+def _grad_errors(got, want) -> tuple[float, float]:
+    """(largest per-leaf ||got - want|| / ||want||, largest per-leaf
+    max|got - want| / max|want|), in f32."""
+    import torch
+
+    norm_rel = max_rel = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        nb = float(torch.linalg.vector_norm(b))
+        dn = float(torch.linalg.vector_norm(a - b)) / max(nb, 1e-30)
+        dm = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        norm_rel, max_rel = max(norm_rel, dn), max(max_rel, dm)
+    return norm_rel, max_rel
+
+
+def train_grads_checks(cfg, params, batch) -> dict:
+    """Train phase (b), before any step: one step's loss and gradients
+    from the initial state, Morton, computed again (bit-equal), with
+    remat off and "full" (bit-equal to "dots", the config's default),
+    each with its exact B1 launches; and the same gradients under
+    "xla", held to Morton's per leaf within TRAIN_GRAD_REL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.models import DotEngine
+    from repro_torch.optim.adamw import tree_leaves
+
+    morton, xla = DotEngine(schedule="morton"), DotEngine(schedule="xla")
+    fails = []
+    wall = {}
+
+    def timed(label, c, eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grads_of(c, params, batch, eng)
+        torch.cuda.synchronize()
+        wall[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    _zero_launches()
+    loss, _, g = timed("dots", cfg, morton)
+    ref = tree_leaves(g)
+    want = train_launches_per_step(cfg)
+    runs = {"dots": _kernel_launches()["B1"]}
+    if runs["dots"] != want:
+        fails.append(f"dots launches {runs['dots']} != {want}")
+    for label, c, n_want in (
+            ("again", cfg, want),
+            ("none", dataclasses.replace(cfg, remat=False), want),
+            ("full", dataclasses.replace(cfg, remat_policy="full"),
+             train_launches_per_step(cfg, remat_full=True))):
+        _zero_launches()
+        l2, _, g2 = timed(label, c, morton)
+        runs[label] = _kernel_launches()["B1"]
+        same = torch.equal(l2, loss) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(g2), ref))
+        print(f"  {'ok  ' if same else 'FAIL'} remat {label}: loss and "
+              f"{len(ref)} gradient leaves bit-equal to the first "
+              f"(remat dots) run; {runs[label]} B1 launches (want "
+              f"{n_want}); forward and backward {wall[label]:.1f} ms wall "
+              f"(dots {wall['dots']:.1f})")
+        if not same:
+            fails.append(f"remat {label} not bit-equal")
+        if runs[label] != n_want:
+            fails.append(f"remat {label} launches {runs[label]} != {n_want}")
+        del g2
+    _zero_launches()
+    lx, _, gx = timed("xla", cfg, xla)
+    xla_launches = _kernel_launches()["B1"]
+    norm_rel, max_rel = _grad_errors(ref, tree_leaves(gx))
+    ok = norm_rel <= TRAIN_GRAD_REL and xla_launches == 0
+    print(f"  {'ok  ' if ok else 'FAIL'} step-0 gradients, morton against "
+          f"xla: largest per-leaf ||diff|| / ||xla|| {norm_rel:.3e} (bound "
+          f"{TRAIN_GRAD_REL:g}), largest per-leaf max|diff| / max|xla| "
+          f"{max_rel:.3e}; loss {float(loss):.6f} against "
+          f"{float(lx):.6f}; xla made {xla_launches} B1 launches")
+    if not ok:
+        fails.append("morton against xla gradients")
+    if fails:
+        raise SystemExit(f"chip_smoke: train (b) gradient checks failed: "
+                         f"{fails}")
+    return {"launches": runs, "wall_ms": wall, "grad_rel_norm": norm_rel,
+            "grad_rel_max": max_rel, "loss0_morton": float(loss),
+            "loss0_xla": float(lx)}
+
+
+def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
+                       smi: str, schedule: str) -> dict:
+    """Train phase (e): one step under torch.profiler: device busy and
+    idle share (of the traced wall time and of the untraced step,
+    ``step_ms``), the kernels by device time, B1's device time by kernel
+    name and by role (the ``sfc_matmul.fwd``/``.recompute``/``.dgrad``/
+    ``.wgrad`` ranges of ``repro_torch.kernels.grad``, which the trace
+    also carries on the device), and the GEMM ops torch ran: on the
+    Morton path the attention's ``bmm`` only (no library GEMM)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = b1 = 0.0
+    roles, ops_count, kernels, host = {}, {}, {}, {}
+    host_calls = 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA") and \
+                e.key.startswith("aten::"):
+            host[e.key] = float(e.self_cpu_time_total) / 1e3
+            host_calls += e.count
+        if str(e.device_type).endswith("CUDA"):
+            ms = float(e.self_device_time_total) / 1e3
+            if e.key.startswith("sfc_matmul."):     # a range, not a kernel
+                roles[e.key[len("sfc_matmul."):]] = ms
+                continue
+            busy += ms
+            if "sfc_matmul" in e.key:
+                b1 += ms
+            name = e.key.replace("(anonymous namespace)::", "")[:60]
+            kernels[name] = kernels.get(name, 0.0) + ms
+        elif e.key in ("aten::mm", "aten::addmm", "aten::bmm",
+                       "aten::matmul", "aten::linear", "aten::_scaled_mm"):
+            ops_count[e.key] = e.count
+    print(f"[train] (e) profile of one {schedule} step ({smi}): {wall:.1f} "
+          f"ms traced ({step_ms:.1f} untraced), device busy {busy:.1f} ms "
+          f"(idle share {1 - busy / wall:.1%} of the traced wall, "
+          f"{1 - busy / step_ms:.1%} of the untraced step); B1 kernels "
+          f"{b1:.1f} ms; B1 by role "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in roles.items())
+          + f"; torch GEMM ops {ops_count}")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.3f} ms  {ms / busy:6.1%}  {name}")
+    host_ms = sum(host.values())
+    print(f"[train] (e) host, traced: {host_calls} aten calls, their self "
+          f"CPU time {host_ms:.1f} ms; the rest of the {wall:.1f} ms is "
+          f"Python, autograd and the ctypes launches")
+    for name, ms in sorted(host.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {ms:9.3f} ms  {name[:60]}")
+    library = {k: v for k, v in ops_count.items() if k != "aten::bmm"}
+    if schedule == "morton" and library:
+        raise SystemExit(f"chip_smoke: library GEMMs on the Morton train "
+                         f"path: {library}")
+    return {"traced_ms": wall, "busy_ms": busy,
+            "idle_share_traced": 1 - busy / wall,
+            "idle_share": max(0.0, 1 - busy / step_ms), "b1_ms": b1,
+            "host_aten_calls": host_calls, "host_aten_self_ms": host_ms,
+            "b1_by_role_ms": roles, "torch_gemm_ops": ops_count,
+            "top_kernels_ms": dict(sorted(kernels.items(),
+                                          key=lambda kv: -kv[1])[:10])}
+
+
+def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
+    """Train phase (b)/(e): TRAIN_STEPS steps of ``make_train_step`` from
+    the seed-0 state under ``schedule``: each step's loss, ms (CUDA
+    events) and B1 launches; joules over the steps after the first
+    (NVML, windows aligned to the counter's updates); peak memory;
+    then one more step under the profiler."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import DotEngine
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.power import NvmlBackend
+
+    params = train_params(cfg)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, None, AdamWConfig(
+        peak_lr=TRAIN_LR, warmup=1, total_steps=TRAIN_STEPS),
+        engine=DotEngine(schedule=schedule))
+    nvml = NvmlBackend()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches, joules = [], [], [], None
+    t_steady = time.perf_counter()
+    for i, batch in enumerate(batches):
+        if i == 1:
+            wait_tick(nvml)
+            e0 = nvml._energy_mj(nvml._handles[0])
+            t_steady = time.perf_counter()
+        _zero_launches()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        params, opt, met = step(params, opt, batch)
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+        launches.append(_kernel_launches()["B1"])
+        losses.append(float(met["loss"]))
+    wait_tick(nvml)
+    joules = (nvml._energy_mj(nvml._handles[0]) - e0) * 1e-3 / \
+        (len(batches) - 1)
+    nvml.close()
+    steady_s = (time.perf_counter() - t_steady) / (len(batches) - 1)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mean_ms = sum(ms[1:]) / len(ms[1:])
+    rec = {"schedule": schedule, "losses": losses, "ms": ms,
+           "ms_per_step": mean_ms, "tok_per_s": tokens / mean_ms * 1e3,
+           "launches": launches, "j_per_step": joules,
+           "watts": joules / steady_s, "peak_gb": peak / 1e9}
+    print(f"[train] (b) qwen3-1.7b {schedule}: losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; ms per step " + ", ".join(f"{x:.1f}" for x in ms)
+          + f" (steady {mean_ms:.1f} ms, {rec['tok_per_s']:.0f} tok/s); B1 "
+          f"launches {launches}; {joules:.1f} J/step ({rec['watts']:.0f} W, "
+          f"NVML); peak memory {peak / 1e9:.2f} GB ({smi})")
+    extra = train_batches(cfg, TRAIN_STEPS + 1)[-1]
+    rec["profile"] = profile_train_step(cfg, step, params, opt, extra,
+                                        mean_ms, smi, schedule)
+    del params, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_train_gemms(cfg, n_params: int, smi: str) -> dict:
+    """Train phase (e): B1 per launch at every train-step GEMM shape (L2
+    flushed, CUDA events) beside ``torch.matmul`` on the same operands
+    and the bound, summed over one step by role; and the step's bound
+    (bytes of the GEMMs' operands and outputs and of AdamW's state,
+    against the time of the GEMMs' operations at the bf16 tensor-core
+    and the f32 rates)."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda
+
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    by_role: dict[str, dict] = {}
+    rows = []
+    gemm_bytes = ops_s = 0.0
+    for role, name, m, k, n, dtype, out_f32, count in train_gemms(cfg,
+                                                                  tokens):
+        a, b, _ = _gemm_inputs(m, k, n, dtype, gen, "none")
+        out_dtype = torch.float32 if out_f32 else None
+        ms = _time_ms(lambda: sfc_matmul_cuda(a, b, out_dtype=out_dtype), 5,
+                      flush)
+        lib = _time_ms(lambda: torch.matmul(a, b), 5, flush)
+        size = a.element_size()
+        out_size = 4 if out_f32 else size
+        nbytes = (m * k + k * n) * size + m * n * out_size
+        flop = 2.0 * m * n * k
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else F32_FLOPS_PER_S
+        bound = max(nbytes / HBM_BYTES_PER_S, flop / peak) * 1e3
+        rows.append({"role": role, "name": name, "m": m, "k": k, "n": n,
+                     "dtype": str(dtype)[6:], "count": count, "ms": ms,
+                     "library_ms": lib, "bound_ms": bound,
+                     "tflops": flop / ms / 1e9})
+        r = by_role.setdefault(role, {"ms": 0.0, "library_ms": 0.0,
+                                      "bound_ms": 0.0, "flop": 0.0,
+                                      "launches": 0})
+        r["ms"] += count * ms
+        r["library_ms"] += count * lib
+        r["bound_ms"] += count * bound
+        r["flop"] += count * flop
+        r["launches"] += count
+        gemm_bytes += count * nbytes
+        ops_s += count * flop / peak
+        del a, b
+    tot = {key: sum(r[key] for r in by_role.values())
+           for key in ("ms", "library_ms", "bound_ms", "flop", "launches")}
+    adam_bytes = 30.0 * n_params   # bf16 p r/w, grad r, f32 master/m/v r/w
+    step_bytes = gemm_bytes + adam_bytes
+    step_bound = max(step_bytes / HBM_BYTES_PER_S, ops_s) * 1e3
+    print(f"[train] (e) B1 per train step at its shapes, by role ({smi}):")
+    for role, r in by_role.items():
+        print(f"  {role:9s} {r['launches']:4d} launches: B1 {r['ms']:.1f} ms "
+              f"({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s), torch.matmul "
+              f"{r['library_ms']:.1f} ms, bound {r['bound_ms']:.2f} ms")
+    print(f"  total     {tot['launches']:4d} launches: B1 {tot['ms']:.1f} ms, "
+          f"torch.matmul {tot['library_ms']:.1f} ms "
+          f"({tot['ms'] / tot['library_ms']:.1f}x), GEMM bound "
+          f"{tot['bound_ms']:.2f} ms; "
+          f"step bound {step_bound:.2f} ms (operations {ops_s * 1e3:.2f} ms, "
+          f"bytes {step_bytes / 1e9:.1f} GB = "
+          f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms, AdamW "
+          f"{adam_bytes / 1e9:.1f} GB of it)")
+    return {"per_shape": rows, "by_role": by_role, "total": tot,
+            "step_bound_ms": step_bound, "step_ops_ms": ops_s * 1e3,
+            "step_bytes": step_bytes, "card": smi}
+
+
+def train_f32_check(cfg) -> dict:
+    """Train phase (c): one step's gradients in f32 at full width and
+    TRAIN_F32_LAYERS layers, Morton against the same step through the
+    plain versions on the card: every leaf within TRAIN_F32_REL of the
+    plain gradients' largest magnitude."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.models import DotEngine
+    from repro_torch.optim.adamw import tree_leaves
+
+    c32 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                              param_dtype="float32", act_dtype="float32")
+    params = train_params(c32)
+    batch = train_batches(c32, 1)[0]
+    eng = DotEngine(schedule="morton")
+    lk, _, gk = grads_of(c32, params, batch, eng)
+    with plain_versions():
+        lp, _, gp = grads_of(c32, params, batch, eng)
+    torch.cuda.synchronize()
+    norm_rel, max_rel = _grad_errors(tree_leaves(gk), tree_leaves(gp))
+    ok = max_rel <= TRAIN_F32_REL
+    print(f"[train] (c) f32, full width, {TRAIN_F32_LAYERS} layers: "
+          f"{'ok' if ok else 'FAIL'}: gradients Morton against the plain "
+          f"versions, largest per-leaf max|diff| / max|plain| {max_rel:.3e} "
+          f"(bound {TRAIN_F32_REL:g}), ||diff|| / ||plain|| {norm_rel:.3e}; "
+          f"loss {float(lk):.7f} against {float(lp):.7f}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("chip_smoke: train (c) f32 gradients off the plain "
+                         "versions")
+    return {"grad_rel_max": max_rel, "grad_rel_norm": norm_rel,
+            "loss_kernels": float(lk), "loss_plain": float(lp)}
+
+
+def train_cli_phase() -> dict:
+    """Train phase (d): the SMOKE config through ``launch/train.py``'s
+    ``main`` on the card: a clean run, a run with a failure injected at
+    CLI_FAIL_AT and a checkpoint every step (the final loss and every
+    parameter bit-equal to the clean run's), then a second invocation
+    on the same directory that resumes from its last checkpoint; B1's
+    launches exact (the failed attempt makes none).  The cut: a
+    qwen3-1.7b checkpoint (f32 master, m and v, ~24 GB) is too large to
+    write in a smoke run."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim.adamw import tree_leaves
+
+    common = ["--arch", "qwen3_1_7b", "--smoke", "--batch", "4", "--seq",
+              "32", "--log-every", "4", "--power-backend", "model",
+              "--no-obs"]
+    _zero_launches()
+    clean = train_main(common + ["--steps", str(CLI_STEPS)])
+    with tempfile.TemporaryDirectory() as d:
+        ck = ["--ckpt-dir", d, "--ckpt-every", "1"]
+        failed = train_main(common + ["--steps", str(CLI_STEPS),
+                                      "--inject-failure-at",
+                                      str(CLI_FAIL_AT)] + ck)
+        resumed = train_main(common + ["--steps", str(CLI_RESUME_STEPS)]
+                             + ck)
+    torch.cuda.synchronize()
+    launches = _kernel_launches()["B1"]
+    per_step = train_launches_per_step(get_smoke_config("qwen3_1_7b"))
+    want = (2 * CLI_STEPS + CLI_RESUME_STEPS) * per_step
+    same = clean["last_loss"] == failed["last_loss"] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(clean["params"]),
+                                          tree_leaves(failed["params"])))
+    count = int(resumed["opt"]["count"])
+    ok = same and count == CLI_STEPS + CLI_RESUME_STEPS and \
+        launches == want and resumed["last_loss"] is not None
+    print(f"[train] (d) SMOKE through launch/train.py: "
+          f"{'ok' if ok else 'FAIL'}: clean loss {clean['last_loss']!r}, "
+          f"with a failure at step {CLI_FAIL_AT} {failed['last_loss']!r} "
+          f"({'bit-equal, every parameter too' if same else 'DIFFERENT'}); "
+          f"resumed run ends at optimizer count {count} (want "
+          f"{CLI_STEPS + CLI_RESUME_STEPS}), loss {resumed['last_loss']!r}; "
+          f"B1 launches {launches} (want {want})")
+    if not ok:
+        raise SystemExit("chip_smoke: train (d) retry and resume failed")
+    return {"clean_loss": clean["last_loss"],
+            "failed_loss": failed["last_loss"],
+            "resumed_loss": resumed["last_loss"], "resumed_count": count,
+            "launches": launches}
+
+
+def train_phase(smi: str) -> tuple[dict, dict]:
+    """The training path: qwen3-1.7b at full width and depth in bf16,
+    random weights from seed 0, PackedSyntheticData seed 0 batches of
+    TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS steps of
+    ``make_train_step`` under Morton (every GEMM's forward, dgrad and
+    wgrad through B1) and the same steps under "xla" from the same
+    state.  Gates: (a) B1's backward GEMMs against the plain version;
+    (b) the step-0 loss within LOSS0_BOUND of ln(vocab) (unit-variance
+    random logits add ~0.5), the loss falling, |loss morton - loss xla|
+    <= TRAIN_LOSS_BOUND at every step (bf16 roundings; Adam's first
+    update is sign(g), so elements whose tiny gradients differ in sign
+    move apart by 2 lr), the step-0 gradients within TRAIN_GRAD_REL,
+    one step repeated and remat off / "full" bit-equal, B1's launches
+    per step exact; (c) f32 gradients against the plain versions; (d)
+    retry and resume through the CLI; (e) timings.  Returns the
+    ``train`` line's object and the path's launches."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    import repro_torch.kernels.grad as grad_mod
+
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3_1_7b")
+    gemm_err = check_train_gemms(cfg)
+    batches = train_batches(cfg, TRAIN_STEPS)
+    params = train_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[train] (b) {cfg.name} full width, {cfg.n_layers} layers, bf16,"
+          f" seed 0; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens; B1 launches per step {train_launches_per_step(cfg)} = "
+          f"22 L + 3")
+    grads = train_grads_checks(cfg, params, batches[0])
+    del params
+    torch.cuda.empty_cache()
+    grad_mod.transpose_bytes = 0
+    morton = run_train_steps(cfg, "morton", batches, smi)
+    t_bytes = grad_mod.transpose_bytes / (TRAIN_STEPS + 1)
+    xla = run_train_steps(cfg, "xla", batches, smi)
+    fails = []
+    ln_v = math.log(cfg.vocab)
+    if abs(morton["losses"][0] - ln_v) > LOSS0_BOUND:
+        fails.append(f"step-0 loss {morton['losses'][0]} not near {ln_v}")
+    if not morton["losses"][-1] < morton["losses"][0]:
+        fails.append(f"loss did not fall: {morton['losses']}")
+    dl = [abs(a - b) for a, b in zip(morton["losses"], xla["losses"])]
+    if max(dl) > TRAIN_LOSS_BOUND:
+        fails.append(f"|loss morton - xla| {dl}")
+    want = train_launches_per_step(cfg)
+    if any(n != want for n in morton["launches"]) or any(xla["launches"]):
+        fails.append(f"launches morton {morton['launches']}, xla "
+                     f"{xla['launches']}")
+    print(f"[train] (b) gates: step-0 loss {morton['losses'][0]:.4f} against"
+          f" ln(vocab) {ln_v:.4f} (bound {LOSS0_BOUND}); |loss morton - "
+          f"xla| per step " + ", ".join(f"{x:.2e}" for x in dl)
+          + f" (bound {TRAIN_LOSS_BOUND}); transposed operand copies "
+          f"{t_bytes / 1e9:.3f} GB a step; "
+          f"{'ok' if not fails else 'FAIL ' + str(fails)}")
+    if fails:
+        raise SystemExit(f"chip_smoke: train (b) failed: {fails}")
+    f32 = train_f32_check(cfg)
+    cli = train_cli_phase()
+    timing = time_train_gemms(cfg, n_params, smi)
+    rec = {"gemm_max_abs_err": gemm_err, "grads": grads, "morton": morton,
+           "xla": xla, "launches_per_step": want,
+           "transpose_gb_per_step": t_bytes / 1e9, "f32": f32, "cli": cli,
+           "b1": timing, "card": smi}
+    return rec, {"B1": sum(morton["launches"])}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3222,6 +3805,7 @@ def main() -> int:
     tuner, tuner_launches = tuner_phase(cfg, smi)
     serve_layouts, layout_steps, ring, layout_launches = layouts_phase(
         sv, cv, prof_paged, smi)
+    train, train_launches = train_phase(smi)
     # every path's launches, each read just after its own zeroing: the
     # three serving runs, the observed and the faulted runs (summed over
     # each phase's runs), the study, the study's energy windows and the
@@ -3232,7 +3816,7 @@ def main() -> int:
                "shared": shared["launches"], "obs": obs_launches,
                "faults": fault_launches, "study": study,
                "study_energy": {"B3": energy_b3}, "tuner": tuner_launches,
-               **layout_launches}
+               **layout_launches, "train": train_launches}
     launches = {**cv["launches"], "B3": study["B3"], "B4": study["B4"]}
     print(f"[launches] by path: {json.dumps(by_path)}; main path "
           f"{launches}")
@@ -3271,6 +3855,7 @@ def main() -> int:
     print(json.dumps({"serve_layouts": serve_layouts, "card": smi}))
     print(json.dumps({"layout_step": layout_steps, "card": smi}))
     print(json.dumps({"swa_ring": ring}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi)

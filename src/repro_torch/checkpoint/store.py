@@ -1,7 +1,7 @@
 """Integrity-checked checkpoints on disk (port of
 ``repro.checkpoint.store``: ``save_checkpoint``, ``load_checkpoint``,
-``latest_step``; the asynchronous writer comes with the training port
-and the resharding restore with the distributed one).
+``latest_step`` and the asynchronous ``AsyncCheckpointer``; the
+resharding restore comes with the distributed slice).
 
 Layout, the reference's byte for byte:  <root>/step_<N>/
             manifest.json     {step, meta, leaves: {key: shape, dtype, crc32}}
@@ -24,14 +24,16 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
+import threading
 import zlib
 
 import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
-           "CheckpointCorruptionError"]
+           "AsyncCheckpointer", "CheckpointCorruptionError"]
 
 _SEP = "__"
 
@@ -176,3 +178,67 @@ def load_checkpoint(root: str, step: int, like_tree) -> tuple:
         raise CheckpointCorruptionError(
             f"checkpoint missing leaves: {sorted(missing)[:5]}")
     return _unflatten(like_tree, leaves), manifest["meta"]
+
+
+def _host_copy(tree):
+    """A host copy of every leaf, taken now: tensors to new CPU tensors
+    (one device-to-host copy per leaf, a copy on the CPU too), numpy
+    arrays copied."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if tree is None:
+        return None
+    return np.array(tree, copy=True)
+
+
+class AsyncCheckpointer:
+    """Copy to the host, then write from a worker thread.
+
+    :meth:`save` copies the tree to the host before it returns, so the
+    training step that follows may update the parameters and the
+    optimizer state in place (``repro_torch.optim.adamw_update`` does)
+    while the worker writes the copy.  A write error is raised by the
+    next :meth:`save`, :meth:`wait` or :meth:`close`."""
+
+    def __init__(self, root: str, keep: int = 3):
+        self.root = root
+        self.keep = keep
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._err: Exception | None = None
+        self._t = threading.Thread(target=self._worker, daemon=True)
+        self._t.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            step, host_tree, meta = item
+            try:
+                save_checkpoint(self.root, step, host_tree, keep=self.keep,
+                                meta=meta)
+            except Exception as e:  # noqa: BLE001 -- raised on the caller
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def save(self, step: int, tree, meta: dict | None = None):
+        if self._err:
+            raise self._err
+        self._q.put((step, _host_copy(tree), meta))
+
+    def wait(self):
+        self._q.join()
+        if self._err:
+            raise self._err
+
+    def close(self):
+        self._q.put(None)
+        self._t.join(timeout=30)
+        if self._err:
+            raise self._err

@@ -15,7 +15,8 @@ import math
 
 import torch
 
-__all__ = ["ACTIVATIONS", "apply_activation", "apply_epilogue_ref",
+__all__ = ["ACTIVATIONS", "apply_activation", "activation_grad",
+           "apply_epilogue_ref",
            "matmul_ref", "matmul_batched_ref", "matmul_fused_ref",
            "matmul_batched_fused_ref", "matmul_blocked_ref",
            "paged_decode_attention_ref", "attn_live_pages",
@@ -39,6 +40,26 @@ def apply_activation(x: torch.Tensor, activation: str) -> torch.Tensor:
             _SQRT_2_OVER_PI * (x + 0.044715 * (x ** 3)))))
     if activation == "silu":
         return x * torch.sigmoid(x)
+    raise ValueError(
+        f"unknown activation {activation!r}; choose from {ACTIVATIONS}")
+
+
+def activation_grad(z: torch.Tensor, activation: str) -> torch.Tensor:
+    """d activation(z) / dz, elementwise in z's dtype (f32 in the
+    gradient of the fused GEMM): relu's is 1 where z >= 0 (torch's
+    ``clamp_min`` rule), silu's s (1 + z (1 - s)) with s = sigmoid(z),
+    gelu's that of the tanh approximation above."""
+    if activation == "none":
+        return torch.ones_like(z)
+    if activation == "relu":
+        return (z >= 0).to(z.dtype)
+    if activation == "silu":
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
+    if activation == "gelu":
+        t = torch.tanh(_SQRT_2_OVER_PI * (z + 0.044715 * (z ** 3)))
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * (
+            _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * (z * z)))
     raise ValueError(
         f"unknown activation {activation!r}; choose from {ACTIVATIONS}")
 

@@ -106,6 +106,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import _engine_for
 from repro_torch.models import DotEngine, decode_step, \
     fused_epilogue_savings_bytes, init_decode_state, init_model, \
     prefill_kv_chunk
@@ -128,24 +129,6 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
-
-
-def _engine_for(engine: DotEngine | None,
-                objective: str | None) -> DotEngine:
-    """The loop's GEMM engine: without an objective the explicit engine
-    or the Morton default; with one, the tuner-routed engine under that
-    metric (an explicit engine is re-stamped with it)."""
-    if objective is None:
-        return engine or DotEngine()
-    from repro_torch.tune.objective import OBJECTIVES
-    if objective not in OBJECTIVES:
-        raise ValueError(
-            f"unknown objective {objective!r}; choose from {OBJECTIVES}")
-    if engine is None:
-        return DotEngine(schedule="auto", objective=objective)
-    if engine.objective != objective:
-        return dataclasses.replace(engine, objective=objective)
-    return engine
 
 
 class ServeLoop:

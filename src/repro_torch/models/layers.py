@@ -41,7 +41,12 @@ class DotEngine:
         """x: (..., d_in) @ w: (d_in, d_out) -> (..., d_out), with the
         fused epilogue ``act(x @ w + bias) + residual`` and one cast to
         ``out_dtype``.  Every schedule, "xla" included, goes through
-        :func:`repro_torch.kernels.ops.sfc_matmul`."""
+        :func:`repro_torch.kernels.ops.sfc_matmul`; when grad is enabled
+        and an operand requires it, through its autograd ``Function``
+        (:func:`repro_torch.kernels.grad.sfc_matmul_grad`), whose
+        backward runs the dgrad and wgrad GEMMs the same way."""
+        from repro_torch.kernels.grad import GemmOpts, needs_grad, \
+            sfc_matmul_grad
         from repro_torch.kernels.ops import sfc_matmul
 
         lead = x.shape[:-1]
@@ -49,10 +54,18 @@ class DotEngine:
         res2 = residual.reshape(-1, w.shape[-1]) \
             if residual is not None else None
         bm, bn, bk = self.block
-        out = sfc_matmul(x2, w, schedule=self.schedule, bm=bm, bn=bn, bk=bk,
-                         use_prefetch=self.use_prefetch, out_dtype=out_dtype,
-                         objective=self.objective, bias=bias,
-                         activation=activation, residual=res2)
+        if needs_grad(x, w, bias, residual):
+            out = sfc_matmul_grad(
+                x2, w, bias=bias, activation=activation, residual=res2,
+                out_dtype=out_dtype,
+                opts=GemmOpts(self.schedule, bm, bn, bk, self.use_prefetch,
+                              self.objective))
+        else:
+            out = sfc_matmul(x2, w, schedule=self.schedule, bm=bm, bn=bn,
+                             bk=bk, use_prefetch=self.use_prefetch,
+                             out_dtype=out_dtype, objective=self.objective,
+                             bias=bias, activation=activation,
+                             residual=res2)
         return out.reshape(*lead, w.shape[-1])
 
     def dot_batched(self, x, w, *, bias=None, activation: str = "none",
@@ -60,8 +73,15 @@ class DotEngine:
         """Per-batch-element GEMM: x (..., M, K) @ w (..., K, N), through
         :func:`repro_torch.kernels.ops.sfc_matmul_batched` under the same
         schedule and the same fused epilogue as :meth:`dot` ("xla"
-        included)."""
+        included).  It has no backward yet: an operand that requires
+        grad under grad mode raises."""
+        from repro_torch.kernels.grad import needs_grad
         from repro_torch.kernels.ops import sfc_matmul_batched
+
+        if needs_grad(x, w, bias, residual):
+            raise NotImplementedError(
+                "dot_batched has no backward; no ported training path "
+                "runs a batched GEMM")
 
         bm, bn, bk = self.block
         return sfc_matmul_batched(

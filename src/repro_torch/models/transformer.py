@@ -5,8 +5,11 @@ prefill and the decode step, each into the paged pool or into the
 contiguous per-slot strips (a ring of one window under SWA).
 Per-layer parameters are stacked on a leading ``n_layers`` axis as in
 the reference; a Python loop over that axis takes the place of
-``lax.scan``.  The full-sequence forward and the loss wait for later
-slices (ROADMAP.md).
+``lax.scan``.  The full-sequence :func:`forward` and :func:`loss_fn`
+train the dense family through autograd: every projection is B1's
+autograd ``Function`` (``repro_torch.kernels.grad``), the stacked
+parameters are unbound once per forward, and ``cfg.remat`` selects a
+per-layer checkpoint (``"full"``) or the GEMM-output-keeping ``"dots"``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -23,7 +27,8 @@ from .config import ArchConfig
 from .layers import DotEngine, init_linear, init_rms, init_swiglu, rms_norm, \
     rope, swiglu_mlp
 
-__all__ = ["init_model", "init_decode_state", "decode_step", "prefill_kv",
+__all__ = ["init_model", "forward", "embed_inputs", "loss_fn",
+           "init_decode_state", "decode_step", "prefill_kv",
            "prefill_kv_chunk", "fused_epilogue_savings_bytes"]
 
 
@@ -133,6 +138,127 @@ def _layer(tree, i: int):
     """Layer ``i``'s slice of the stacked per-layer parameter tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unbind_layers(tree, n: int) -> list[dict]:
+    """The stacked per-layer tree as ``n`` per-layer trees, each leaf
+    unbound once: under autograd the backward then stacks each leaf's
+    gradients in one pass, where indexing layer by layer (``_layer``)
+    would materialise a zero tensor of the whole stack for every
+    layer."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind_layers(v, n) if isinstance(v, dict) \
+            else torch.unbind(v, 0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def _layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
+    """One layer of the full-sequence forward -> (x, aux).  Dense: the
+    residual adds ride the out-projection's and the down-projection's
+    fused epilogues, as in the reference."""
+    if cfg.family not in ("dense", "encoder", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A, "
+            f"A11)")
+    x = attn_mod.attention(rms_norm(x, lp["norm1"]), lp["attn"], cfg,
+                           engine, cos, sin, q_chunk=cfg.attn_q_chunk,
+                           residual=x)
+    x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine, residual=x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _remat_layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
+    """:func:`_layer_fwd` under a per-layer checkpoint (non-reentrant).
+    ``"full"`` keeps only the layer's input and recomputes the layer in
+    the backward, GEMMs included; ``"dots"`` keeps the layer's GEMM
+    outputs too (:class:`~repro_torch.kernels.grad.DotCache`) and
+    recomputes only the elementwise chains between them (norms, rope,
+    attention, the gate product).  Neither changes a value."""
+    from repro_torch.kernels.grad import DotCache
+
+    if cfg.remat_policy == "dots":
+        context_fn = DotCache().contexts
+    elif cfg.remat_policy == "full":
+        context_fn = torch.utils.checkpoint.noop_context_fn
+    else:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"choose 'dots' or 'full'")
+    return torch.utils.checkpoint.checkpoint(
+        _layer_fwd, x, lp, cfg, engine, cos, sin, use_reentrant=False,
+        context_fn=context_fn, preserve_rng_state=False)
+
+
+def embed_inputs(params, cfg: ArchConfig, batch, engine: DotEngine):
+    """tokens -> (B, S, d) activations in the activation dtype.  The
+    modality frontends (the encoder's features, the vlm's vision
+    embeddings) come with their families (ROADMAP.md queue A, A11).
+    The gather is ``F.embedding``, whose backward sums the rows of
+    repeated tokens without atomics."""
+    if cfg.family == "encoder" or (cfg.family == "vlm"
+                                   and "vision_embeds" in batch):
+        raise NotImplementedError(
+            f"the {cfg.family!r} frontend is not ported yet (ROADMAP.md "
+            f"queue A, A11)")
+    return F.embedding(batch["tokens"].long(), params["embed"]).to(
+        cfg.act_torch_dtype())
+
+
+def forward(params, cfg: ArchConfig, batch, engine: DotEngine | None = None):
+    """Full-sequence forward -> (logits (B, S, padded_vocab) f32, aux).
+
+    Rope over ``arange(S)``, the layer loop (each layer checkpointed
+    when ``cfg.remat`` and grad mode are on), ``final_norm``, and the
+    vocab head with its f32 output fused into the GEMM; padded vocab
+    columns are masked to -1e30.  ``aux`` is the mean of the layers'
+    auxiliary losses (0 for the dense family)."""
+    engine = engine or DotEngine()
+    x = embed_inputs(params, cfg, batch, engine)
+    s = x.shape[1]
+    if cfg.has_attention and cfg.rope:
+        cos, sin = rope(torch.arange(s, device=x.device), cfg.d_head,
+                        cfg.rope_theta)
+    else:
+        cos = sin = None
+    layer = _remat_layer_fwd if cfg.remat and torch.is_grad_enabled() \
+        else _layer_fwd
+    auxs = []
+    for lp in _unbind_layers(params["layers"], cfg.n_layers):
+        x, aux = layer(x, lp, cfg, engine, cos, sin)
+        auxs.append(aux)
+    x = rms_norm(x, params["final_norm"])
+    # the f32 cast rides the vocab head's single output write
+    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32) \
+        if cfg.vocab else x
+    return _mask_padded_vocab(logits, cfg), torch.stack(auxs).mean()
+
+
+def loss_fn(params, cfg: ArchConfig, batch, engine: DotEngine | None = None,
+            aux_weight: float = 0.01):
+    """Next-token (causal) or per-position cross entropy in f32 ->
+    ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.  ``loss_mask``
+    (optional, (B, S)) weights the positions; the mean is over its sum
+    (at least 1), else over every position."""
+    logits, aux = forward(params, cfg, batch, engine)
+    labels = batch["labels"].long()
+    if cfg.causal:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    mask = batch.get("loss_mask")
+    if mask is not None and cfg.causal:
+        mask = mask[:, 1:]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = nll.numel()
+    loss = nll.sum() / denom
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 def _mask_padded_vocab(logits, cfg: ArchConfig):
