@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds every CUDA kernel of the port from ``src/repro_torch/kernels/
 csrc`` (one ``nvcc`` per source, all started together) and holds each
 kernel against its plain PyTorch version at its main path's shapes.
-Three main paths follow, each driven with the launch counts set to 0
+The main paths follow, each driven with the launch counts set to 0
 just before it and read just after:
 
 * serving: full-width qwen3-1.7b (random weights from a seed) through
@@ -38,15 +38,22 @@ just before it and read just after:
   4092, 4094, 100 and 300 tokens by ``prefill_kv``, 8 decode steps on
   per-row positions, rows 0 and 1 wrapping); glm4-9b at full width and
   depth (GQA group 16) served continuous, paged and contiguous, 4
-  requests of 8 new tokens; deepseek-coder-33b at full width and 4 of
-  its 62 layers (group 7): the port's ``init_model`` draws each stacked
-  tensor whole in f32 (a 34 GB temporary per MLP tensor at 62 layers),
-  so the full depth does not fit beside the 66.7 GB of bf16 weights;
-  the weights alone would fit the card's 80 GB.  Each
+  requests of 8 new tokens; deepseek-coder-33b at full width and all
+  62 layers (group 7; 66.7 GB of bf16 weights, drawn a layer at a time;
+  its peak memory printed), its f32 paged-against-contiguous step on
+  its first 4 layers (an f32 copy of 62 would take 133 GB).  Each
   model's B1 shapes (and B2 head widths where it serves paged) are held
   against the plain versions first; one decode step per (arch, layout)
   against the plain versions (``layout_step``), timed; each model is
   freed before the next;
+* the moe, ssm and hybrid families (``families_phase``), at full width
+  and depth the same way: granite-moe-1b-a400m (32 experts top 8, B2
+  at d_head 64, group 2) the 6 requests lockstep and continuous, paged;
+  granite-moe-3b-a800m (40 experts) 4 requests of 8 new tokens,
+  continuous, paged and contiguous (token agreement printed);
+  mamba2-780m and hymba-1.5b (B1's tile path at hymba's in_proj, N =
+  3257) 4 requests of 16 new tokens, lockstep and contiguous, as the
+  reference serves them;
 * training, after them (``train_phase``): qwen3-1.7b at full width and
   depth in bf16 (random weights from seed 0, ``PackedSyntheticData``
   seed 0 batches of 4 x 256 tokens), 4 steps of ``make_train_step``
@@ -58,7 +65,12 @@ just before it and read just after:
   with a failure injected and a resume (a qwen3-1.7b checkpoint, ~24
   GB of f32 optimizer state, is too large to write in a smoke run);
   then timings: ms and J per step, B1 per step by role beside
-  ``torch.matmul`` and the bound, a profile of one step per schedule.
+  ``torch.matmul`` and the bound, a profile of one step per schedule;
+  then granite-moe-1b-a400m, mamba2-780m and hymba-1.5b at full width
+  and depth through the same ``train_arch``: B1's forward, dgrad and
+  wgrad GEMMs at their shapes against the plain version, the same
+  step-0 gradient checks, and 2 steps of each schedule from the seed-0
+  state with their joules and a profiled step.
 
 Energy is read from the card itself, through the port's
 ``NvmlBackend`` (NVML's cumulative energy counter, bound with ctypes),
@@ -80,7 +92,9 @@ It checks the launch counts and the outputs, times each kernel beside
 its bound, its plain version and the library call, and prints one JSON
 line of them (per serving decode step or per study; launches those
 of the main path, the continuous serving run's B1/B2 and the study's
-B3/B4, each read just after its own zeroing), then B2 per launch at
+B3/B4, each read just after its own zeroing; B1's and B2's rows also
+carry ``by_arch``, each other arch's and layout's decode step with its
+launches), then B2 per launch at
 512, 4096 and 32768 tokens per slot on a JSON line of its own
 (``b2_long_context``), the NVML phase (``nvml``), the two serving modes
 side by side with their joules (``serve_modes``), B1 per launch at a
@@ -99,7 +113,13 @@ checks), the training path (``train``: losses, ms, tok/s, J and peak
 memory per step per schedule, B1 by role, the profiles, the gates'
 errors), every path's launches (``launches_by_path``: the serving runs,
 the observed and faulted runs, the study, its energy windows, the
-tuner and the layouts' runs), the card's name and power
+tuner, the layouts' runs and the families' runs and train steps), the
+families (``families``: tok/s, ms a step and J per token of each serving
+run, each arch's decode step against the plain versions and B1 and B2
+beside their bounds, each trained arch's record as on the ``train``
+line: losses, ms, J and peak memory per step per schedule, the
+profiles, the gradient errors per leaf, pinned and not), the card's
+name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
@@ -182,13 +202,13 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   and the head a decode step, 7 B1 a layer a chunk, one B2 a layer a
   paged decode step, none contiguous); each (arch, layout) decode step
   within LOGIT_BOUND of the plain versions; qwen3's and deepseek's f32
-  decode step paged against contiguous from the same K/V within
-  LOGIT_BOUND_F32; the new archs' B1 and B2 shapes within the bounds
-  above, two B1 launches bit-equal.  ``swa_ring``: each slot's K/V
-  from ``prefill_kv`` over [0, L) within KV_BOUND of the same prefill
-  on the plain versions (B1 at M = 4092, 4094, 100 and 300 with N =
-  3840, 960 and 10240); every step within
-  LOGIT_BOUND of the plain versions, and after each step layer 0's
+  decode step (deepseek's first 4 layers) paged against contiguous from
+  the same K/V within LOGIT_BOUND_F32; the new archs' B1 and B2 shapes
+  within the bounds above, two B1 launches bit-equal.  ``swa_ring``:
+  each slot's K/V from ``prefill_kv`` over [0, L) within KV_BOUND of
+  the same prefill on the plain versions (B1 at M = 4092, 4094, 100 and
+  300 with N = 3840, 960 and 10240); every step within LOGIT_BOUND of
+  the plain versions, and after each step layer 0's
   entry at ``pos % 4096`` of every row equal to its K and V computed
   anew (exactly) with no other entry of any layer moved.  Token
   agreement between layouts in bf16 is printed, not gated (B2 keeps
@@ -205,15 +225,34 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   whose tiny gradient changes sign moves 2 lr the other way.  Step-0
   gradients per leaf ||Morton - "xla"|| / ||"xla"|| <= TRAIN_GRAD_REL
   (0.1; bf16 gradients through 28 layers).  One step repeated from the
-  same state, and remat off and "full", give loss and gradients
-  bit-equal to the first (remat "dots") run.  B1's launches exactly 22
-  L + 3 a step (29 L + 3 under "full"), none under "xla", and no torch
-  GEMM but the attention's ``bmm`` on the Morton path.  f32 at 2
+  same state, remat off and the other policy ("full" beside "dots",
+  "dots" beside "full") give loss and gradients bit-equal to the
+  config's own.  B1's launches exactly 22 L + 3 a step (29 L + 3 under
+  "full"), none under "xla", and no torch GEMM but the ``bmm`` of the
+  attention, the SSD and the experts (and the moe router's product) on
+  the Morton path.  f32 at 2
   layers: every gradient leaf within TRAIN_F32_REL (1e-3) of the plain
   versions' largest magnitude.  Through the CLI (SMOKE): a run with a
   failure injected ends with the clean run's loss and parameters bit
   for bit; the resumed run ends at optimizer count 12; B1's launches
   exact.
+* The families: each arch's B1 decode shapes (bf16 and f32; hymba's N
+  = 3257 on the tile path) and, where it serves paged, B2 at its head
+  width within the bounds above, two B1 launches bit-equal; its serving
+  runs' launches exact (B1_PER_LAYER a layer: the moe's experts are
+  torch einsums, as they are XLA in the reference), every logit row
+  finite; its decode step within LOGIT_BOUND of the plain versions.
+  Training per arch: B1's forward, dgrad and wgrad at one layer's shapes
+  (hymba's dgrad at K = 3257) within B1's bounds and bit-equal twice;
+  then qwen3's gates but the falling loss (2 steps): the step-0 loss,
+  |loss Morton - "xla"| at both steps, the step-0 gradients within
+  TRAIN_GRAD_REL, the step repeated and the remat policies bit-equal,
+  B1's launches a step exactly ``train_launches_per_step`` (moe 12 L +
+  3; ssm and hybrid under remat "full" 8 L + 3 and 37 L + 3), none
+  under "xla".  The moe's gradient gate holds Morton to "xla" under the
+  top-k "xla" chose (``pinned_routing``): a bf16 difference that flips
+  a token's top-8 moves the router's gradient by more than any kernel
+  rounding, so the unpinned error, printed beside, measures the flips.
 """
 from __future__ import annotations
 
@@ -327,20 +366,41 @@ class Report:
 
 
 # ----------------------------------------------------------- main path ----
+# B1 launches a layer of a decode step and of a prefill chunk, by family:
+# the attention's wq, wk, wv, wo; the SSD's in_proj and out_proj; the
+# SwiGLU MLP's w1, w3, w2 (the moe's experts are torch einsums, as they
+# are XLA in the reference)
+B1_PER_LAYER = {"dense": 7, "moe": 4, "ssm": 2, "hybrid": 9}
+
+
 def main_path_gemms(cfg):
     """(name, M, K, N, epilogue, out f32, launches per decode step) of
-    every B1 call one decode step makes at full width."""
-    d, hd, kvd, f, v = (cfg.d_model, cfg.n_heads * cfg.d_head,
-                        cfg.n_kv_heads * cfg.d_head, cfg.d_ff,
-                        cfg.padded_vocab)
-    n_l = cfg.n_layers
-    return [("wq", SLOTS, d, hd, "none", False, n_l),
-            ("wk|wv", SLOTS, d, kvd, "none", False, 2 * n_l),
-            ("wo+res", SLOTS, hd, d, "residual", False, n_l),
-            ("w1+silu", SLOTS, d, f, "silu", False, n_l),
-            ("w3", SLOTS, d, f, "none", False, n_l),
-            ("w2+res", SLOTS, f, d, "residual", False, n_l),
-            ("head->f32", SLOTS, d, v, "none", True, 1)]
+    every B1 call one decode step makes at full width, by family: the
+    attention's projections (the hybrid's out-projection takes no
+    residual), the SSD's in_proj and out_proj, the SwiGLU MLP's three,
+    and the vocab head."""
+    d, v, n_l = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    rows = []
+    if cfg.has_attention:
+        hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+        wo = ("wo", "none") if cfg.family == "hybrid" \
+            else ("wo+res", "residual")
+        rows += [("wq", SLOTS, d, hd, "none", False, n_l),
+                 ("wk|wv", SLOTS, d, kvd, "none", False, 2 * n_l),
+                 (wo[0], SLOTS, hd, d, wo[1], False, n_l)]
+    if cfg.has_ssm:
+        d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+        proj = 2 * d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+        rows += [("in_proj", SLOTS, d, proj, "none", False, n_l),
+                 ("out_proj", SLOTS, d_inner, d, "none", False, n_l)]
+    if cfg.family in ("dense", "hybrid"):
+        f = cfg.d_ff
+        rows += [("w1+silu", SLOTS, d, f, "silu", False, n_l),
+                 ("w3", SLOTS, d, f, "none", False, n_l),
+                 ("w2+res", SLOTS, f, d, "residual", False, n_l)]
+    rows.append(("head->f32", SLOTS, d, v, "none", True, 1))
+    assert sum(r[-1] for r in rows) == B1_PER_LAYER[cfg.family] * n_l + 1
+    return rows
 
 
 def chunk_gemms(cfg):
@@ -905,12 +965,13 @@ def _zero_launches():
 
 
 def want_launches(cfg, loop) -> dict:
-    """B1 and B2 launches of a serving run: 7 projections a layer and
-    the head per decode step, the 7 projections a layer per prefill
-    chunk, one B2 a layer per paged decode step (the contiguous decode
-    attention is torch)."""
+    """B1 and B2 launches of a serving run: the family's projections a
+    layer (``B1_PER_LAYER``) and the head per decode step, the
+    projections a layer per prefill chunk, one B2 a layer per paged
+    decode step (the contiguous decode attention is torch)."""
     n_l = cfg.n_layers
-    return {"B1": loop.steps * (7 * n_l + 1) + loop.chunk_steps * 7 * n_l,
+    n = B1_PER_LAYER[cfg.family] * n_l
+    return {"B1": loop.steps * (n + 1) + loop.chunk_steps * n,
             "B2": loop.steps * n_l if loop.paged else 0}
 
 
@@ -1607,11 +1668,12 @@ def compare_step(cfg, params, state, toks, pos, bound: float) -> dict:
     err = float((got - want).abs().max())
     agree = int((got[:, 0].argmax(-1) == want[:, 0].argmax(-1)).sum())
     finite = bool(torch.isfinite(got).all())
+    real = want[..., :cfg.vocab]     # the padded columns read -1e30
     print(f"[step] {cfg.name} ({cfg.n_layers} layers) {state.layout.value} "
           f"{cfg.param_dtype} decode step, kernels vs "
           f"plain versions: max |logit diff| {err:.4e} (bound {bound:g}), "
           f"greedy tokens agree {agree}/{SLOTS}, logit range "
-          f"[{float(want.min()):.3f}, {float(want.max()):.3f}]")
+          f"[{float(real.min()):.3f}, {float(real.max()):.3f}]")
     if not finite or err > bound:
         raise SystemExit("chip_smoke: full decode step disagrees with the "
                          "plain versions")
@@ -2689,7 +2751,7 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
 # ------------------------------------------- layouts and dense archs ----
 GLM4_REQUESTS = 4              # glm4-9b serving: 4 of the 6 prompts
 GLM4_MAX_NEW = 8
-DEEPSEEK_LAYERS = 4            # of 62: see the module docstring
+DEEPSEEK_F32_LAYERS = 4        # its f32 layouts check: the first 4 of 62
 SWA_CACHE = 4096               # h2o-danube-3-4b's window: one whole ring
 SWA_PREFILL = (4092, 4094, 100, 300)
 SWA_STEPS = 8                  # rows 0 and 1 wrap, rows 2 and 3 do not
@@ -2708,6 +2770,9 @@ def init_arch(name: str, n_layers: int | None = None):
     cfg = get_config(name)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
@@ -2715,7 +2780,9 @@ def init_arch(name: str, n_layers: int | None = None):
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"[init] {cfg.name} full width, {cfg.n_layers} layers, "
           f"{n_bytes / 1e9:.2f} GB bf16 weights on the card in "
-          f"{time.perf_counter() - t0:.1f}s")
+          f"{time.perf_counter() - t0:.1f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"({resident / 1e9:.2f} GB resident before)")
     return cfg, params
 
 
@@ -2746,24 +2813,26 @@ def b2_check(rep: Report, label, q, kp, vp, tab, pos) -> float:
     return err
 
 
-def check_arch_kernels(cfg, paged: bool) -> dict:
+def check_arch_kernels(cfg, paged: bool, chunk: bool = True) -> dict:
     """B1 against its plain version at ``cfg``'s decode shapes (M =
-    SLOTS, bf16 and f32) and prefill-chunk shapes (M = 128, bf16), two
-    launches bit-equal at each decode shape; with ``paged``, B2 at its
-    head widths (the serving shape, bf16 and f32).  Returns max errors."""
+    SLOTS, bf16 and f32) and, with ``chunk``, its prefill-chunk shapes
+    (M = 128, bf16), two launches bit-equal at each decode shape; with
+    ``paged``, B2 at its head widths (the serving shape, bf16 and f32).
+    Returns max errors."""
     import torch
 
     rep = Report()
     gen = torch.Generator(device="cuda").manual_seed(2024)
     errs = {"B1": 0.0, "B2": None}
-    print(f"[kernels] {cfg.name}: B1 at its decode and chunk shapes"
+    print(f"[kernels] {cfg.name}: B1 at its decode"
+          + (" and chunk" if chunk else "") + " shapes"
           + (", B2 at its head widths" if paged else ""))
     for name, m, k, n, ep, f32, _ in main_path_gemms(cfg):
         for dtype in (torch.bfloat16, torch.float32):
             errs["B1"] = max(errs["B1"], b1_check(rep, gen, name, m, k, n,
                                                   dtype, ep, f32))
         b1_same_twice(rep, gen, name, m, k, n, torch.bfloat16, ep, f32)
-    for name, m, k, n, ep, f32, _ in chunk_gemms(cfg):
+    for name, m, k, n, ep, f32, _ in chunk_gemms(cfg) if chunk else ():
         errs["B1"] = max(errs["B1"], b1_check(rep, gen, name, m, k, n,
                                               torch.bfloat16, ep, f32))
     if paged:
@@ -2850,8 +2919,9 @@ def layout_step(cfg, params, layout: str, smi: str, cut: str = "",
                 timed: bool = True) -> dict:
     """One decode step from a mid-serving state in ``layout``, kernels
     against plain versions (``compare_step``) within LOGIT_BOUND, its
-    launches exact (7 B1 a layer and the head; one B2 a layer when
-    paged, none contiguous), then B1 (and B2) per step timed."""
+    launches exact (the family's B1 a layer, ``B1_PER_LAYER``, and the
+    head; one B2 a layer when paged, none contiguous), then B1 (and B2)
+    per step timed."""
     state, toks, pos = build_state(cfg, params, layout=layout)
     import torch
 
@@ -2863,7 +2933,8 @@ def layout_step(cfg, params, layout: str, smi: str, cut: str = "",
     torch.cuda.synchronize()
     launches = _kernel_launches()
     n_l = cfg.n_layers
-    want = {"B1": 7 * n_l + 1, "B2": n_l if layout == "paged" else 0}
+    want = {"B1": B1_PER_LAYER[cfg.family] * n_l + 1,
+            "B2": n_l if layout == "paged" else 0}
     if launches != want:
         raise SystemExit(f"chip_smoke: {cfg.name} {layout} decode step "
                          f"launched {launches}, want {want}")
@@ -3078,6 +3149,60 @@ def swa_ring(cfg, params, smi: str) -> tuple[dict, dict]:
     return rec, total
 
 
+def serve_row(run, against=None) -> dict:
+    """A serving run's record for the JSON lines: tok/s, steps, ms and J
+    per token; with ``against`` (the same requests served paged), the
+    generated tokens agreeing with it per request."""
+    keep = ("arch", "layout", "mode", "tok_per_s", "tokens", "wall_s",
+            "steps", "chunk_steps", "ms_per_decode_step",
+            "ms_per_chunk_step", "launches")
+    rec = {k: run[k] for k in keep}
+    rec["j_per_token"] = run["energy"]["j_per_token"]
+    rec["run_j_per_token"] = run["energy"]["run_j_per_token"]
+    if against is not None:
+        rec["agree_with_paged"] = [
+            sum(x == y for x, y in zip(against["out"][r][len(p):],
+                                       run["out"][r][len(p):]))
+            for r, p in enumerate(against["prompts"])]
+    return rec
+
+
+def deepseek_phase(smi: str) -> tuple[dict, list]:
+    """deepseek-coder-33b at full width and all 62 layers (66.7 GB of
+    bf16 weights, drawn a layer at a time): its B1 shapes and B2 head
+    width against the plain versions, its paged and contiguous decode
+    steps (``layout_step``) and the peak memory; then its f32 layouts
+    check on the first DEEPSEEK_F32_LAYERS layers (an f32 copy of all 62
+    would take 133 GB).  Returns (kernel checks, layout_step rows)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.optim.adamw import _tree_map
+
+    cfg, params = init_arch("deepseek_coder_33b")
+    init_peak = torch.cuda.max_memory_allocated()
+    errs = {cfg.name: check_arch_kernels(cfg, paged=True)}
+    rows = [layout_step(cfg, params, layout, smi, cut="none",
+                        timed=layout == "paged")
+            for layout in ("paged", "contiguous")]
+    rows[-1]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rows[-1]["init_peak_gb"] = init_peak / 1e9
+    print(f"[layout_step] {cfg.name} at all {cfg.n_layers} layers: peak "
+          f"memory {init_peak / 1e9:.2f} GB after init, "
+          f"{rows[-1]['peak_gb']:.2f} GB after its steps ({smi})")
+    cut = dataclasses.replace(cfg, n_layers=DEEPSEEK_F32_LAYERS)
+    params = {**params, "layers": _tree_map(
+        lambda t: t[:DEEPSEEK_F32_LAYERS].clone(), params["layers"])}
+    torch.cuda.empty_cache()
+    rows[-1]["paged_vs_contiguous_f32"] = {
+        **layouts_agree_f32(cut, params),
+        "cut": f"{DEEPSEEK_F32_LAYERS} of {cfg.n_layers} layers"}
+    del params
+    torch.cuda.empty_cache()
+    return errs, rows
+
+
 def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
                   smi: str) -> tuple[list, list, dict, dict]:
     """Slice 9's phases, after the others: qwen3-1.7b served contiguous
@@ -3086,33 +3211,18 @@ def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
     beside ``prof_paged``; h2o-danube-3-4b served contiguous at full
     width and depth, its step and its SWA ring; glm4-9b served
     continuous paged and contiguous, its paged step; deepseek-coder-33b
-    at 4 of 62 layers, its paged and contiguous steps.  Each model is
-    freed before the next.  Returns (serve_layouts rows, layout_step
-    rows, swa_ring record, launches by path)."""
+    at all 62 layers, its paged and contiguous steps and its peak
+    memory, then its f32 layouts check on its first 4 layers.  Each
+    model is freed before the next.  Returns (serve_layouts rows,
+    layout_step rows, swa_ring record, launches by path)."""
     import torch
-
-    def agreement(a: dict, b: dict) -> list[int]:
-        return [sum(x == y for x, y in zip(a["out"][r][len(p):],
-                                           b["out"][r][len(p):]))
-                for r, p in enumerate(a["prompts"])]
-
-    def row(run, against=None):
-        keep = ("arch", "layout", "mode", "tok_per_s", "tokens", "wall_s",
-                "steps", "chunk_steps", "ms_per_decode_step",
-                "ms_per_chunk_step", "launches")
-        rec = {k: run[k] for k in keep}
-        rec["j_per_token"] = run["energy"]["j_per_token"]
-        rec["run_j_per_token"] = run["energy"]["run_j_per_token"]
-        if against is not None:
-            rec["agree_with_paged"] = agreement(against, run)
-        return rec
 
     serve_rows, step_rows, by_path = [], [], {}
     cfg, params = init_arch("qwen3_1_7b")
     for mode, paged in (("lockstep", sv), ("continuous", cv)):
         run = serve(cfg, params, mode, "contiguous",
                     tag=f"[serve {mode} contiguous]")
-        serve_rows.append({**row(run, paged), "cut": "none"})
+        serve_rows.append({**serve_row(run, paged), "cut": "none"})
         by_path[f"qwen3 {mode} contiguous"] = run["launches"]
         print(f"[serve_layouts] qwen3-1.7b {mode}: contiguous "
               f"{run['tok_per_s']:.2f} tok/s, {run['ms_per_decode_step']:.3f}"
@@ -3136,7 +3246,7 @@ def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
     cfg, params = init_arch("h2o_danube_3_4b")
     errs = {cfg.name: check_arch_kernels(cfg, paged=False)}
     run = serve(cfg, params, "lockstep", "contiguous", tag="[serve h2o]")
-    serve_rows.append({**row(run), "cut": "none (full width and depth)"})
+    serve_rows.append({**serve_row(run), "cut": "none (full width and depth)"})
     by_path["h2o lockstep contiguous"] = run["launches"]
     step_rows.append(layout_step(cfg, params, "contiguous", smi,
                                  cut="none"))
@@ -3153,27 +3263,95 @@ def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
         runs[layout] = serve(cfg, params, "continuous", layout, prompts,
                              GLM4_MAX_NEW, tag=f"[serve glm4 {layout}]")
         by_path[f"glm4 continuous {layout}"] = runs[layout]["launches"]
-    serve_rows.append({**row(runs["paged"]), "cut": "none"})
-    serve_rows.append({**row(runs["contiguous"], runs["paged"]),
+    serve_rows.append({**serve_row(runs["paged"]), "cut": "none"})
+    serve_rows.append({**serve_row(runs["contiguous"], runs["paged"]),
                        "cut": "none"})
     step_rows.append(layout_step(cfg, params, "paged", smi, cut="none"))
     del params, runs
     torch.cuda.empty_cache()
 
-    cut = f"{DEEPSEEK_LAYERS} of 62 layers"
-    cfg, params = init_arch("deepseek_coder_33b", DEEPSEEK_LAYERS)
-    errs[cfg.name] = check_arch_kernels(cfg, paged=True)
-    for layout in ("paged", "contiguous"):
-        step_rows.append(layout_step(cfg, params, layout, smi, cut=cut,
-                                     timed=layout == "paged"))
-    step_rows[-1]["paged_vs_contiguous_f32"] = layouts_agree_f32(cfg, params)
-    del params
-    torch.cuda.empty_cache()
+    ds_errs, ds_rows = deepseek_phase(smi)
+    errs.update(ds_errs)
+    step_rows += ds_rows
     for r in step_rows:
         r["kernel_checks"] = errs.get(r["arch"])
         by_path[f"{r['arch']} {r['layout']} step"] = r["launches"]
     return serve_rows, step_rows, ring, by_path
 
+
+
+# ------------------------------------------------------------ families ----
+# slice 11: the moe, ssm and hybrid archs at full width and depth.
+# Serving: granite-moe-1b the N_REQUESTS prompts, lockstep and continuous,
+# paged; granite-moe-3b FAMILY_REQUESTS requests of FAMILY_MAX_NEW tokens,
+# continuous, paged and contiguous; mamba2 and hymba (contiguous and
+# lockstep only, as in the reference) FAMILY_REQUESTS requests of
+# MAX_NEW tokens.  Training: FAMILY_TRAIN_STEPS steps of each trained arch.
+FAMILY_REQUESTS = 4
+FAMILY_MAX_NEW = 8
+FAMILY_TRAIN = ("granite_moe_1b_a400m", "mamba2_780m", "hymba_1_5b")
+FAMILY_TRAIN_STEPS = 2
+
+
+def families_phase(smi: str) -> tuple[dict, dict]:
+    """Slice 11's serving: each new arch at full width and depth (random
+    bf16 weights from seed 0), its B1 shapes (and B2 head width where it
+    serves paged) against the plain versions, its serving runs (launches
+    exact, every logit row finite, tok/s and J per token from NVML),
+    one decode step against the plain versions and timed beside the
+    bounds (``layout_step``); each model freed before the next.
+    Returns (the ``families`` line's serving part, launches by path)."""
+    import torch
+
+    serve_rows, step_rows, errs, by_path = [], [], {}, {}
+    plan = (("granite_moe_1b_a400m", True),
+            ("granite_moe_3b_a800m", True),
+            ("mamba2_780m", False), ("hymba_1_5b", False))
+    for name, paged in plan:
+        cfg, params = init_arch(name)
+        errs[cfg.name] = check_arch_kernels(cfg, paged=paged, chunk=paged)
+        tag = f"[serve {cfg.name}"
+        if name == "granite_moe_1b_a400m":
+            for mode in ("lockstep", "continuous"):
+                run = serve(cfg, params, mode, "paged",
+                            tag=f"{tag} {mode} paged]")
+                serve_rows.append(serve_row(run))
+                by_path[f"{cfg.name} {mode} paged"] = run["launches"]
+        elif name == "granite_moe_3b_a800m":
+            prompts = serving_prompts(cfg)[:FAMILY_REQUESTS]
+            runs = {}
+            for layout in ("paged", "contiguous"):
+                runs[layout] = serve(cfg, params, "continuous", layout,
+                                     prompts, FAMILY_MAX_NEW,
+                                     tag=f"{tag} continuous {layout}]")
+                by_path[f"{cfg.name} continuous {layout}"] = \
+                    runs[layout]["launches"]
+            serve_rows.append(serve_row(runs["paged"]))
+            serve_rows.append(serve_row(runs["contiguous"], runs["paged"]))
+            print(f"[families] {cfg.name} contiguous: generated tokens "
+                  f"agreeing with the paged run per request "
+                  f"{serve_rows[-1]['agree_with_paged']} of "
+                  f"{FAMILY_MAX_NEW} (printed, not gated)")
+        else:
+            prompts = serving_prompts(cfg)[:FAMILY_REQUESTS]
+            run = serve(cfg, params, "lockstep", "contiguous", prompts,
+                        MAX_NEW, tag=f"{tag} lockstep contiguous]")
+            serve_rows.append(serve_row(run))
+            by_path[f"{cfg.name} lockstep contiguous"] = run["launches"]
+        print(f"[families] {cfg.name}: "
+              + "; ".join(f"{r['mode']} {r['layout']} {r['tok_per_s']:.2f} "
+                          f"tok/s, {r['ms_per_decode_step']:.3f} ms a decode "
+                          f"step, {r['j_per_token']:.4f} J/token"
+                          for r in serve_rows if r["arch"] == cfg.name)
+              + f" ({smi})")
+        rec = layout_step(cfg, params, "paged" if paged else "contiguous",
+                          smi, cut="none")
+        rec["kernel_checks"] = errs[cfg.name]
+        step_rows.append(rec)
+        by_path[f"{cfg.name} {rec['layout']} step"] = rec["launches"]
+        del params
+        torch.cuda.empty_cache()
+    return {"serve": serve_rows, "step": step_rows}, by_path
 
 
 # ------------------------------------------------------------ training ----
@@ -3191,23 +3369,23 @@ CLI_STEPS, CLI_FAIL_AT, CLI_RESUME_STEPS = 8, 5, 4
 def train_gemms(cfg, tokens: int):
     """(role, name, M, K, N, operand dtype, out f32, count per step) of
     every B1 launch of one train step (remat "dots" or none): each
-    projection forward, its dgrad (dz @ w^T) and wgrad (x^T @ dz), w1's
-    pre-activation recomputed (f32 out) for silu's derivative, the
-    vocab head's forward (bf16, f32 out) and its dgrad and wgrad in f32
-    (dLogits is f32).  The counts sum to 22 L + 3."""
+    projection of the family's decode step (``main_path_gemms``, M =
+    ``tokens``) forward, its dgrad (dz @ w^T) and wgrad (x^T @ dz),
+    w1's pre-activation recomputed (f32 out) for silu's derivative where
+    there is a SwiGLU MLP, the vocab head's forward (bf16, f32 out) and
+    its dgrad and wgrad in f32 (dLogits is f32).  Dense: 22 L + 3."""
     import torch
     bf, f32 = torch.bfloat16, torch.float32
     t, d, v = tokens, cfg.d_model, cfg.padded_vocab
-    hd, kvd, n_l = (cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head,
-                    cfg.n_layers)
     rows = []
-    for name, k, n, c in (("wq", d, hd, n_l), ("wk|wv", d, kvd, 2 * n_l),
-                          ("wo", hd, d, n_l), ("w1", d, cfg.d_ff, n_l),
-                          ("w3", d, cfg.d_ff, n_l), ("w2", cfg.d_ff, d, n_l)):
+    for name, _, k, n, ep, _, c in main_path_gemms(cfg):
+        if name == "head->f32":
+            continue
+        name = name.split("+")[0]
         rows += [("fwd", name, t, k, n, bf, False, c),
                  ("dgrad", name, t, n, k, bf, False, c),
                  ("wgrad", name, k, t, n, bf, False, c)]
-        if name == "w1":
+        if ep == "silu":
             rows.append(("recompute", name, t, k, n, bf, True, c))
     rows += [("fwd", "head", t, d, v, bf, True, 1),
              ("dgrad", "head", t, v, d, f32, False, 1),
@@ -3216,35 +3394,39 @@ def train_gemms(cfg, tokens: int):
 
 
 def train_launches_per_step(cfg, remat_full: bool = False) -> int:
-    """B1 launches of one train step: 7 forward, 7 dgrad, 7 wgrad and
-    one recompute a layer, and the head's three; a "full" remat
-    recomputes the layer's 7 forward GEMMs in the backward too."""
-    n_l = cfg.n_layers
-    return 22 * n_l + 3 + (7 * n_l if remat_full else 0)
+    """B1 launches of one train step: per layer the family's n forward
+    GEMMs (``B1_PER_LAYER``), n dgrad, n wgrad and w1's recompute where
+    there is a SwiGLU MLP, and the head's three; a "full" remat
+    recomputes the layer's n forward GEMMs in the backward too.  Dense
+    22 L + 3 (29 L + 3 under "full"), moe 12 L + 3, ssm 6 L + 3 (8 L + 3),
+    hybrid 28 L + 3 (37 L + 3)."""
+    n = B1_PER_LAYER[cfg.family]
+    mlp = 1 if cfg.family in ("dense", "hybrid") else 0
+    return cfg.n_layers * (3 * n + mlp + (n if remat_full else 0)) + 3
 
 
-def check_train_gemms(cfg) -> float:
-    """Train phase (a): B1's backward GEMMs at the train step's shapes
-    against the plain version (B1's bf16 and f32 bounds) and two
-    launches bit-equal: one layer's 7 projections' dgrad and wgrad in
-    bf16 at TRAIN_BATCH x TRAIN_SEQ tokens, the vocab head's pair in
-    f32."""
+def check_train_gemms(cfg, roles=("dgrad", "wgrad")) -> float:
+    """Train phase (a): B1's GEMMs of ``roles`` at the train step's
+    shapes against the plain version (B1's bf16 and f32 bounds) and two
+    launches bit-equal: one layer's projections in bf16 at TRAIN_BATCH x
+    TRAIN_SEQ tokens, the vocab head's in f32 (bf16 operands, f32 out,
+    forward)."""
     import torch
 
     rep = Report()
     gen = torch.Generator(device="cuda").manual_seed(2323)
     t = TRAIN_BATCH * TRAIN_SEQ
     err = 0.0
-    print(f"[train] (a) B1's dgrad and wgrad GEMMs against the plain "
-          f"version, {t} tokens")
+    print(f"[train] (a) {cfg.name}: B1's {'/'.join(roles)} GEMMs against "
+          f"the plain version, {t} tokens")
     for role, name, m, k, n, dtype, out_f32, _ in train_gemms(cfg, t):
-        if role not in ("dgrad", "wgrad"):
+        if role not in roles:
             continue
         label = f"{role} {name}"
         err = max(err, b1_check(rep, gen, label, m, k, n, dtype, "none",
                                 out_f32))
         b1_same_twice(rep, gen, label, m, k, n, dtype, "none", out_f32)
-    rep.raise_if_failed("train (a) backward GEMMs")
+    rep.raise_if_failed(f"train (a) {cfg.name} GEMMs")
     return err
 
 
@@ -3284,12 +3466,66 @@ def _grad_errors(got, want) -> tuple[float, float]:
     return norm_rel, max_rel
 
 
+def pinned_routing(table: dict, replay: bool):
+    """A context in which the moe router records each layer's top-k in
+    ``table`` (keyed by the address of the layer's router weights,
+    which a checkpoint's recomputation sees too) or, with ``replay``,
+    takes the recorded top-k instead of its own: the gate weights, the
+    load-balance loss and their gradients stay this run's functions of
+    its own logits.  ``table["flips"]`` counts, per layer, the tokens
+    whose own top-k differs from the recorded one."""
+    import contextlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_mod
+
+    own = moe_mod._router
+
+    def router(xf, params, cfg):
+        key = params["router"].data_ptr()
+        w, idx, aux = own(xf, params, cfg)
+        if not replay:
+            table[key] = idx.detach()
+            return w, idx, aux
+        idx_own, idx = idx, table[key]
+        table.setdefault("flips", {})[key] = int(
+            (idx_own.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+        probs = torch.softmax(xf.float() @ params["router"], dim=-1)
+        w = probs.gather(-1, idx)
+        w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+        fe = F.one_hot(idx[:, 0], probs.shape[-1]).float().mean(0)
+        return w, idx, cfg.moe_experts * torch.sum(fe * probs.mean(0))
+
+    @contextlib.contextmanager
+    def ctx():
+        moe_mod._router = router
+        try:
+            yield
+        finally:
+            moe_mod._router = own
+
+    return ctx()
+
+
+def _leaf_errors(got, want, names) -> dict:
+    """Per leaf name, ||got - want|| / ||want|| in f32."""
+    return {n: _grad_errors([a], [b])[0]
+            for a, b, n in zip(got, want, names)}
+
+
 def train_grads_checks(cfg, params, batch) -> dict:
     """Train phase (b), before any step: one step's loss and gradients
     from the initial state, Morton, computed again (bit-equal), with
-    remat off and "full" (bit-equal to "dots", the config's default),
-    each with its exact B1 launches; and the same gradients under
-    "xla", held to Morton's per leaf within TRAIN_GRAD_REL."""
+    remat off and under the other policy ("full" where the config runs
+    "dots", "dots" where it runs "full"), all bit-equal to the config's
+    own, each with its exact B1 launches; and the same gradients under
+    "xla", held to Morton's per leaf within TRAIN_GRAD_REL.  A moe
+    arch's gate is Morton's gradients under the top-k that "xla" chose
+    (``pinned_routing``): a bf16 rounding that flips a token's top-k
+    moves its router gradient by far more than the kernels' error, and
+    the unpinned errors are printed beside."""
     import dataclasses
 
     import torch
@@ -3299,6 +3535,7 @@ def train_grads_checks(cfg, params, batch) -> dict:
     from repro_torch.optim.adamw import tree_leaves
 
     morton, xla = DotEngine(schedule="morton"), DotEngine(schedule="xla")
+    names = _leaf_names(params)
     fails = []
     wall = {}
 
@@ -3310,51 +3547,87 @@ def train_grads_checks(cfg, params, batch) -> dict:
         wall[label] = (time.perf_counter() - t0) * 1e3
         return out
 
+    def want(c) -> int:
+        return train_launches_per_step(
+            c, remat_full=c.remat and c.remat_policy == "full")
+
+    base = cfg.remat_policy
+    other = "dots" if base == "full" else "full"
     _zero_launches()
-    loss, _, g = timed("dots", cfg, morton)
+    loss, metrics, g = timed(base, cfg, morton)
     ref = tree_leaves(g)
-    want = train_launches_per_step(cfg)
-    runs = {"dots": _kernel_launches()["B1"]}
-    if runs["dots"] != want:
-        fails.append(f"dots launches {runs['dots']} != {want}")
-    for label, c, n_want in (
-            ("again", cfg, want),
-            ("none", dataclasses.replace(cfg, remat=False), want),
-            ("full", dataclasses.replace(cfg, remat_policy="full"),
-             train_launches_per_step(cfg, remat_full=True))):
+    runs = {base: _kernel_launches()["B1"]}
+    if runs[base] != want(cfg):
+        fails.append(f"{base} launches {runs[base]} != {want(cfg)}")
+    for label, c in (("again", cfg),
+                     ("none", dataclasses.replace(cfg, remat=False)),
+                     (other, dataclasses.replace(cfg, remat_policy=other))):
         _zero_launches()
         l2, _, g2 = timed(label, c, morton)
         runs[label] = _kernel_launches()["B1"]
         same = torch.equal(l2, loss) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(g2), ref))
-        print(f"  {'ok  ' if same else 'FAIL'} remat {label}: loss and "
-              f"{len(ref)} gradient leaves bit-equal to the first "
-              f"(remat dots) run; {runs[label]} B1 launches (want "
-              f"{n_want}); forward and backward {wall[label]:.1f} ms wall "
-              f"(dots {wall['dots']:.1f})")
+        print(f"  {'ok  ' if same else 'FAIL'} {cfg.name} remat {label}: "
+              f"loss and {len(ref)} gradient leaves bit-equal to the first "
+              f"(remat {base}) run; {runs[label]} B1 launches (want "
+              f"{want(c)}); forward and backward {wall[label]:.1f} ms wall "
+              f"({base} {wall[base]:.1f})")
         if not same:
             fails.append(f"remat {label} not bit-equal")
-        if runs[label] != n_want:
-            fails.append(f"remat {label} launches {runs[label]} != {n_want}")
+        if runs[label] != want(c):
+            fails.append(f"remat {label} launches {runs[label]} != "
+                         f"{want(c)}")
         del g2
+    moe = cfg.family == "moe"
+    table: dict = {}
     _zero_launches()
-    lx, _, gx = timed("xla", cfg, xla)
+    if moe:
+        with pinned_routing(table, replay=False):
+            lx, _, gx = timed("xla", cfg, xla)
+    else:
+        lx, _, gx = timed("xla", cfg, xla)
     xla_launches = _kernel_launches()["B1"]
-    norm_rel, max_rel = _grad_errors(ref, tree_leaves(gx))
-    ok = norm_rel <= TRAIN_GRAD_REL and xla_launches == 0
-    print(f"  {'ok  ' if ok else 'FAIL'} step-0 gradients, morton against "
-          f"xla: largest per-leaf ||diff|| / ||xla|| {norm_rel:.3e} (bound "
-          f"{TRAIN_GRAD_REL:g}), largest per-leaf max|diff| / max|xla| "
-          f"{max_rel:.3e}; loss {float(loss):.6f} against "
-          f"{float(lx):.6f}; xla made {xla_launches} B1 launches")
+    gx = tree_leaves(gx)
+    norm_rel, max_rel = _grad_errors(ref, gx)
+    leaf_rel = _leaf_errors(ref, gx, names)
+    rec = {"launches": runs, "wall_ms": wall, "grad_rel_norm": norm_rel,
+           "grad_rel_max": max_rel, "leaf_rel": leaf_rel,
+           "loss0_morton": float(loss), "loss0_xla": float(lx),
+           "aux0": float(metrics["aux"])}
+    gate = norm_rel
+    if moe:
+        with pinned_routing(table, replay=True):
+            lp, _, gp = grads_of(cfg, params, batch, morton)
+        gp = tree_leaves(gp)
+        gate, pin_max = _grad_errors(gp, gx)
+        flips = sorted(table["flips"].values())
+        rec["pinned"] = {"grad_rel_norm": gate, "grad_rel_max": pin_max,
+                         "leaf_rel": _leaf_errors(gp, gx, names),
+                         "loss0": float(lp), "flipped_tokens": flips}
+        print(f"  {cfg.name} under \"xla\"'s top-{cfg.moe_topk}: Morton "
+              f"chose another top-{cfg.moe_topk} for "
+              f"{min(flips)}-{max(flips)} of {batch['tokens'].numel()} "
+              f"tokens a layer; router leaf ||diff|| / ||xla|| unpinned "
+              f"{leaf_rel['layers.moe.router']:.3e}, pinned "
+              f"{rec['pinned']['leaf_rel']['layers.moe.router']:.3e}")
+        del gp
+    worst = sorted(((e, n) for n, e in (rec["pinned"]["leaf_rel"] if moe
+                                        else leaf_rel).items()),
+                   reverse=True)[:3]
+    ok = gate <= TRAIN_GRAD_REL and xla_launches == 0
+    print(f"  {'ok  ' if ok else 'FAIL'} {cfg.name} step-0 gradients, "
+          f"morton{' (pinned)' if moe else ''} against xla: largest per-leaf "
+          f"||diff|| / ||xla|| {gate:.3e} (bound {TRAIN_GRAD_REL:g}; at "
+          + ", ".join(f"{n} {e:.3e}" for e, n in worst)
+          + f"), largest per-leaf max|diff| / max|xla| {max_rel:.3e}; loss "
+          f"{float(loss):.6f} against {float(lx):.6f}; xla made "
+          f"{xla_launches} B1 launches")
     if not ok:
         fails.append("morton against xla gradients")
     if fails:
-        raise SystemExit(f"chip_smoke: train (b) gradient checks failed: "
-                         f"{fails}")
-    return {"launches": runs, "wall_ms": wall, "grad_rel_norm": norm_rel,
-            "grad_rel_max": max_rel, "loss0_morton": float(loss),
-            "loss0_xla": float(lx)}
+        raise SystemExit(f"chip_smoke: train (b) {cfg.name} gradient checks "
+                         f"failed: {fails}")
+    return rec
 
 
 def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
@@ -3365,7 +3638,9 @@ def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
     name and by role (the ``sfc_matmul.fwd``/``.recompute``/``.dgrad``/
     ``.wgrad`` ranges of ``repro_torch.kernels.grad``, which the trace
     also carries on the device), and the GEMM ops torch ran: on the
-    Morton path the attention's ``bmm`` only (no library GEMM)."""
+    Morton path the ``bmm`` of the attention, the SSD and the experts'
+    einsums only, and a moe arch's router product (``matmul``/``mm``,
+    XLA in the reference), never a projection."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3397,7 +3672,8 @@ def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
         elif e.key in ("aten::mm", "aten::addmm", "aten::bmm",
                        "aten::matmul", "aten::linear", "aten::_scaled_mm"):
             ops_count[e.key] = e.count
-    print(f"[train] (e) profile of one {schedule} step ({smi}): {wall:.1f} "
+    print(f"[train] (e) profile of one {cfg.name} {schedule} step ({smi}): "
+          f"{wall:.1f} "
           f"ms traced ({step_ms:.1f} untraced), device busy {busy:.1f} ms "
           f"(idle share {1 - busy / wall:.1%} of the traced wall, "
           f"{1 - busy / step_ms:.1%} of the untraced step); B1 kernels "
@@ -3412,7 +3688,9 @@ def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
           f"Python, autograd and the ctypes launches")
     for name, ms in sorted(host.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {ms:9.3f} ms  {name[:60]}")
-    library = {k: v for k, v in ops_count.items() if k != "aten::bmm"}
+    torch_ops = {"aten::bmm"} | ({"aten::matmul", "aten::mm"}
+                                 if cfg.family == "moe" else set())
+    library = {k: v for k, v in ops_count.items() if k not in torch_ops}
     if schedule == "morton" and library:
         raise SystemExit(f"chip_smoke: library GEMMs on the Morton train "
                          f"path: {library}")
@@ -3426,7 +3704,7 @@ def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
 
 
 def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
-    """Train phase (b)/(e): TRAIN_STEPS steps of ``make_train_step`` from
+    """Train phase (b)/(e): one step of ``make_train_step`` a batch from
     the seed-0 state under ``schedule``: each step's loss, ms (CUDA
     events) and B1 launches; joules over the steps after the first
     (NVML, windows aligned to the counter's updates); peak memory;
@@ -3441,7 +3719,7 @@ def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
     params = train_params(cfg)
     opt = init_opt_state(params)
     step = make_train_step(cfg, None, AdamWConfig(
-        peak_lr=TRAIN_LR, warmup=1, total_steps=TRAIN_STEPS),
+        peak_lr=TRAIN_LR, warmup=1, total_steps=len(batches)),
         engine=DotEngine(schedule=schedule))
     nvml = NvmlBackend()
     torch.cuda.synchronize()
@@ -3475,13 +3753,13 @@ def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
            "ms_per_step": mean_ms, "tok_per_s": tokens / mean_ms * 1e3,
            "launches": launches, "j_per_step": joules,
            "watts": joules / steady_s, "peak_gb": peak / 1e9}
-    print(f"[train] (b) qwen3-1.7b {schedule}: losses "
+    print(f"[train] (b) {cfg.name} {schedule}: losses "
           + ", ".join(f"{x:.6f}" for x in losses)
           + f"; ms per step " + ", ".join(f"{x:.1f}" for x in ms)
           + f" (steady {mean_ms:.1f} ms, {rec['tok_per_s']:.0f} tok/s); B1 "
           f"launches {launches}; {joules:.1f} J/step ({rec['watts']:.0f} W, "
           f"NVML); peak memory {peak / 1e9:.2f} GB ({smi})")
-    extra = train_batches(cfg, TRAIN_STEPS + 1)[-1]
+    extra = train_batches(cfg, len(batches) + 1)[-1]
     rec["profile"] = profile_train_step(cfg, step, params, opt, extra,
                                         mean_ms, smi, schedule)
     del params, opt
@@ -3654,75 +3932,90 @@ def train_cli_phase() -> dict:
             "launches": launches}
 
 
-def train_phase(smi: str) -> tuple[dict, dict]:
-    """The training path: qwen3-1.7b at full width and depth in bf16,
-    random weights from seed 0, PackedSyntheticData seed 0 batches of
-    TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS steps of
-    ``make_train_step`` under Morton (every GEMM's forward, dgrad and
-    wgrad through B1) and the same steps under "xla" from the same
-    state.  Gates: (a) B1's backward GEMMs against the plain version;
-    (b) the step-0 loss within LOSS0_BOUND of ln(vocab) (unit-variance
-    random logits add ~0.5), the loss falling, |loss morton - loss xla|
-    <= TRAIN_LOSS_BOUND at every step (bf16 roundings; Adam's first
-    update is sign(g), so elements whose tiny gradients differ in sign
-    move apart by 2 lr), the step-0 gradients within TRAIN_GRAD_REL,
-    one step repeated and remat off / "full" bit-equal, B1's launches
-    per step exact; (c) f32 gradients against the plain versions; (d)
-    retry and resume through the CLI; (e) timings.  Returns the
-    ``train`` line's object and the path's launches."""
+def train_arch(cfg, smi: str, steps: int, roles) -> tuple[dict, dict]:
+    """One arch's training at full width and depth in bf16 (seed-0
+    weights, ``PackedSyntheticData`` seed-0 batches of TRAIN_BATCH x
+    TRAIN_SEQ tokens): (a) B1's ``roles`` GEMMs at the train step's
+    shapes against the plain version; (b) the step-0 gradient checks
+    (``train_grads_checks``), then ``steps`` steps of
+    ``make_train_step`` under Morton (every projection's forward, dgrad
+    and wgrad through B1) and under "xla" from the same state, each with
+    its joules and a profiled step.  Gates: the step-0 loss within
+    LOSS0_BOUND of ln(vocab) (unit-variance random logits add ~0.5); the
+    loss falling where there are more than 2 steps (Adam's first update
+    is lr x sign(g), too early to call a trend); |loss Morton - loss
+    "xla"| <= TRAIN_LOSS_BOUND at every step (bf16 roundings; an element
+    whose tiny gradient differs in sign moves 2 lr the other way); B1's
+    launches per step exactly ``train_launches_per_step`` under the
+    config's remat, none under "xla".  Returns (record, the path's
+    launches)."""
     import math
 
     import torch
 
-    from repro_torch.configs import get_config
     import repro_torch.kernels.grad as grad_mod
 
     torch.cuda.empty_cache()
-    cfg = get_config("qwen3_1_7b")
-    gemm_err = check_train_gemms(cfg)
-    batches = train_batches(cfg, TRAIN_STEPS)
+    gemm_err = check_train_gemms(cfg, roles)
+    batches = train_batches(cfg, steps)
     params = train_params(cfg)
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[train] (b) {cfg.name} full width, {cfg.n_layers} layers, bf16,"
-          f" seed 0; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens; B1 launches per step {train_launches_per_step(cfg)} = "
-          f"22 L + 3")
+    want = train_launches_per_step(cfg,
+                                   remat_full=cfg.remat_policy == "full")
+    print(f"[train] (b) {cfg.name} full width, {cfg.n_layers} layers, bf16, "
+          f"{n_params / 1e9:.3f}e9 parameters, seed 0, remat "
+          f"{cfg.remat_policy}; {steps} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens; B1 launches per step {want}")
     grads = train_grads_checks(cfg, params, batches[0])
     del params
     torch.cuda.empty_cache()
     grad_mod.transpose_bytes = 0
     morton = run_train_steps(cfg, "morton", batches, smi)
-    t_bytes = grad_mod.transpose_bytes / (TRAIN_STEPS + 1)
+    t_bytes = grad_mod.transpose_bytes / (steps + 1)
     xla = run_train_steps(cfg, "xla", batches, smi)
     fails = []
     ln_v = math.log(cfg.vocab)
     if abs(morton["losses"][0] - ln_v) > LOSS0_BOUND:
         fails.append(f"step-0 loss {morton['losses'][0]} not near {ln_v}")
-    if not morton["losses"][-1] < morton["losses"][0]:
+    if steps > 2 and not morton["losses"][-1] < morton["losses"][0]:
         fails.append(f"loss did not fall: {morton['losses']}")
     dl = [abs(a - b) for a, b in zip(morton["losses"], xla["losses"])]
     if max(dl) > TRAIN_LOSS_BOUND:
         fails.append(f"|loss morton - xla| {dl}")
-    want = train_launches_per_step(cfg)
     if any(n != want for n in morton["launches"]) or any(xla["launches"]):
         fails.append(f"launches morton {morton['launches']}, xla "
                      f"{xla['launches']}")
-    print(f"[train] (b) gates: step-0 loss {morton['losses'][0]:.4f} against"
-          f" ln(vocab) {ln_v:.4f} (bound {LOSS0_BOUND}); |loss morton - "
-          f"xla| per step " + ", ".join(f"{x:.2e}" for x in dl)
+    print(f"[train] (b) {cfg.name} gates: step-0 loss "
+          f"{morton['losses'][0]:.4f} against ln(vocab) {ln_v:.4f} (bound "
+          f"{LOSS0_BOUND}); |loss morton - xla| per step "
+          + ", ".join(f"{x:.2e}" for x in dl)
           + f" (bound {TRAIN_LOSS_BOUND}); transposed operand copies "
           f"{t_bytes / 1e9:.3f} GB a step; "
           f"{'ok' if not fails else 'FAIL ' + str(fails)}")
     if fails:
-        raise SystemExit(f"chip_smoke: train (b) failed: {fails}")
-    f32 = train_f32_check(cfg)
-    cli = train_cli_phase()
-    timing = time_train_gemms(cfg, n_params, smi)
-    rec = {"gemm_max_abs_err": gemm_err, "grads": grads, "morton": morton,
-           "xla": xla, "launches_per_step": want,
-           "transpose_gb_per_step": t_bytes / 1e9, "f32": f32, "cli": cli,
-           "b1": timing, "card": smi}
+        raise SystemExit(f"chip_smoke: train (b) {cfg.name} failed: {fails}")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+           "remat": cfg.remat_policy, "gemm_max_abs_err": gemm_err,
+           "grads": grads, "morton": morton, "xla": xla,
+           "launches_per_step": want, "transpose_gb_per_step": t_bytes / 1e9,
+           "card": smi}
     return rec, {"B1": sum(morton["launches"])}
+
+
+def train_phase(smi: str) -> tuple[dict, dict]:
+    """The training path: qwen3-1.7b through ``train_arch`` (B1's
+    backward GEMMs, TRAIN_STEPS steps), then (c) f32 gradients against
+    the plain versions, (d) retry and resume through the CLI, (e) B1's
+    timings at the step's shapes.  Returns the ``train`` line's object
+    and the path's launches."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3_1_7b")
+    rec, launches = train_arch(cfg, smi, TRAIN_STEPS, ("dgrad", "wgrad"))
+    rec["f32"] = train_f32_check(cfg)
+    rec["cli"] = train_cli_phase()
+    rec["b1"] = time_train_gemms(cfg, rec["params"], smi)
+    return rec, launches
 
 
 def main() -> int:
@@ -3805,7 +4098,17 @@ def main() -> int:
     tuner, tuner_launches = tuner_phase(cfg, smi)
     serve_layouts, layout_steps, ring, layout_launches = layouts_phase(
         sv, cv, prof_paged, smi)
+    families, family_launches = families_phase(smi)
+    layout_launches.update(family_launches)
     train, train_launches = train_phase(smi)
+    fam_train = []
+    for name in FAMILY_TRAIN:
+        rec, n = train_arch(get_config(name), smi, FAMILY_TRAIN_STEPS,
+                            ("fwd", "dgrad", "wgrad"))
+        fam_train.append(rec)
+        layout_launches[f"train {rec['arch']}"] = n
+    families["train"] = fam_train
+    families["card"] = smi
     # every path's launches, each read just after its own zeroing: the
     # three serving runs, the observed and the faulted runs (summed over
     # each phase's runs), the study, the study's energy windows and the
@@ -3823,6 +4126,14 @@ def main() -> int:
     for row, kid in zip(rows, ("B1", "B2", "B3", "B4")):
         row["launches"] = launches[kid]
         row["max_abs_err"] = errs[kid]
+    # per decode step of every other arch and layout (the families' new
+    # shapes included), beside the serving shape's above
+    for r in layout_steps + families["step"]:
+        for row, kid in zip(rows[:2], ("B1", "B2")):
+            if kid in r.get("times", {}):
+                row.setdefault("by_arch", {})[
+                    f"{r['arch']} {r['layout']}"] = {
+                    **r["times"][kid], "launches": r["launches"][kid]}
     for row in long_rows:
         row["max_abs_err"] = errs[f"B2@{row['tokens_per_slot']}"]
     print("kernels: [B1 sfc_matmul, B2 paged_decode_attention, B3 "
@@ -3856,13 +4167,23 @@ def main() -> int:
     print(json.dumps({"layout_step": layout_steps, "card": smi}))
     print(json.dumps({"swa_ring": ring}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"launches_by_path": by_path}))
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("by_arch",)
+                                   if k in r} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _leaf_names(tree, prefix: str = "") -> list[str]:
+    """Dotted paths of a parameter tree's leaves in ``tree_leaves``'s
+    (sorted-key) order."""
+    return [n for k in sorted(tree) for n in (
+        _leaf_names(tree[k], f"{prefix}{k}.") if isinstance(tree[k], dict)
+        else [prefix + k])]
 
 
 def _leaves(tree):

@@ -1,15 +1,20 @@
 """Architecture registry (port of ``repro.configs``).
 
-The four dense archs are ported (``qwen3_1_7b``, ``glm4_9b``,
-``deepseek_coder_33b`` and ``h2o_danube_3_4b``, the last with a sliding
-window); the reference's other six raise ``KeyError`` until their model
-families are ported (ROADMAP.md, queue A item 11).
+Eight archs are ported: the dense ``qwen3_1_7b``, ``glm4_9b``,
+``deepseek_coder_33b`` and ``h2o_danube_3_4b`` (a sliding window), the
+moe ``granite_moe_1b_a400m`` and ``granite_moe_3b_a800m``, the ssm
+``mamba2_780m`` and the hybrid ``hymba_1_5b`` (a sliding window beside
+its SSD).  The reference's encoder and vlm archs (``hubert_xlarge``,
+``llava_next_34b``) raise ``KeyError`` until their frontends are ported
+(ROADMAP.md, queue A item 11).
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["qwen3_1_7b", "glm4_9b", "deepseek_coder_33b", "h2o_danube_3_4b"]
+ARCHS = ["qwen3_1_7b", "glm4_9b", "deepseek_coder_33b", "h2o_danube_3_4b",
+         "granite_moe_1b_a400m", "granite_moe_3b_a800m", "mamba2_780m",
+         "hymba_1_5b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHS}
 

@@ -1,5 +1,6 @@
 """Batched serving loop, lockstep or continuous, over either KV layout
-(port of ``repro.launch.serve.ServeLoop`` for the dense archs).
+(port of ``repro.launch.serve.ServeLoop``: the dense, moe, ssm and
+hybrid archs).
 
 A fixed pool of decode slots keeps its KV cache in one of two layouts
 (:attr:`repro_torch.serve.ServeConfig.layout`): ``contiguous`` (the
@@ -23,13 +24,17 @@ ServeConfig.mode`):
   write into a shared page forks a private copy first (copy-on-write).
 
 Both schedulers and both layouts give the same greedy tokens for the
-same requests, as in the reference.  Every slot decodes on its own
-position, SWA archs included: the reference keeps those on one shared
-position, the oldest live slot's, so a request admitted later reads
-ring entries it never wrote (ROADMAP.md queue C); here a row's ring
-validity follows its own clock.  Pool exhaustion (paged) preempts the
-most recently admitted other busy slot, which rejoins the queue with
-its full context.  Every projection runs through the SFC GEMM kernel
+same requests, as in the reference.  The ssm and hybrid families (an
+SSD state per slot) serve lockstep on the contiguous layout only, as
+in the reference; a slot's SSD rows are zeroed when a request is
+admitted into it (the reference's next request starts from the
+previous occupant's state, ROADMAP.md queue C).  Every slot decodes on
+its own position, SWA and hybrid archs included: the reference keeps
+those on one shared position, the oldest live slot's, so a request
+admitted later reads ring entries it never wrote (queue C); here a
+row's ring validity follows its own clock.  Pool exhaustion (paged)
+preempts the most recently admitted other busy slot, which rejoins the
+queue with its full context.  Every projection runs through the SFC GEMM kernel
 (the rows path in decode, the tile path in a prefill chunk) and every
 paged decode step's attention through the paged decode kernel when the
 engine has a curve schedule and the device is ``cuda``; the contiguous
@@ -92,6 +97,12 @@ is not a transient fault and propagates.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch h2o_danube_3_4b --cache-len 64 --requests 4 --max-new 16
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite_moe_3b_a800m --layout paged --mode continuous
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b \\
+      --requests 4 --max-new 16
 
 (``--smoke --device cpu`` runs the SMOKE config on the CPU.)
 """
@@ -712,6 +723,12 @@ class ServeLoop:
             if self.paged:
                 self._scrub_pages(self.alloc.ensure_range(slot, len(prompt)))
                 self._sync_tables()
+            if self.cfg.has_ssm:
+                # the request starts as it would alone: the reference
+                # keeps the previous occupant's SSD rows (ROADMAP.md
+                # queue C)
+                self.state["ssm_h"][:, slot] = 0
+                self.state["ssm_conv"][:, slot] = 0
             mask = np.zeros(self.slots, bool)
             mask[slot] = True
             # one "prefill" reading, all of it this request's
@@ -746,8 +763,10 @@ class ServeLoop:
         """Contiguous strips without a ring: a request writes positions
         [0, len(prompt) + the tokens it has left), and every one must
         lie within ``cache_len``; raises otherwise, as a paged slot
-        that outgrows its block table does.  An SWA ring wraps."""
-        if self.paged or self.cfg.swa_window is not None:
+        that outgrows its block table does.  An SWA ring wraps, and an
+        ssm state has no strips."""
+        if self.paged or self.cfg.swa_window is not None \
+                or not self.cfg.has_attention:
             return
         left = max(max_new - self.request_emitted.get(req_id, 0), 0)
         if len(prompt) + left > self.cache_len:

@@ -1,15 +1,19 @@
-"""Dense transformer backbone (port of ``repro.models.transformer``):
-parameter init with the reference's distributions, the decode state of
-either KV layout (:func:`init_decode_state`), single-shot and chunked
-prefill and the decode step, each into the paged pool or into the
-contiguous per-slot strips (a ring of one window under SWA).
-Per-layer parameters are stacked on a leading ``n_layers`` axis as in
-the reference; a Python loop over that axis takes the place of
-``lax.scan``.  The full-sequence :func:`forward` and :func:`loss_fn`
-train the dense family through autograd: every projection is B1's
-autograd ``Function`` (``repro_torch.kernels.grad``), the stacked
-parameters are unbound once per forward, and ``cfg.remat`` selects a
-per-layer checkpoint (``"full"``) or the GEMM-output-keeping ``"dots"``.
+"""Backbone assembly (port of ``repro.models.transformer``) for the
+dense, moe, ssm and hybrid families: parameter init with the
+reference's distributions, the decode state of either KV layout
+(:func:`init_decode_state`; ssm and hybrid states are contiguous and
+carry the SSD's ``ssm_h``/``ssm_conv``), single-shot and chunked
+prefill (pure-attention families) and the decode step, each into the
+paged pool or into the contiguous per-slot strips (a ring of one window
+under SWA).  Per-layer parameters are stacked on a leading ``n_layers``
+axis as in the reference, drawn a layer at a time; a Python loop over
+that axis takes the place of ``lax.scan``.  The full-sequence
+:func:`forward` and :func:`loss_fn` train through autograd: every
+projection is B1's autograd ``Function`` (``repro_torch.kernels.grad``),
+the stacked parameters are unbound once per forward, and ``cfg.remat``
+selects a per-layer checkpoint (``"full"``) or the GEMM-output-keeping
+``"dots"``.  The encoder and vlm frontends wait for their slice
+(ROADMAP.md queue A, A11).
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import torch.utils.checkpoint
 from repro_torch.device import resolve_device
 
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ArchConfig
 from .layers import DotEngine, init_linear, init_rms, init_swiglu, rms_norm, \
     rope, swiglu_mlp
@@ -57,42 +63,62 @@ def fused_epilogue_savings_bytes(cfg: ArchConfig, tokens: int) -> float:
     return saved
 
 
+def _require_family(cfg: ArchConfig):
+    """Raise for the families whose frontends are not ported yet."""
+    if cfg.family in ("encoder", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} comes with its frontend, not ported yet "
+            f"(ROADMAP.md queue A, A11)")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
 def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
                device=None) -> dict[str, Any]:
     """Random parameters with the reference's distributions: linears
     normal / sqrt(d_in), ``embed`` 0.02 * normal at ``padded_vocab``
-    rows, norms ones; per-layer tensors stacked on a leading n_layers
-    axis.  Drawn with ``generator`` (seed 0 on ``device`` when None)
-    straight on ``device`` (``cuda`` unless the caller asks for cpu).
-    The numbers differ from the reference's jax.random draws; use
-    :func:`repro_torch.models.convert.params_from_jax` for identical
-    weights."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A)")
+    rows, norms ones, the moe and ssm families' own
+    (:func:`~repro_torch.models.moe.init_moe`,
+    :func:`~repro_torch.models.ssm.init_ssm`); per-layer tensors stacked
+    on a leading n_layers axis, each layer drawn on its own into the
+    stack (the f32 temporary is one layer's matrix).  Drawn with
+    ``generator`` (seed 0 on ``device`` when None) straight on
+    ``device`` (``cuda`` unless the caller asks for cpu).  The numbers
+    differ from the reference's jax.random draws; use :func:`repro_torch.models.convert.params_from_jax` for
+    identical weights."""
+    _require_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, device {dev}")
     dtype = cfg.param_torch_dtype()
-    lead = (cfg.n_layers,)
-    kw = dict(lead=lead, device=dev)
-    layers = {
-        "norm1": init_rms(cfg.d_model, dtype, **kw),
-        "attn": attn_mod.init_attention(generator, cfg, dtype, **kw),
-        "norm2": init_rms(cfg.d_model, dtype, **kw),
-        "mlp": init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype, **kw),
-    }
+    d = cfg.d_model
+    kw = dict(lead=(cfg.n_layers,), device=dev)
+    layers: dict[str, Any] = {"norm1": init_rms(d, dtype, **kw)}
+    if cfg.has_attention:
+        layers["attn"] = attn_mod.init_attention(generator, cfg, dtype, **kw)
+    if cfg.has_ssm:
+        layers["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype, **kw)
+    if cfg.family == "hybrid":
+        layers["attn_out_norm"] = init_rms(d, dtype, **kw)
+        layers["ssm_out_norm"] = init_rms(d, dtype, **kw)
+    if cfg.family != "ssm":
+        layers["norm2"] = init_rms(d, dtype, **kw)
+    if cfg.family == "moe":
+        layers["moe"] = moe_mod.init_moe(generator, cfg, dtype, **kw)
+    elif cfg.family != "ssm":
+        layers["mlp"] = init_swiglu(generator, d, cfg.d_ff, dtype, **kw)
     params: dict[str, Any] = {
         "layers": layers,
-        "final_norm": init_rms(cfg.d_model, dtype, device=dev),
+        "final_norm": init_rms(d, dtype, device=dev),
     }
-    embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator,
+    embed = torch.randn((cfg.padded_vocab, d), generator=generator,
                         dtype=torch.float32, device=dev)
     params["embed"] = (embed * 0.02).to(dtype)
-    params["lm_head"] = init_linear(generator, cfg.d_model, cfg.padded_vocab,
-                                    dtype, device=dev)
+    del embed
+    params["lm_head"] = init_linear(generator, d, cfg.padded_vocab, dtype,
+                                    device=dev)
     return params
 
 
@@ -105,11 +131,14 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     CONTIGUOUS, as in the reference).
 
     PAGED: :func:`~repro_torch.serve.paged_kv.init_paged_decode_state`
-    (``cache_len`` only sizes the default pool).  CONTIGUOUS: ``k`` and
-    ``v`` strips of shape (n_layers, batch, c, n_kv_heads, d_head), c =
-    ``cache_len`` or, under SWA, ``min(cache_len, swa_window)`` (a ring
-    of one window), zero, and ``kv_pos`` (c,) int32 filled with -1, the
-    position each entry holds.  On ``device`` (``cuda`` unless the
+    (``cache_len`` only sizes the default pool; pure-attention families).
+    CONTIGUOUS, for a family with attention: ``k`` and ``v`` strips of
+    shape (n_layers, batch, c, n_kv_heads, d_head), c = ``cache_len``
+    or, under SWA, ``min(cache_len, swa_window)`` (a ring of one
+    window), zero, and ``kv_pos`` (c,) int32 filled with -1, the
+    position each entry holds; for a family with an SSD: ``ssm_h``
+    (n_layers, batch, H, P, N) f32 and ``ssm_conv`` (n_layers, batch,
+    3, conv_dim) in ``dtype``, zero.  On ``device`` (``cuda`` unless the
     caller asks for cpu)."""
     from repro_torch.serve.state import DecodeState, KVLayout, \
         resolve_layout
@@ -121,17 +150,24 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
             cfg, batch, page_size=page_size, num_pages=num_pages,
             max_pages_per_slot=max_pages_per_slot, cache_len=cache_len,
             dtype=dtype, device=device)
-    _require_dense(cfg, "the contiguous decode state")
+    _require_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.act_torch_dtype()
-    c = cache_len if cfg.swa_window is None \
-        else min(cache_len, cfg.swa_window)
-    shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.d_head)
-    return DecodeState({
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "kv_pos": torch.full((c,), -1, dtype=torch.int32, device=dev),
-    }, KVLayout.CONTIGUOUS)
+    st: dict[str, Any] = {}
+    if cfg.has_attention:
+        c = cache_len if cfg.swa_window is None \
+            else min(cache_len, cfg.swa_window)
+        shape = (cfg.n_layers, batch, c, cfg.n_kv_heads, cfg.d_head)
+        st["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        st["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        st["kv_pos"] = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    if cfg.has_ssm:
+        shp = ssm_mod.ssm_state_shape(cfg, batch)
+        st["ssm_h"] = torch.zeros((cfg.n_layers, *shp["h"]),
+                                  dtype=torch.float32, device=dev)
+        st["ssm_conv"] = torch.zeros((cfg.n_layers, *shp["conv"]),
+                                     dtype=dtype, device=dev)
+    return DecodeState(st, KVLayout.CONTIGUOUS)
 
 
 def _layer(tree, i: int):
@@ -156,18 +192,29 @@ def _unbind_layers(tree, n: int) -> list[dict]:
 
 
 def _layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
-    """One layer of the full-sequence forward -> (x, aux).  Dense: the
-    residual adds ride the out-projection's and the down-projection's
-    fused epilogues, as in the reference."""
-    if cfg.family not in ("dense", "encoder", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A, "
-            f"A11)")
-    x = attn_mod.attention(rms_norm(x, lp["norm1"]), lp["attn"], cfg,
-                           engine, cos, sin, q_chunk=cfg.attn_q_chunk,
-                           residual=x)
-    x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine, residual=x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """One layer of the full-sequence forward -> (x, aux), the
+    reference's branch per family.  The residual adds ride the
+    out-projection's and the down-projection's fused epilogues where
+    the reference fuses them; ``aux`` is the moe router's load-balance
+    loss (0 for the other families)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        return x + ssm_mod.ssd_forward(rms_norm(x, lp["norm1"]), lp["ssm"],
+                                       cfg, engine, chunk=cfg.ssd_chunk), zero
+    if cfg.family == "hybrid":
+        h = rms_norm(x, lp["norm1"])
+        a = attn_mod.attention(h, lp["attn"], cfg, engine, cos, sin,
+                               q_chunk=cfg.attn_q_chunk)
+        s = ssm_mod.ssd_forward(h, lp["ssm"], cfg, engine,
+                                chunk=cfg.ssd_chunk)
+        x = x + 0.5 * (rms_norm(a, lp["attn_out_norm"])
+                       + rms_norm(s, lp["ssm_out_norm"]))
+    else:
+        x = attn_mod.attention(rms_norm(x, lp["norm1"]), lp["attn"], cfg,
+                               engine, cos, sin, q_chunk=cfg.attn_q_chunk,
+                               residual=x)
+    x, aux = _ffn(x, lp, cfg, engine, impl="auto")
+    return x, zero if aux is None else aux
 
 
 def _remat_layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
@@ -213,7 +260,8 @@ def forward(params, cfg: ArchConfig, batch, engine: DotEngine | None = None):
     when ``cfg.remat`` and grad mode are on), ``final_norm``, and the
     vocab head with its f32 output fused into the GEMM; padded vocab
     columns are masked to -1e30.  ``aux`` is the mean of the layers'
-    auxiliary losses (0 for the dense family)."""
+    auxiliary losses (the moe router's load-balance loss; 0 for the
+    other families)."""
     engine = engine or DotEngine()
     x = embed_inputs(params, cfg, batch, engine)
     s = x.shape[1]
@@ -275,6 +323,31 @@ def _decode_rope(cfg: ArchConfig, pos, device):
     return cos[:, None], sin[:, None]
 
 
+def _ffn(x, lp, cfg: ArchConfig, engine: DotEngine, impl: str = "dense"):
+    """The block's second half -> (x, aux): the SwiGLU MLP (its residual
+    fused; aux None), or the moe layer through ``moe_ffn(impl=...)``:
+    ``"dense"``, dropless, in decode and prefill as in the reference,
+    ``"auto"`` in training."""
+    h = rms_norm(x, lp["norm2"])
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_ffn(h, lp["moe"], cfg, engine, impl=impl)
+        return x + y, aux
+    return swiglu_mlp(h, lp["mlp"], engine, residual=x), None
+
+
+def _ssm_step(h, lp, cfg: ArchConfig, engine: DotEngine, state, i: int,
+              row_mask):
+    """Layer ``i``'s SSD decode from the state's ``ssm_h``/``ssm_conv``
+    rows, written back in place (rows off ``row_mask`` keep theirs)."""
+    y, new = ssm_mod.ssm_decode(
+        h, lp["ssm"], cfg, engine,
+        {"h": state["ssm_h"][i], "conv": state["ssm_conv"][i]},
+        row_mask=row_mask)
+    state["ssm_h"][i] = new["h"]
+    state["ssm_conv"][i] = new["conv"]
+    return y
+
+
 def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
                        engine: DotEngine, row_mask):
     from repro_torch.serve.paged_kv import physical_rows, zero_row_index
@@ -293,8 +366,7 @@ def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
         x, kp, vp = attn_mod.paged_decode_attention(
             h, lp["attn"], cfg, engine, kp, vp, phys[i], bt, pos, cos, sin,
             row_mask, residual=x)
-        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
-                       residual=x)
+        x, _ = _ffn(x, lp, cfg, engine)
     x = rms_norm(x, params["final_norm"])
     logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
     return _mask_padded_vocab(logits, cfg), state
@@ -308,36 +380,48 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
     layers (:func:`~repro_torch.models.attention.decode_plan`).  A
     scalar ``pos`` then sets ``kv_pos`` at that entry, as the reference
     does; per-row positions leave ``kv_pos`` alone, since their
-    validity comes from each row's own clock and never reads it."""
+    validity comes from each row's own clock and never reads it.  The
+    SSD's rows (ssm and hybrid) are updated in place; the ssm family
+    reads no position."""
     dev = tokens.device
     x = params["embed"][tokens.long()].to(cfg.act_torch_dtype())
-    cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
-    k, v, kv_pos = state["k"], state["v"], state["kv_pos"]
     p = torch.as_tensor(pos, device=dev).to(torch.int64)
-    slot = torch.remainder(p, k.shape[2])
-    plan = attn_mod.decode_plan(cfg, k.shape[1], k.shape[2], kv_pos, slot,
-                                p, row_mask, dev)
+    if cfg.has_attention:
+        cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
+        k, v, kv_pos = state["k"], state["v"], state["kv_pos"]
+        slot = torch.remainder(p, k.shape[2])
+        plan = attn_mod.decode_plan(cfg, k.shape[1], k.shape[2], kv_pos,
+                                    slot, p, row_mask, dev)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
-        x, _, _ = attn_mod.decode_attention(
-            rms_norm(x, lp["norm1"]), lp["attn"], cfg, engine, k[i], v[i],
-            kv_pos, slot, p, cos, sin, row_mask, residual=x, plan=plan)
-        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
-                       residual=x)
-    if p.dim() == 0:
+        h = rms_norm(x, lp["norm1"])
+        if cfg.family == "ssm":
+            x = x + _ssm_step(h, lp, cfg, engine, state, i, row_mask)
+            continue
+        if cfg.family == "hybrid":
+            a, _, _ = attn_mod.decode_attention(
+                h, lp["attn"], cfg, engine, k[i], v[i], kv_pos, slot, p, cos,
+                sin, row_mask, plan=plan)
+            s = _ssm_step(h, lp, cfg, engine, state, i, row_mask)
+            x = x + 0.5 * (rms_norm(a, lp["attn_out_norm"])
+                           + rms_norm(s, lp["ssm_out_norm"]))
+        else:
+            x, _, _ = attn_mod.decode_attention(
+                h, lp["attn"], cfg, engine, k[i], v[i], kv_pos, slot, p,
+                cos, sin, row_mask, residual=x, plan=plan)
+        x, _ = _ffn(x, lp, cfg, engine)
+    if cfg.has_attention and p.dim() == 0:
         kv_pos[slot] = p.to(kv_pos.dtype)
     x = rms_norm(x, params["final_norm"])
     logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
     return _mask_padded_vocab(logits, cfg), state
 
 
-def _require_dense(cfg: ArchConfig, what: str):
+def _require_attention_only(cfg: ArchConfig, what: str):
+    _require_family(cfg)
     if not cfg.has_attention or cfg.has_ssm:
         raise ValueError(
             f"{what} needs a pure-attention family, got {cfg.family!r}")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md queue A)")
 
 
 def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
@@ -352,9 +436,11 @@ def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
     [0, L) (L must fit them), with ``kv_pos[:L] = 0 .. L-1``.  Returns
     ``(logits (1, L, padded_vocab) f32, state)``: the cache in
     ``state`` is updated **in place** (the returned state is the same
-    object).  Dense family."""
+    object).  Pure-attention families (dense, moe: its all-experts
+    combine); ssm and hybrid states prefill token by token through
+    :func:`decode_step`."""
     engine = engine or DotEngine()
-    _require_dense(cfg, "prefill_kv")
+    _require_attention_only(cfg, "prefill_kv")
     paged = state.layout.is_paged
     dev = (state["k_pages"] if paged else state["k"]).device
     toks = torch.as_tensor(tokens, device=dev).to(torch.int64).reshape(1, -1)
@@ -379,8 +465,7 @@ def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
         x, k, v = attn_mod.attention(h, lp["attn"], cfg, engine, cos, sin,
                                      q_chunk=seq, residual=x,
                                      return_kv=True)
-        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
-                       residual=x)
+        x, _ = _ffn(x, lp, cfg, engine)
         ks.append(k[0])
         vs.append(v[0])
     if paged:
@@ -441,9 +526,10 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
     loop on per-row positions never reads it).  Returns the state, whose
     cache is updated **in place** (the same object).  No logits: the
     serving loop samples the first token from a decode step fed the
-    prompt's last token.  Dense family."""
+    prompt's last token.  Pure-attention families, like
+    :func:`prefill_kv`."""
     engine = engine or DotEngine()
-    _require_dense(cfg, "chunked prefill")
+    _require_attention_only(cfg, "chunked prefill")
     paged = state.layout.is_paged
     kc, vc = (state["k_pages"], state["v_pages"]) if paged \
         else (state["k"], state["v"])
@@ -511,8 +597,7 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
             vf = vc[i, slots_v]
         o = attn_mod._sdpa(q, kf, vf, mask, scale)
         x = engine.dot(o.reshape(g, chunk, -1), lp["attn"]["wo"], residual=x)
-        x = swiglu_mlp(rms_norm(x, lp["norm2"]), lp["mlp"], engine,
-                       residual=x)
+        x, _ = _ffn(x, lp, cfg, engine)
     if not paged:
         kv_pos = state["kv_pos"]
         flat = pos2d.reshape(-1)[wi]
@@ -530,13 +615,16 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos,
     kernel) or the contiguous strips, a ring of one window under SWA
     (``slot = pos % c``; a vector ``pos`` then takes each row's
     validity from its own clock, :func:`~repro_torch.models.attention.
-    decode_attention`).  Dense family.
+    decode_attention`).  The dense and moe families decode in either
+    layout (moe through the all-experts combine); ssm and hybrid states
+    are contiguous (the hybrid's attention takes no residual, its SSD
+    rows and the ssm family's are updated in place).
 
     Returns (logits (B, 1, padded_vocab) f32, state).  The cache in
     ``state`` is updated **in place** (the returned state is the same
     object); clone the state first to keep the old one."""
     engine = engine or DotEngine()
-    _require_dense(cfg, "decode_step")
+    _require_family(cfg)
     step = _decode_step_paged if state.layout.is_paged \
         else _decode_step_contiguous
     return step(params, cfg, state, tokens, pos, engine, row_mask)

@@ -98,9 +98,8 @@ def test_configs_equal_reference_field_by_field(arch, which):
 
 
 def test_registry_holds_the_dense_archs_and_names_the_rest():
-    assert ARCHS == DENSE
-    for arch in ("mamba2_780m", "granite_moe_1b_a400m", "hymba_1_5b",
-                 "llava_next_34b", "hubert_xlarge", "granite_moe_3b_a800m"):
+    assert ARCHS[:4] == DENSE
+    for arch in ("llava_next_34b", "hubert_xlarge"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_config(arch)
 

@@ -461,10 +461,11 @@ def test_chunk_scatter_at_the_strips_end():
 
 
 def test_decode_step_rejects_non_dense_family():
-    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"), family="moe")
+    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                              family="encoder")
     st = init_decode_state(get_smoke_config("qwen3_1_7b"), 1, 8,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(NotImplementedError, match="encoder"):
         decode_step({}, cfg, st, torch.zeros(1, 1, dtype=torch.int32), 0)
 
 

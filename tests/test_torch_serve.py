@@ -144,7 +144,7 @@ def test_qwen3_configs_equal_reference_field_by_field(get_t, get_j):
 
 def test_unported_arch_raises_and_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mamba2_780m")
+        get_config("hubert_xlarge")
 
 
 def test_init_model_tree_and_distributions_match_reference():

@@ -116,7 +116,8 @@ def test_forward_loss_and_grads_match_reference(arch, mask):
             logits, aux = forward(p, cfg, b, DotEngine())
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits),
                                    atol=1e-5, rtol=0)
-        assert float(aux) == 0.0
+        if cfg.family != "moe":
+            assert float(aux) == 0.0
 
 
 def test_padded_vocab_is_masked_as_the_reference_masks_it():
