@@ -70,7 +70,22 @@ just before it and read just after:
   and depth through the same ``train_arch``: B1's forward, dgrad and
   wgrad GEMMs at their shapes against the plain version, the same
   step-0 gradient checks, and 2 steps of each schedule from the seed-0
-  state with their joules and a profiled step.
+  state with their joules and a profiled step;
+* the frontend archs, last (``frontends_phase``): hubert-xlarge (the
+  encoder) at full width and all 48 layers, B1 at its encode shapes
+  (``frontend_proj`` at M = 4096, K = 512; the layers; the head at N =
+  512) against the plain version, 4 clips of 1024 frames encoded under
+  Morton and ``"xla"`` (ms, frames/s, J, peak memory, the logits against
+  the plain versions), then 2 training steps of 4 x 256 frames through
+  ``train_arch``; llava-next-34b (the vlm) at full width and all 60
+  layers (68.8 GB of bf16 weights, drawn a layer at a time; its peak
+  memory printed), its B1 decode and chunk shapes, B2 at group 7 and B1
+  at ``frontend_proj``'s 576-patch shape against the plain versions, 4
+  requests of 8 new tokens served continuous, paged and contiguous, its
+  decode steps against the plain versions, the f32 layouts check on its
+  first 4 layers, then training at full width on 4 of its 60 layers, 2 x
+  2048 tokens a step (each row carries the 576-patch prefix under its
+  loss mask).
 
 Energy is read from the card itself, through the port's
 ``NvmlBackend`` (NVML's cumulative energy counter, bound with ctypes),
@@ -118,8 +133,12 @@ families (``families``: tok/s, ms a step and J per token of each serving
 run, each arch's decode step against the plain versions and B1 and B2
 beside their bounds, each trained arch's record as on the ``train``
 line: losses, ms, J and peak memory per step per schedule, the
-profiles, the gradient errors per leaf, pinned and not), the card's
-name and power
+profiles, the gradient errors per leaf, pinned and not), the frontend
+archs (``frontends``: hubert's encodes per schedule with their ms,
+frames/s, J, peak memory and logit error, B1 per encode beside its
+bound, its training record; llava's serving runs, decode steps, peak
+memory, ``frontend_proj``'s time and its training record at its depth
+cut), the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
@@ -253,6 +272,17 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   top-k "xla" chose (``pinned_routing``): a bf16 difference that flips
   a token's top-8 moves the router's gradient by more than any kernel
   rounding, so the unpinned error, printed beside, measures the flips.
+* The frontends: hubert's B1 encode shapes and llava's ``frontend_proj``
+  (bf16 and f32) within B1's bounds and two launches bit-equal; an
+  encode's launches exactly 7 L + 2 B1 under Morton and none under
+  "xla", its logits finite and, under Morton, within LOGIT_BOUND of the
+  same encode on the plain versions (the "xla" error printed); llava's
+  serving runs' and decode steps' launches exact (7 B1 a layer, as
+  dense: serving takes no vision prefix), its steps within LOGIT_BOUND
+  and its f32 layouts check within LOGIT_BOUND_F32; both archs' training
+  under the families' gates, B1's launches a step exactly
+  ``train_launches_per_step`` with ``frontend_proj``'s forward and
+  wgrad (hubert 22 L + 5 under "dots", llava 29 L + 5 under "full").
 """
 from __future__ import annotations
 
@@ -369,8 +399,11 @@ class Report:
 # B1 launches a layer of a decode step and of a prefill chunk, by family:
 # the attention's wq, wk, wv, wo; the SSD's in_proj and out_proj; the
 # SwiGLU MLP's w1, w3, w2 (the moe's experts are torch einsums, as they
-# are XLA in the reference)
-B1_PER_LAYER = {"dense": 7, "moe": 4, "ssm": 2, "hybrid": 9}
+# are XLA in the reference); the vlm's and the encoder's layers are dense
+B1_PER_LAYER = {"dense": 7, "moe": 4, "ssm": 2, "hybrid": 9, "vlm": 7,
+                "encoder": 7}
+# the families whose layers end in a SwiGLU MLP
+MLP_FAMILIES = ("dense", "hybrid", "vlm", "encoder")
 
 
 def main_path_gemms(cfg):
@@ -393,7 +426,7 @@ def main_path_gemms(cfg):
         proj = 2 * d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
         rows += [("in_proj", SLOTS, d, proj, "none", False, n_l),
                  ("out_proj", SLOTS, d_inner, d, "none", False, n_l)]
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in MLP_FAMILIES:
         f = cfg.d_ff
         rows += [("w1+silu", SLOTS, d, f, "silu", False, n_l),
                  ("w3", SLOTS, d, f, "none", False, n_l),
@@ -2751,7 +2784,7 @@ def tuner_phase(cfg, smi: str) -> tuple[dict, dict]:
 # ------------------------------------------- layouts and dense archs ----
 GLM4_REQUESTS = 4              # glm4-9b serving: 4 of the 6 prompts
 GLM4_MAX_NEW = 8
-DEEPSEEK_F32_LAYERS = 4        # its f32 layouts check: the first 4 of 62
+F32_CHECK_LAYERS = 4           # deepseek's and llava's f32 layouts check
 SWA_CACHE = 4096               # h2o-danube-3-4b's window: one whole ring
 SWA_PREFILL = (4092, 4094, 100, 300)
 SWA_STEPS = 8                  # rows 0 and 1 wrap, rows 2 and 3 do not
@@ -2847,9 +2880,55 @@ def check_arch_kernels(cfg, paged: bool, chunk: bool = True) -> dict:
     return errs
 
 
+def time_b1(label: str, rows, flush, iters: int = 20) -> dict:
+    """B1 over ``rows`` (name, M, K, N, epilogue, out f32, launches) in
+    bf16: per-launch CUDA-event times (L2 flushed) times the launches,
+    summed, beside its plain version, ``torch.matmul`` on the same
+    operands (bf16 out, no epilogue) and its bound, the larger of the
+    bytes (each operand read once, the output written once) over the
+    memory rate and the operations over the bf16 tensor-core peak;
+    ``bound_by`` names the larger side of the sum."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
+        sfc_matmul_plain, tile_schedule
+
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    by_bytes = by_ops = 0.0
+    for name, m, k, n, ep, f32, count in rows:
+        a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
+        out_dtype = torch.float32 if f32 else None
+        sched = tile_schedule("morton", -(-m // 128), -(-n // 128),
+                              use_prefetch=True, device="cuda")
+        ms = _time_ms(lambda: sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw),
+                      iters, flush)
+        plain = _time_ms(lambda: sfc_matmul_plain(
+            a, b, sched=sched, bm=128, bn=128, bk=128, out_dtype=out_dtype,
+            **kw), 3, flush)
+        lib = _time_ms(lambda: torch.matmul(a, b), iters, flush)
+        nbytes = (m * k + k * n) * 2 + m * n * (4 if f32 else 2) + \
+            (m * n * 2 if ep == "residual" else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * m * n * k / BF16_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by_bytes += count * t_bytes
+        by_ops += count * t_ops
+        print(f"  {label} {name:13s} {m}x{k}x{n}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f}, torch.matmul {lib:.4f}, bound "
+              f"{bound:.4f} ({'bytes' if t_bytes >= t_ops else 'operations'}"
+              f"), x{count}")
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", bound)):
+            b1[key] += count * v
+        del a, b, kw
+    return {**b1, "bound_by": "bytes" if by_bytes >= by_ops
+            else "operations"}
+
+
 def time_arch_step(cfg, state, pos, smi: str) -> dict:
-    """B1 per decode step at ``cfg``'s shapes (per-launch CUDA-event
-    times, L2 flushed, times the launches a step) beside its bytes
+    """B1 per decode step at ``cfg``'s shapes (``time_b1``: per-launch
+    CUDA-event times, L2 flushed, times the launches a step) beside its
     bound, its plain version and ``torch.matmul``; B2 per launch on a
     paged ``state`` at ``pos`` beside its bound."""
     import torch
@@ -2857,8 +2936,6 @@ def time_arch_step(cfg, state, pos, smi: str) -> dict:
     from repro_torch.kernels.paged_attention import \
         paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
-    from repro_torch.kernels.sfc_matmul import sfc_matmul_cuda, \
-        sfc_matmul_plain, tile_schedule
     from repro_torch.serve.paged_kv import physical_rows, zero_row_index
 
     scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2866,33 +2943,12 @@ def time_arch_step(cfg, state, pos, smi: str) -> dict:
     def flush():
         scratch.zero_()
 
-    gen = torch.Generator(device="cuda").manual_seed(98)
-    b1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for name, m, k, n, ep, f32, count in main_path_gemms(cfg):
-        a, b, kw = _gemm_inputs(m, k, n, torch.bfloat16, gen, ep)
-        out_dtype = torch.float32 if f32 else None
-        sched = tile_schedule("morton", 1, -(-n // 128), use_prefetch=True,
-                              device="cuda")
-        ms = _time_ms(lambda: sfc_matmul_cuda(a, b, out_dtype=out_dtype, **kw),
-                      20, flush)
-        plain = _time_ms(lambda: sfc_matmul_plain(
-            a, b, sched=sched, bm=128, bn=128, bk=128, out_dtype=out_dtype,
-            **kw), 3, flush)
-        lib = _time_ms(lambda: torch.matmul(a, b), 20, flush)
-        nbytes = (m * k + k * n) * 2 + m * n * (4 if f32 else 2) + \
-            (m * n * 2 if ep == "residual" else 0)
-        bound = max(nbytes / HBM_BYTES_PER_S,
-                    2.0 * m * n * k / BF16_FLOPS_PER_S) * 1e3
-        print(f"  {cfg.name} {name:10s} {m}x{k}x{n}: kernel {ms:.4f} ms, "
-              f"plain {plain:.4f}, torch.matmul {lib:.4f}, bound "
-              f"{bound:.4f} (bytes), x{count} a step")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                       ("bound_ms", bound)):
-            b1[key] += count * v
-    rec = {"B1": {**b1, "bound_by": "bytes"}}
+    b1 = time_b1(cfg.name, main_path_gemms(cfg), flush)
+    rec = {"B1": b1}
     print(f"[time] {cfg.name} B1 per decode step: {b1['ms']:.3f} ms against "
           f"a {b1['bound_ms']:.3f} ms bound ({b1['bound_ms'] / b1['ms']:.1%}),"
           f" torch.matmul {b1['library_ms']:.3f} ms ({smi})")
+    gen = torch.Generator(device="cuda").manual_seed(99)
     if state is not None and state.layout.is_paged:
         kp, vp = state["k_pages"], state["v_pages"]
         phys = physical_rows(state["page_perm"], state["block_tables"],
@@ -3172,7 +3228,7 @@ def deepseek_phase(smi: str) -> tuple[dict, list]:
     bf16 weights, drawn a layer at a time): its B1 shapes and B2 head
     width against the plain versions, its paged and contiguous decode
     steps (``layout_step``) and the peak memory; then its f32 layouts
-    check on the first DEEPSEEK_F32_LAYERS layers (an f32 copy of all 62
+    check on the first F32_CHECK_LAYERS layers (an f32 copy of all 62
     would take 133 GB).  Returns (kernel checks, layout_step rows)."""
     import dataclasses
 
@@ -3191,13 +3247,13 @@ def deepseek_phase(smi: str) -> tuple[dict, list]:
     print(f"[layout_step] {cfg.name} at all {cfg.n_layers} layers: peak "
           f"memory {init_peak / 1e9:.2f} GB after init, "
           f"{rows[-1]['peak_gb']:.2f} GB after its steps ({smi})")
-    cut = dataclasses.replace(cfg, n_layers=DEEPSEEK_F32_LAYERS)
+    cut = dataclasses.replace(cfg, n_layers=F32_CHECK_LAYERS)
     params = {**params, "layers": _tree_map(
-        lambda t: t[:DEEPSEEK_F32_LAYERS].clone(), params["layers"])}
+        lambda t: t[:F32_CHECK_LAYERS].clone(), params["layers"])}
     torch.cuda.empty_cache()
     rows[-1]["paged_vs_contiguous_f32"] = {
         **layouts_agree_f32(cut, params),
-        "cut": f"{DEEPSEEK_F32_LAYERS} of {cfg.n_layers} layers"}
+        "cut": f"{F32_CHECK_LAYERS} of {cfg.n_layers} layers"}
     del params
     torch.cuda.empty_cache()
     return errs, rows
@@ -3366,17 +3422,32 @@ TRAIN_F32_LAYERS = 2
 CLI_STEPS, CLI_FAIL_AT, CLI_RESUME_STEPS = 8, 5, 4
 
 
-def train_gemms(cfg, tokens: int):
+def frontend_tokens(cfg, shape) -> int:
+    """Rows ``frontend_proj`` projects in a batch of ``shape`` = (batch,
+    seq): every frame of an encoder's, the vlm's ``min(frontend_tokens,
+    seq // 2)`` patches a row (``make_batch``); none without a frontend."""
+    b, s = shape
+    if cfg.family == "encoder":
+        return b * s
+    if cfg.family == "vlm":
+        return b * min(cfg.frontend_tokens, s // 2)
+    return 0
+
+
+def train_gemms(cfg, shape=(TRAIN_BATCH, TRAIN_SEQ)):
     """(role, name, M, K, N, operand dtype, out f32, count per step) of
-    every B1 launch of one train step (remat "dots" or none): each
-    projection of the family's decode step (``main_path_gemms``, M =
-    ``tokens``) forward, its dgrad (dz @ w^T) and wgrad (x^T @ dz),
-    w1's pre-activation recomputed (f32 out) for silu's derivative where
-    there is a SwiGLU MLP, the vocab head's forward (bf16, f32 out) and
-    its dgrad and wgrad in f32 (dLogits is f32).  Dense: 22 L + 3."""
+    every B1 launch of one train step on a (batch, seq) ``shape`` (remat
+    "dots" or none): each projection of the family's decode step
+    (``main_path_gemms``, M = batch x seq) forward, its dgrad (dz @ w^T)
+    and wgrad (x^T @ dz), w1's pre-activation recomputed (f32 out) for
+    silu's derivative where there is a SwiGLU MLP, the vocab head's
+    forward (bf16, f32 out) and its dgrad and wgrad in f32 (dLogits is
+    f32), and a frontend's ``frontend_proj`` forward and wgrad (its
+    input, the stub's embeddings, needs no gradient).  Dense: 22 L + 3;
+    the encoder and the vlm 22 L + 5."""
     import torch
     bf, f32 = torch.bfloat16, torch.float32
-    t, d, v = tokens, cfg.d_model, cfg.padded_vocab
+    t, d, v = shape[0] * shape[1], cfg.d_model, cfg.padded_vocab
     rows = []
     for name, _, k, n, ep, _, c in main_path_gemms(cfg):
         if name == "head->f32":
@@ -3390,6 +3461,11 @@ def train_gemms(cfg, tokens: int):
     rows += [("fwd", "head", t, d, v, bf, True, 1),
              ("dgrad", "head", t, v, d, f32, False, 1),
              ("wgrad", "head", d, t, v, f32, False, 1)]
+    tf = frontend_tokens(cfg, shape)
+    if tf:
+        fd = cfg.frontend_dim
+        rows += [("fwd", "frontend_proj", tf, fd, d, bf, False, 1),
+                 ("wgrad", "frontend_proj", fd, tf, d, bf, False, 1)]
     return rows
 
 
@@ -3397,29 +3473,33 @@ def train_launches_per_step(cfg, remat_full: bool = False) -> int:
     """B1 launches of one train step: per layer the family's n forward
     GEMMs (``B1_PER_LAYER``), n dgrad, n wgrad and w1's recompute where
     there is a SwiGLU MLP, and the head's three; a "full" remat
-    recomputes the layer's n forward GEMMs in the backward too.  Dense
-    22 L + 3 (29 L + 3 under "full"), moe 12 L + 3, ssm 6 L + 3 (8 L + 3),
-    hybrid 28 L + 3 (37 L + 3)."""
+    recomputes the layer's n forward GEMMs in the backward too; a
+    frontend adds ``frontend_proj``'s forward and wgrad (outside the
+    checkpointed layers: never recomputed).  Dense 22 L + 3 (29 L + 3
+    under "full"), moe 12 L + 3, ssm 6 L + 3 (8 L + 3), hybrid 28 L + 3
+    (37 L + 3), the encoder 22 L + 5, the vlm 22 L + 5 (29 L + 5)."""
     n = B1_PER_LAYER[cfg.family]
-    mlp = 1 if cfg.family in ("dense", "hybrid") else 0
-    return cfg.n_layers * (3 * n + mlp + (n if remat_full else 0)) + 3
+    mlp = 1 if cfg.family in MLP_FAMILIES else 0
+    front = 2 if cfg.frontend else 0
+    return cfg.n_layers * (3 * n + mlp + (n if remat_full else 0)) + 3 + front
 
 
-def check_train_gemms(cfg, roles=("dgrad", "wgrad")) -> float:
+def check_train_gemms(cfg, roles=("dgrad", "wgrad"),
+                      shape=(TRAIN_BATCH, TRAIN_SEQ)) -> float:
     """Train phase (a): B1's GEMMs of ``roles`` at the train step's
     shapes against the plain version (B1's bf16 and f32 bounds) and two
-    launches bit-equal: one layer's projections in bf16 at TRAIN_BATCH x
-    TRAIN_SEQ tokens, the vocab head's in f32 (bf16 operands, f32 out,
-    forward)."""
+    launches bit-equal: one layer's projections in bf16 at ``shape``'s
+    batch x seq tokens, the vocab head's in f32 (bf16 operands, f32 out,
+    forward), a frontend's projection in bf16."""
     import torch
 
     rep = Report()
     gen = torch.Generator(device="cuda").manual_seed(2323)
-    t = TRAIN_BATCH * TRAIN_SEQ
+    t = shape[0] * shape[1]
     err = 0.0
     print(f"[train] (a) {cfg.name}: B1's {'/'.join(roles)} GEMMs against "
           f"the plain version, {t} tokens")
-    for role, name, m, k, n, dtype, out_f32, _ in train_gemms(cfg, t):
+    for role, name, m, k, n, dtype, out_f32, _ in train_gemms(cfg, shape):
         if role not in roles:
             continue
         label = f"{role} {name}"
@@ -3430,13 +3510,14 @@ def check_train_gemms(cfg, roles=("dgrad", "wgrad")) -> float:
     return err
 
 
-def train_batches(cfg, n: int, seed: int = 0):
+def train_batches(cfg, n: int, seed: int = 0,
+                  shape=(TRAIN_BATCH, TRAIN_SEQ)):
     from repro_torch.data import PackedSyntheticData
     from repro_torch.data.pipeline import batch_to_device
     from repro_torch.models.config import ShapeSpec
 
     data = PackedSyntheticData(cfg, ShapeSpec(
-        "chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+        "chip", seq_len=shape[1], global_batch=shape[0], kind="train"),
         seed=seed)
     return [batch_to_device(data.batch(i), "cuda") for i in range(n)]
 
@@ -3703,7 +3784,8 @@ def profile_train_step(cfg, step, params, opt, batch, step_ms: float,
                                           key=lambda kv: -kv[1])[:10])}
 
 
-def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
+def run_train_steps(cfg, schedule: str, batches, smi: str,
+                    shape=(TRAIN_BATCH, TRAIN_SEQ)) -> dict:
     """Train phase (b)/(e): one step of ``make_train_step`` a batch from
     the seed-0 state under ``schedule``: each step's loss, ms (CUDA
     events) and B1 launches; joules over the steps after the first
@@ -3747,7 +3829,7 @@ def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
     nvml.close()
     steady_s = (time.perf_counter() - t_steady) / (len(batches) - 1)
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = shape[0] * shape[1]
     mean_ms = sum(ms[1:]) / len(ms[1:])
     rec = {"schedule": schedule, "losses": losses, "ms": ms,
            "ms_per_step": mean_ms, "tok_per_s": tokens / mean_ms * 1e3,
@@ -3759,7 +3841,7 @@ def run_train_steps(cfg, schedule: str, batches, smi: str) -> dict:
           + f" (steady {mean_ms:.1f} ms, {rec['tok_per_s']:.0f} tok/s); B1 "
           f"launches {launches}; {joules:.1f} J/step ({rec['watts']:.0f} W, "
           f"NVML); peak memory {peak / 1e9:.2f} GB ({smi})")
-    extra = train_batches(cfg, len(batches) + 1)[-1]
+    extra = train_batches(cfg, len(batches) + 1, shape=shape)[-1]
     rec["profile"] = profile_train_step(cfg, step, params, opt, extra,
                                         mean_ms, smi, schedule)
     del params, opt
@@ -3784,12 +3866,10 @@ def time_train_gemms(cfg, n_params: int, smi: str) -> dict:
         scratch.zero_()
 
     gen = torch.Generator(device="cuda").manual_seed(256)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     by_role: dict[str, dict] = {}
     rows = []
     gemm_bytes = ops_s = 0.0
-    for role, name, m, k, n, dtype, out_f32, count in train_gemms(cfg,
-                                                                  tokens):
+    for role, name, m, k, n, dtype, out_f32, count in train_gemms(cfg):
         a, b, _ = _gemm_inputs(m, k, n, dtype, gen, "none")
         out_dtype = torch.float32 if out_f32 else None
         ms = _time_ms(lambda: sfc_matmul_cuda(a, b, out_dtype=out_dtype), 5,
@@ -3932,10 +4012,13 @@ def train_cli_phase() -> dict:
             "launches": launches}
 
 
-def train_arch(cfg, smi: str, steps: int, roles) -> tuple[dict, dict]:
-    """One arch's training at full width and depth in bf16 (seed-0
-    weights, ``PackedSyntheticData`` seed-0 batches of TRAIN_BATCH x
-    TRAIN_SEQ tokens): (a) B1's ``roles`` GEMMs at the train step's
+def train_arch(cfg, smi: str, steps: int, roles,
+               shape=(TRAIN_BATCH, TRAIN_SEQ),
+               cut: str = "none") -> tuple[dict, dict]:
+    """One arch's training at full width in bf16, at ``cfg``'s depth
+    (``cut`` names a depth cut; seed-0 weights, ``PackedSyntheticData``
+    seed-0 batches of ``shape`` = (batch, seq), TRAIN_BATCH x TRAIN_SEQ
+    unless given): (a) B1's ``roles`` GEMMs at the train step's
     shapes against the plain version; (b) the step-0 gradient checks
     (``train_grads_checks``), then ``steps`` steps of
     ``make_train_step`` under Morton (every projection's forward, dgrad
@@ -3956,23 +4039,24 @@ def train_arch(cfg, smi: str, steps: int, roles) -> tuple[dict, dict]:
     import repro_torch.kernels.grad as grad_mod
 
     torch.cuda.empty_cache()
-    gemm_err = check_train_gemms(cfg, roles)
-    batches = train_batches(cfg, steps)
+    gemm_err = check_train_gemms(cfg, roles, shape)
+    batches = train_batches(cfg, steps, shape=shape)
     params = train_params(cfg)
     n_params = sum(t.numel() for t in _leaves(params))
     want = train_launches_per_step(cfg,
                                    remat_full=cfg.remat_policy == "full")
     print(f"[train] (b) {cfg.name} full width, {cfg.n_layers} layers, bf16, "
           f"{n_params / 1e9:.3f}e9 parameters, seed 0, remat "
-          f"{cfg.remat_policy}; {steps} steps of {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ} tokens; B1 launches per step {want}")
+          f"{cfg.remat_policy}; {steps} steps of {shape[0]} x "
+          f"{shape[1]} tokens; B1 launches per step {want}; depth cut: "
+          f"{cut}")
     grads = train_grads_checks(cfg, params, batches[0])
     del params
     torch.cuda.empty_cache()
     grad_mod.transpose_bytes = 0
-    morton = run_train_steps(cfg, "morton", batches, smi)
+    morton = run_train_steps(cfg, "morton", batches, smi, shape)
     t_bytes = grad_mod.transpose_bytes / (steps + 1)
-    xla = run_train_steps(cfg, "xla", batches, smi)
+    xla = run_train_steps(cfg, "xla", batches, smi, shape)
     fails = []
     ln_v = math.log(cfg.vocab)
     if abs(morton["losses"][0] - ln_v) > LOSS0_BOUND:
@@ -3994,7 +4078,8 @@ def train_arch(cfg, smi: str, steps: int, roles) -> tuple[dict, dict]:
           f"{'ok' if not fails else 'FAIL ' + str(fails)}")
     if fails:
         raise SystemExit(f"chip_smoke: train (b) {cfg.name} failed: {fails}")
-    rec = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "cut": cut,
+           "batch": shape[0], "seq": shape[1], "params": n_params,
            "remat": cfg.remat_policy, "gemm_max_abs_err": gemm_err,
            "grads": grads, "morton": morton, "xla": xla,
            "launches_per_step": want, "transpose_gb_per_step": t_bytes / 1e9,
@@ -4016,6 +4101,273 @@ def train_phase(smi: str) -> tuple[dict, dict]:
     rec["cli"] = train_cli_phase()
     rec["b1"] = time_train_gemms(cfg, rec["params"], smi)
     return rec, launches
+
+
+# ----------------------------------------------------------- frontends ----
+# slice 12: the encoder and the vlm at full width.  hubert-xlarge (all 48
+# layers) encodes ENCODE_BATCH clips of ENCODE_FRAMES frames (20 s at
+# HuBERT's 50 Hz frame rate) and trains FRONTEND_TRAIN_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ frames; llava-next-34b serves FAMILY_REQUESTS
+# requests of FAMILY_MAX_NEW tokens at all 60 layers, and trains on
+# LLAVA_TRAIN_LAYERS of them (4 layers with embed, head and AdamW's f32
+# state take ~57 GB; 60 would not fit a card) on LLAVA_TRAIN_SHAPE
+# tokens, so each row carries the whole 576-patch prefix under its loss
+# mask.
+ENCODE_BATCH, ENCODE_FRAMES = 4, 1024
+ENCODE_REPS = 5                # timed encodes a schedule
+ENCODE_WINDOW_S = 1.0          # least work in one metered encode window
+FRONTEND_TRAIN_STEPS = 2
+LLAVA_TRAIN_LAYERS = 4
+LLAVA_TRAIN_SHAPE = (2, 2048)
+
+
+def encode_gemms(cfg, tokens: int):
+    """(name, M, K, N, epilogue, out f32, launches per forward) of every
+    B1 call of an encoder's forward over ``tokens`` frames:
+    ``frontend_proj`` (the stub's frame features into the model), each
+    layer's projections (the decode step's, ``main_path_gemms``, at M =
+    ``tokens``) and the vocab head: 7 L + 2."""
+    rows = [("frontend_proj", tokens, cfg.frontend_dim, cfg.d_model, "none",
+             False, 1)]
+    rows += [(name, tokens, k, n, ep, f32, c)
+             for name, _, k, n, ep, f32, c in main_path_gemms(cfg)]
+    assert sum(r[-1] for r in rows) == \
+        B1_PER_LAYER[cfg.family] * cfg.n_layers + 2
+    return rows
+
+
+def encode_run(cfg, params, batch, schedule: str, plain, smi: str) -> dict:
+    """hubert's forward over ``batch`` under ``schedule``: its launches
+    exact (7 L + 2 B1 under Morton, none under "xla", no B2), its logits
+    finite and within LOGIT_BOUND of ``plain`` (the same forward on the
+    plain versions), then ENCODE_REPS timed forwards (CUDA events), the
+    joules of one (NVML, a window of >= ENCODE_WINDOW_S aligned to the
+    counter's updates) and the peak memory."""
+    import torch
+
+    from repro_torch.models import DotEngine, forward
+    from repro_torch.power import NvmlBackend
+
+    eng = DotEngine(schedule=schedule)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    logits, _ = forward(params, cfg, batch, eng)
+    torch.cuda.synchronize()
+    launches = _kernel_launches()
+    want = {"B1": 0 if schedule == "xla" else
+            B1_PER_LAYER[cfg.family] * cfg.n_layers + 2, "B2": 0}
+    real = slice(0, cfg.vocab)      # the padded columns read -1e30
+    err = float((logits[..., real] - plain[..., real]).abs().max())
+    finite = bool(torch.isfinite(logits[..., real]).all())
+    frames = batch["features"].shape[0] * batch["features"].shape[1]
+    ms = []
+    for _ in range(ENCODE_REPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        forward(params, cfg, batch, eng)
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    nvml = NvmlBackend()
+    wait_tick(nvml)
+    e0 = nvml._energy_mj(nvml._handles[0])
+    t0 = time.perf_counter()
+    n = 0
+    while n < 2 or time.perf_counter() - t0 < ENCODE_WINDOW_S:
+        forward(params, cfg, batch, eng)
+        torch.cuda.synchronize()
+        n += 1
+    wait_tick(nvml)
+    joules = (nvml._energy_mj(nvml._handles[0]) - e0) * 1e-3 / n
+    window = time.perf_counter() - t0
+    nvml.close()
+    peak = torch.cuda.max_memory_allocated()
+    mean_ms = sorted(ms)[len(ms) // 2]
+    rec = {"schedule": schedule, "launches": launches,
+           "logit_err_vs_plain": err, "ms": ms, "ms_per_encode": mean_ms,
+           "frames_per_s": frames / mean_ms * 1e3, "j_per_encode": joules,
+           "watts": joules * n / window, "metered_encodes": n,
+           "peak_gb": peak / 1e9}
+    ok = finite and launches == want and (schedule == "xla"
+                                          or err <= LOGIT_BOUND)
+    print(f"[frontends] {cfg.name} encode {batch['features'].shape[0]} x "
+          f"{batch['features'].shape[1]} frames, {schedule}: "
+          f"{'ok' if ok else 'FAIL'}: launches {launches} (want {want}); "
+          f"max |logit diff| against the plain versions {err:.4e} (bound "
+          f"{LOGIT_BOUND:g}{', printed, not gated' if schedule == 'xla' else ''}"
+          f"); {mean_ms:.2f} ms an encode (median of "
+          + ", ".join(f"{x:.2f}" for x in ms)
+          + f"), {rec['frames_per_s']:.0f} frames/s; {joules:.2f} J an "
+          f"encode over {n} ({rec['watts']:.0f} W, NVML); peak memory "
+          f"{peak / 1e9:.2f} GB ({smi})")
+    if not ok:
+        raise SystemExit(f"chip_smoke: {cfg.name} encode under {schedule} "
+                         f"failed")
+    return rec
+
+
+def hubert_phase(smi: str) -> tuple[dict, dict]:
+    """hubert-xlarge at full width and all 48 layers (bf16, seed 0): B1 at
+    its encode shapes against the plain version and bit-equal twice, the
+    encode under Morton and "xla" (``encode_run``), B1 per encode timed
+    beside its bound, the plain version and ``torch.matmul``, then
+    training through ``train_arch`` (22 L + 5 B1 a step under "dots").
+    Returns (record, launches by path)."""
+    import torch
+
+    from repro_torch.models import DotEngine, forward, make_batch
+    from repro_torch.models.config import ShapeSpec
+
+    cfg, params = init_arch("hubert_xlarge")
+    tokens = ENCODE_BATCH * ENCODE_FRAMES
+    rows = encode_gemms(cfg, tokens)
+    rep = Report()
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    err = 0.0
+    print(f"[kernels] {cfg.name}: B1 at its encode shapes ({tokens} frames)")
+    for name, m, k, n, ep, f32, _ in rows:
+        err = max(err, b1_check(rep, gen, name, m, k, n, torch.bfloat16, ep,
+                                f32))
+        b1_same_twice(rep, gen, name, m, k, n, torch.bfloat16, ep, f32)
+    rep.raise_if_failed(f"{cfg.name} kernel checks")
+    batch = make_batch(cfg, ShapeSpec("encode", seq_len=ENCODE_FRAMES,
+                                      global_batch=ENCODE_BATCH,
+                                      kind="prefill"), device="cuda")
+    runs, by_path = {}, {}
+    with torch.no_grad():
+        with plain_versions():
+            plain, _ = forward(params, cfg, batch,
+                               DotEngine(schedule="morton"))
+        for schedule in ("morton", "xla"):
+            runs[schedule] = encode_run(cfg, params, batch, schedule, plain,
+                                        smi)
+            by_path[f"{cfg.name} encode {schedule}"] = \
+                runs[schedule]["launches"]
+    del plain
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    b1 = time_b1(cfg.name, rows, scratch.zero_, iters=10)
+    del scratch
+    print(f"[time] {cfg.name} B1 per encode ({tokens} frames): "
+          f"{b1['ms']:.2f} ms against a {b1['bound_ms']:.2f} ms bound "
+          f"({b1['bound_by']}, {b1['bound_ms'] / b1['ms']:.1%}), "
+          f"torch.matmul {b1['library_ms']:.2f} ms, plain "
+          f"{b1['plain_ms']:.2f} ms; the encode {runs['morton']['ms_per_encode']:.2f}"
+          f" ms, \"xla\" {runs['xla']['ms_per_encode']:.2f} ms ({smi})")
+    del params, batch
+    torch.cuda.empty_cache()
+    train, n = train_arch(cfg, smi, FRONTEND_TRAIN_STEPS,
+                          ("fwd", "dgrad", "wgrad"))
+    by_path[f"train {cfg.name}"] = n
+    step = {"arch": cfg.name,
+            "layout": f"encode {ENCODE_BATCH}x{ENCODE_FRAMES}",
+            "times": {"B1": b1}, "launches": runs["morton"]["launches"]}
+    return {"arch": cfg.name, "layers": cfg.n_layers, "cut": "none",
+            "frames": [ENCODE_BATCH, ENCODE_FRAMES], "kernel_max_abs_err": err,
+            "encode": runs, "train": train, "step": step}, by_path
+
+
+def llava_phase(smi: str) -> tuple[dict, dict]:
+    """llava-next-34b at full width and all 60 layers (68.8 GB of bf16
+    weights drawn a layer at a time, seed 0; its peak memory printed): its
+    B1 decode and chunk shapes and B2 at group 7 against the plain
+    versions (``check_arch_kernels``), B1 at ``frontend_proj``'s shape
+    (the 576-patch prefix, the tile path) likewise and bit-equal twice,
+    4 requests of 8 new tokens continuous, paged and contiguous (token
+    agreement printed), its paged and contiguous decode steps against the
+    plain versions (``layout_step``, the paged one timed), ``frontend_proj``
+    timed, the f32 layouts check on its first F32_CHECK_LAYERS layers;
+    then training at full width on LLAVA_TRAIN_LAYERS layers through
+    ``train_arch`` (29 L + 5 B1 a step under its remat "full").  Returns
+    (record, launches by path)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.optim.adamw import _tree_map
+
+    cfg, params = init_arch("llava_next_34b")
+    init_peak = torch.cuda.max_memory_allocated()
+    errs = check_arch_kernels(cfg, paged=True)
+    front = ("frontend_proj", cfg.frontend_tokens, cfg.frontend_dim,
+             cfg.d_model, "none", False, 1)
+    rep = Report()
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    _, m, k, n, ep, f32, _ = front
+    errs["frontend_proj"] = max(
+        b1_check(rep, gen, "frontend_proj", m, k, n, dtype, ep, f32)
+        for dtype in (torch.bfloat16, torch.float32))
+    b1_same_twice(rep, gen, "frontend_proj", m, k, n, torch.bfloat16, ep, f32)
+    rep.raise_if_failed(f"{cfg.name} frontend_proj checks")
+    by_path = {}
+    prompts = serving_prompts(cfg)[:FAMILY_REQUESTS]
+    runs = {}
+    for layout in ("paged", "contiguous"):
+        runs[layout] = serve(cfg, params, "continuous", layout, prompts,
+                             FAMILY_MAX_NEW,
+                             tag=f"[serve {cfg.name} continuous {layout}]")
+        by_path[f"{cfg.name} continuous {layout}"] = runs[layout]["launches"]
+    serve_rows = [serve_row(runs["paged"]),
+                  serve_row(runs["contiguous"], runs["paged"])]
+    print(f"[frontends] {cfg.name} contiguous: generated tokens agreeing "
+          f"with the paged run per request "
+          f"{serve_rows[-1]['agree_with_paged']} of {FAMILY_MAX_NEW} "
+          f"(printed, not gated); "
+          + "; ".join(f"{r['layout']} {r['tok_per_s']:.2f} tok/s, "
+                      f"{r['ms_per_decode_step']:.3f} ms a decode step, "
+                      f"{r['j_per_token']:.4f} J/token" for r in serve_rows)
+          + f" ({smi})")
+    del runs
+    steps = [layout_step(cfg, params, layout, smi, cut="none",
+                         timed=layout == "paged")
+             for layout in ("paged", "contiguous")]
+    for r in steps:
+        r["kernel_checks"] = errs
+        by_path[f"{cfg.name} {r['layout']} step"] = r["launches"]
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    front_t = time_b1(cfg.name, [front], scratch.zero_)
+    del scratch
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[frontends] {cfg.name} at all {cfg.n_layers} layers: peak memory "
+          f"{init_peak / 1e9:.2f} GB after init, {peak / 1e9:.2f} GB after "
+          f"its steps; frontend_proj {m}x{k}x{n} {front_t['ms']:.4f} ms "
+          f"(bound {front_t['bound_ms']:.4f}, torch.matmul "
+          f"{front_t['library_ms']:.4f}) ({smi})")
+    cut = dataclasses.replace(cfg, n_layers=F32_CHECK_LAYERS)
+    params = {**params, "layers": _tree_map(
+        lambda t: t[:F32_CHECK_LAYERS].clone(), params["layers"])}
+    torch.cuda.empty_cache()
+    f32 = {**layouts_agree_f32(cut, params),
+           "cut": f"{F32_CHECK_LAYERS} of {cfg.n_layers} layers"}
+    del params
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(cfg, n_layers=LLAVA_TRAIN_LAYERS)
+    train, n = train_arch(
+        tcfg, smi, FRONTEND_TRAIN_STEPS, ("fwd", "dgrad", "wgrad"),
+        shape=LLAVA_TRAIN_SHAPE,
+        cut=f"{LLAVA_TRAIN_LAYERS} of {cfg.n_layers} layers")
+    by_path[f"train {cfg.name} ({LLAVA_TRAIN_LAYERS} layers)"] = n
+    return {"arch": cfg.name, "layers": cfg.n_layers, "cut": "none",
+            "init_peak_gb": init_peak / 1e9, "peak_gb": peak / 1e9,
+            "kernel_checks": errs, "serve": serve_rows, "step": steps,
+            "frontend_proj": front_t, "paged_vs_contiguous_f32": f32,
+            "train": train}, by_path
+
+
+def frontends_phase(smi: str) -> tuple[dict, dict]:
+    """Slice 12: hubert-xlarge (``hubert_phase``), then llava-next-34b
+    (``llava_phase``), each freed before the next.  Returns (the
+    ``frontends`` line's object, launches by path)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    hubert, by_path = hubert_phase(smi)
+    torch.cuda.empty_cache()
+    llava, llava_paths = llava_phase(smi)
+    by_path.update(llava_paths)
+    torch.cuda.empty_cache()
+    return {"hubert": hubert, "llava": llava, "card": smi}, by_path
 
 
 def main() -> int:
@@ -4109,6 +4461,8 @@ def main() -> int:
         layout_launches[f"train {rec['arch']}"] = n
     families["train"] = fam_train
     families["card"] = smi
+    frontends, frontend_launches = frontends_phase(smi)
+    layout_launches.update(frontend_launches)
     # every path's launches, each read just after its own zeroing: the
     # three serving runs, the observed and the faulted runs (summed over
     # each phase's runs), the study, the study's energy windows and the
@@ -4128,7 +4482,8 @@ def main() -> int:
         row["max_abs_err"] = errs[kid]
     # per decode step of every other arch and layout (the families' new
     # shapes included), beside the serving shape's above
-    for r in layout_steps + families["step"]:
+    for r in (layout_steps + families["step"] + [frontends["hubert"]["step"]]
+              + frontends["llava"]["step"]):
         for row, kid in zip(rows[:2], ("B1", "B2")):
             if kid in r.get("times", {}):
                 row.setdefault("by_arch", {})[
@@ -4168,6 +4523,7 @@ def main() -> int:
     print(json.dumps({"swa_ring": ring}))
     print(json.dumps({"train": train}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"frontends": frontends}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("by_arch",)
                                    if k in r} for r in rows]}))

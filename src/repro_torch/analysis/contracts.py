@@ -15,6 +15,10 @@ a block table), what a kernel would otherwise refuse at launch:
   kernel: its wrapper's rule, an A (bm, bk) and a B (bk, bn) tile within
   one block's shared memory, and its tile rule, bm and bn multiples of
   16 up to 128 (``kernel-tile``);
+  For a paged decode attention under the H100 the kernel is the port's
+  B2 (``repro_torch.kernels.paged_attention``): the dynamic shared
+  memory of the plan it would launch (``attn_smem_bytes``) within one
+  block's limit, and its d_head rule;
 * **closed-form decode** -- ``use_prefetch=False`` needs a square
   power-of-two grid for morton/hilbert;
 * **grid replay** (``level="full"``) -- the schedule is a bijection
@@ -315,8 +319,17 @@ def check_attn_contract(
     ``cache_len``, ``n_heads``, ``n_kv_heads``, ``d_head``, ``attn``).
 
     Always: GQA divisibility and the paged working set against the
-    on-chip budget.  With ``block_table`` (slots x width, page ids, -1 =
-    unmapped) and ``num_pages``: every entry in ``[-1, num_pages)``
+    on-chip budget.  Under the reference's parts that is one reference
+    grid step's (q, output, a K and a V page block and the softmax
+    scratch) within ``vmem_frac`` of the budget; under the H100
+    (:func:`port_kernel_hw`) it is what the port's B2 allocates for the
+    plan it would launch (``attn_smem_bytes`` at ``attn_stage_pages``,
+    the ring of K/V stages or the merge buffers, the block table and
+    the barriers) against one block's dynamic shared-memory limit, all
+    of it, as ``check_gemm_contract`` holds the GEMM's tiles; and B2's
+    d_head limit (``kernel-tile``).  With ``block_table`` (slots x
+    width, page ids, -1 = unmapped) and ``num_pages``: every entry in
+    ``[-1, num_pages)``
     (``page-oob``), no slot maps a page twice (``page-alias``), and a
     live slot's write target (position ``lengths[s] - 1``) is mapped
     (``zero-row-write``) inside the table (``table-extent``)."""
@@ -339,9 +352,23 @@ def check_attn_contract(
         return rep
 
     ps = attn.page_size
-    need = _attn_vmem_bytes(spec.n_heads, spec.n_kv_heads, spec.d_head,
-                            ps, dtype_bytes)
-    budget = int(hw.vmem_per_chip * vmem_frac)
+    if port_kernel_hw(hw):
+        from repro_torch.kernels.paged_attention import _MAX_DH, \
+            _SMEM_LIMIT, attn_smem_bytes, attn_stage_pages
+
+        stage = attn_stage_pages(ps, spec.d_head, dtype_bytes)
+        need = attn_smem_bytes(ps, spec.d_head, dtype_bytes, stage,
+                               spec.n_heads // spec.n_kv_heads)
+        budget = _SMEM_LIMIT
+        rep.stats["stage_pages"] = stage
+        if spec.d_head > _MAX_DH:
+            rep.add("kernel-tile",
+                    f"the paged-attention kernel takes d_head <= "
+                    f"{_MAX_DH}, got {spec.d_head}")
+    else:
+        need = _attn_vmem_bytes(spec.n_heads, spec.n_kv_heads, spec.d_head,
+                                ps, dtype_bytes)
+        budget = int(hw.vmem_per_chip * vmem_frac)
     rep.stats.update(page_size=ps, vmem_bytes=need, vmem_budget=budget)
     if need > budget:
         rep.add("vmem-budget",

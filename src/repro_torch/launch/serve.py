@@ -160,6 +160,10 @@ class ServeLoop:
                  metrics: MetricsRegistry | None = None,
                  tracer: Tracer | None = None, device=None):
         sc = config if config is not None else ServeConfig()
+        if not cfg.has_decode:
+            raise NotImplementedError(
+                f"{cfg.name} is an {cfg.family}: an encoder has no decode "
+                f"step to serve")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -1230,6 +1234,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if not cfg.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: no serving loop")
     dev = resolve_device(args.device)
     serve_cfg = ServeConfig(
         slots=args.slots, cache_len=args.cache_len,

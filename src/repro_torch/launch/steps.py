@@ -55,14 +55,18 @@ def _unflatten(like, leaves):
 def grads_of(cfg, params, batch, engine: DotEngine):
     """``(loss, {"ce", "aux"}, grads)`` of one batch: the loss and its
     gradient with respect to every parameter leaf, each in the leaf's
-    dtype.  The parameters are differentiated through aliases that
-    require grad, so the caller's tensors keep their flags."""
+    dtype.  A leaf the loss does not read (the encoder's ``embed``) gets
+    zeros, as under ``jax.grad``, so the optimizer still decays it.  The
+    parameters are differentiated through aliases that require grad, so
+    the caller's tensors keep their flags."""
     alias = _unflatten(params, [p.detach().requires_grad_(True)
                                 for p in tree_leaves(params)])
     leaves = tree_leaves(alias)
     with torch.enable_grad():
         loss, metrics = loss_fn(alias, cfg, batch, engine)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             _unflatten(params, grads))
 

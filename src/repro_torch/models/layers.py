@@ -11,8 +11,8 @@ import dataclasses
 import math
 import torch
 
-__all__ = ["DotEngine", "rms_norm", "rope", "apply_rope", "swiglu_mlp",
-           "init_linear", "init_rms", "init_swiglu"]
+__all__ = ["DotEngine", "rms_norm", "layer_norm", "rope", "apply_rope",
+           "swiglu_mlp", "init_linear", "init_rms", "init_swiglu"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +126,17 @@ def rms_norm(x, gamma, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * gamma
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """Normalise by the mean and the (biased) variance in f32, cast back
+    to x's dtype, then ``* gamma + beta`` in that dtype (the reference's
+    order, as :func:`rms_norm`)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * gamma + beta
 
 
 def rope(positions, d_head: int, theta: float = 10000.0):

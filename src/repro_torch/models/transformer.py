@@ -1,5 +1,5 @@
-"""Backbone assembly (port of ``repro.models.transformer``) for the
-dense, moe, ssm and hybrid families: parameter init with the
+"""Backbone assembly (port of ``repro.models.transformer``) for every
+family (dense, moe, ssm, hybrid, encoder, vlm): parameter init with the
 reference's distributions, the decode state of either KV layout
 (:func:`init_decode_state`; ssm and hybrid states are contiguous and
 carry the SSD's ``ssm_h``/``ssm_conv``), single-shot and chunked
@@ -12,8 +12,9 @@ that axis takes the place of ``lax.scan``.  The full-sequence
 projection is B1's autograd ``Function`` (``repro_torch.kernels.grad``),
 the stacked parameters are unbound once per forward, and ``cfg.remat``
 selects a per-layer checkpoint (``"full"``) or the GEMM-output-keeping
-``"dots"``.  The encoder and vlm frontends wait for their slice
-(ROADMAP.md queue A, A11).
+``"dots"``.  The encoder (bidirectional, no decode step) and the vlm
+(decoding, prefilling and serving as dense) take their modality stub's
+embeddings through ``frontend_proj`` (:func:`embed_inputs`).
 """
 from __future__ import annotations
 
@@ -63,14 +64,21 @@ def fused_epilogue_savings_bytes(cfg: ArchConfig, tokens: int) -> float:
     return saved
 
 
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
+
+
 def _require_family(cfg: ArchConfig):
-    """Raise for the families whose frontends are not ported yet."""
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} comes with its frontend, not ported yet "
-            f"(ROADMAP.md queue A, A11)")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _require_decode(cfg: ArchConfig):
+    """Raise for a family without a decode step (the encoder)."""
+    _require_family(cfg)
+    if not cfg.has_decode:
+        raise NotImplementedError(
+            f"{cfg.name} is an {cfg.family}: an encoder has no decode step "
+            f"(no decode state, prefill or serving loop)")
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -119,6 +127,9 @@ def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
     del embed
     params["lm_head"] = init_linear(generator, d, cfg.padded_vocab, dtype,
                                     device=dev)
+    if cfg.frontend:
+        params["frontend_proj"] = init_linear(generator, cfg.frontend_dim, d,
+                                              dtype, device=dev)
     return params
 
 
@@ -143,6 +154,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
     from repro_torch.serve.state import DecodeState, KVLayout, \
         resolve_layout
 
+    _require_decode(cfg)
     layout = resolve_layout(layout)
     if layout is KVLayout.PAGED:
         from repro_torch.serve.paged_kv import init_paged_decode_state
@@ -150,7 +162,6 @@ def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
             cfg, batch, page_size=page_size, num_pages=num_pages,
             max_pages_per_slot=max_pages_per_slot, cache_len=cache_len,
             dtype=dtype, device=device)
-    _require_family(cfg)
     dev = resolve_device(device)
     dtype = dtype or cfg.act_torch_dtype()
     st: dict[str, Any] = {}
@@ -239,18 +250,24 @@ def _remat_layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
 
 
 def embed_inputs(params, cfg: ArchConfig, batch, engine: DotEngine):
-    """tokens -> (B, S, d) activations in the activation dtype.  The
-    modality frontends (the encoder's features, the vlm's vision
-    embeddings) come with their families (ROADMAP.md queue A, A11).
-    The gather is ``F.embedding``, whose backward sums the rows of
-    repeated tokens without atomics."""
-    if cfg.family == "encoder" or (cfg.family == "vlm"
-                                   and "vision_embeds" in batch):
-        raise NotImplementedError(
-            f"the {cfg.family!r} frontend is not ported yet (ROADMAP.md "
-            f"queue A, A11)")
-    return F.embedding(batch["tokens"].long(), params["embed"]).to(
-        cfg.act_torch_dtype())
+    """tokens (and the frontend stub's embeddings) -> (B, S, d)
+    activations in the activation dtype.  Encoder: the precomputed frame
+    features (B, S, frontend_dim) @ ``frontend_proj``; the token embedding
+    is not read.  Otherwise the tokens' rows of ``embed`` (``F.embedding``,
+    whose backward sums the rows of repeated tokens without atomics);
+    a vlm batch with ``vision_embeds`` (B, nv, frontend_dim) has the
+    projected patches in place of its first nv positions (LLaVA-style).
+    Both projections are ``engine.dot``, so B1 on the card."""
+    dtype = cfg.act_torch_dtype()
+    if cfg.family == "encoder":
+        return engine.dot(batch["features"].to(dtype),
+                          params["frontend_proj"].to(dtype))
+    x = F.embedding(batch["tokens"].long(), params["embed"]).to(dtype)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        v = engine.dot(batch["vision_embeds"].to(dtype),
+                       params["frontend_proj"].to(dtype))
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+    return x
 
 
 def forward(params, cfg: ArchConfig, batch, engine: DotEngine | None = None):
@@ -418,7 +435,7 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
 
 
 def _require_attention_only(cfg: ArchConfig, what: str):
-    _require_family(cfg)
+    _require_decode(cfg)
     if not cfg.has_attention or cfg.has_ssm:
         raise ValueError(
             f"{what} needs a pure-attention family, got {cfg.family!r}")
@@ -624,7 +641,7 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos,
     ``state`` is updated **in place** (the returned state is the same
     object); clone the state first to keep the old one."""
     engine = engine or DotEngine()
-    _require_family(cfg)
+    _require_decode(cfg)
     step = _decode_step_paged if state.layout.is_paged \
         else _decode_step_contiguous
     return step(params, cfg, state, tokens, pos, engine, row_mask)

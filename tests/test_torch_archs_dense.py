@@ -98,10 +98,12 @@ def test_configs_equal_reference_field_by_field(arch, which):
 
 
 def test_registry_holds_the_dense_archs_and_names_the_rest():
+    """The dense archs lead the registry; an arch it does not hold
+    raises a KeyError that names every registered arch."""
     assert ARCHS[:4] == DENSE
-    for arch in ("llava_next_34b", "hubert_xlarge"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
+    with pytest.raises(KeyError) as err:
+        get_config("gpt2")
+    assert all(a in str(err.value) for a in ARCHS)
 
 
 @pytest.mark.parametrize("arch", NEW)

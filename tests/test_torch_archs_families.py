@@ -350,16 +350,6 @@ def test_stateful_families_need_the_contiguous_lockstep_loop(arch):
     assert st["ssm_h"].dtype == torch.float32
 
 
-def test_encoder_and_vlm_frontends_wait_for_their_slice():
-    for family in ("encoder", "vlm"):
-        cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="A11"):
-            init_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="A11"):
-            init_decode_state(cfg, 1, 8, device="cpu")
-
-
 # ------------------------------------------------------------- serving --
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
 @pytest.mark.parametrize("mode", ["lockstep", "continuous"])

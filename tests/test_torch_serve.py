@@ -143,8 +143,11 @@ def test_qwen3_configs_equal_reference_field_by_field(get_t, get_j):
 
 
 def test_unported_arch_raises_and_names_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("hubert_xlarge")
+    """Every arch of the reference is registered now; one it does not
+    have raises a KeyError that names the registered archs."""
+    get_config("hubert_xlarge")
+    with pytest.raises(KeyError, match="qwen3_1_7b"):
+        get_config("gpt2")
 
 
 def test_init_model_tree_and_distributions_match_reference():

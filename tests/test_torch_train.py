@@ -36,7 +36,6 @@ from repro.launch.steps import make_train_step as ref_make_train_step
 from repro.models import DotEngine as RefDotEngine
 from repro.models import init_model as ref_init_model
 from repro.models import loss_fn as ref_loss_fn
-from repro.models.config import ArchConfig as RefArchConfig
 from repro.models.config import ShapeSpec as RefShapeSpec
 from repro.models.frontends import make_batch as ref_make_batch
 from repro.models.transformer import forward as ref_forward
@@ -51,7 +50,7 @@ from repro_torch.data import PackedSyntheticData, PrefetchLoader
 from repro_torch.data.pipeline import batch_to_device
 from repro_torch.launch.steps import grads_of, make_train_step
 from repro_torch.models import DotEngine, forward, make_batch
-from repro_torch.models.config import ArchConfig, ShapeSpec
+from repro_torch.models.config import ShapeSpec
 from repro_torch.models.convert import params_from_jax, tensor_from_numpy
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule, \
     init_opt_state, linear_schedule
@@ -266,16 +265,6 @@ def test_make_batch_equals_reference(seed):
     for k in want:
         assert got[k].dtype == torch.int32
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
-
-
-@pytest.mark.parametrize("family", ["encoder", "vlm"])
-def test_frontend_families_wait_for_a11(family):
-    cfg = ArchConfig(name="x", family=family, n_layers=1, d_model=8,
-                     vocab=16, n_heads=2, n_kv_heads=2, frontend_dim=4,
-                     frontend_tokens=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_batch(cfg, ShapeSpec("t", 8, 2, "train"))
-    assert RefArchConfig  # the reference builds these families
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])
