@@ -67,7 +67,10 @@ just before it and read just after:
   then timings: ms and J per step, B1 per step by role beside
   ``torch.matmul`` and the bound, a profile of one step per schedule;
   then granite-moe-1b-a400m, mamba2-780m and hymba-1.5b at full width
-  and depth through the same ``train_arch``: B1's forward, dgrad and
+  on FAMILY_TRAIN_LAYERS (8) of their 24, 48 and 32 layers (a depth cut
+  that keeps the script well inside its time limit; their layers are
+  uniform, and they serve at full depth above) through the same
+  ``train_arch``: B1's forward, dgrad and
   wgrad GEMMs at their shapes against the plain version, the same
   step-0 gradient checks, and 2 steps of each schedule from the seed-0
   state with their joules and a profiled step;
@@ -85,7 +88,20 @@ just before it and read just after:
   decode steps against the plain versions, the f32 layouts check on its
   first 4 layers, then training at full width on 4 of its 60 layers, 2 x
   2048 tokens a step (each row carries the 576-patch prefix under its
-  loss mask).
+  loss mask);
+* the distributed layer, last (``distributed_phase``), in a world of one
+  NCCL rank (the machine has one card; NCCL takes one rank a card)
+  joined through a ``FileStore`` in a temporary directory: B1 at the
+  shapes one tensor-parallel rank of qwen3-1.7b launches on a 2- and an
+  8-way model axis (decode M = 4 and chunk M = 128: N / m for wq, wk,
+  wv, w1, w3 and the head, K / m for wo and w2) and B2 at such a rank's
+  4 and 1 kv-heads (group 2, 4096 tokens a slot), against the plain
+  versions and timed; ``launch/train.py``'s ``main`` with --mesh 1,1,1
+  (the sharded step: tensor-parallel layers, ZeRO-1 AdamW) and without,
+  2 steps of 4 x 256 tokens each from the seed-0 state; then
+  ``build_serve_step`` at world size 1, paged and contiguous (the
+  sequence-parallel attention), 8 greedy steps beside the unsharded
+  ``decode_step``; the collectives a step issues, by kind.
 
 Energy is read from the card itself, through the port's
 ``NvmlBackend`` (NVML's cumulative energy counter, bound with ctypes),
@@ -138,7 +154,8 @@ archs (``frontends``: hubert's encodes per schedule with their ms,
 frames/s, J, peak memory and logit error, B1 per encode beside its
 bound, its training record; llava's serving runs, decode steps, peak
 memory, ``frontend_proj``'s time and its training record at its depth
-cut), the card's name and power
+cut), the wall seconds of each part of the run (``phase_seconds``; each
+part also printed as it ends), the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero.  Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no
@@ -283,6 +300,14 @@ Tolerances (kernel against plain version, on the card, TF32 off):
   under the families' gates, B1's launches a step exactly
   ``train_launches_per_step`` with ``frontend_proj``'s forward and
   wgrad (hubert 22 L + 5 under "dots", llava 29 L + 5 under "full").
+* The distributed layer: B1 at the shard shapes within B1's bounds
+  (decode bf16 and f32, bit-equal twice; chunk bf16), B2 at the local
+  kv-heads within B2's bounds, both dtypes; the --mesh 1,1,1 train
+  step's losses within DIST_LOSS_REL (1e-3) of the unsharded step's,
+  both with ``train_launches_per_step`` B1 launches a step; the sharded
+  serve step's logits within LOGIT_BOUND of the unsharded step's at
+  every one of its 8 steps, its greedy tokens equal, its launches 7 L +
+  1 B1 (and L B2 paged) a step as the unsharded step's.
 """
 from __future__ import annotations
 
@@ -3342,11 +3367,15 @@ def layouts_phase(sv: dict, cv: dict, prof_paged: dict,
 # paged; granite-moe-3b FAMILY_REQUESTS requests of FAMILY_MAX_NEW tokens,
 # continuous, paged and contiguous; mamba2 and hymba (contiguous and
 # lockstep only, as in the reference) FAMILY_REQUESTS requests of
-# MAX_NEW tokens.  Training: FAMILY_TRAIN_STEPS steps of each trained arch.
+# MAX_NEW tokens.  Training: FAMILY_TRAIN_STEPS steps of each trained arch
+# on its first FAMILY_TRAIN_LAYERS layers (at full depth it took 112 s of a
+# 677 s run on an H100, the largest part; the host's time a step follows
+# the depth).
 FAMILY_REQUESTS = 4
 FAMILY_MAX_NEW = 8
 FAMILY_TRAIN = ("granite_moe_1b_a400m", "mamba2_780m", "hymba_1_5b")
 FAMILY_TRAIN_STEPS = 2
+FAMILY_TRAIN_LAYERS = 8
 
 
 def families_phase(smi: str) -> tuple[dict, dict]:
@@ -4370,8 +4399,311 @@ def frontends_phase(smi: str) -> tuple[dict, dict]:
     return {"hubert": hubert, "llava": llava, "card": smi}, by_path
 
 
-def main() -> int:
+# --------------------------------------------------------- distributed ----
+# slice 13: the distributed layer on the card at world size 1 (one card
+# on the machine; NCCL takes one rank per card).  B1 at the shapes one
+# tensor-parallel rank of qwen3-1.7b launches on a TP_WAYS-way model axis
+# and B2 at its local kv-heads; the sharded train step through the CLI's
+# --mesh 1,1,1 beside the unsharded one from the same state; the sharded
+# serve step in both layouts beside the unsharded decode step.
+TP_WAYS = (2, 8)
+DIST_TRAIN_STEPS = 2
+DIST_LOSS_REL = 1e-3    # |loss sharded - loss unsharded| / |unsharded|
+DIST_SERVE_STEPS = 8
+SHARD_TOKENS = 4096     # B2's tokens per slot at the local kv-heads
+
+
+def shard_gemms(cfg, ways: int, rows: int):
+    """(name, M, K, N, epilogue, out f32, launches a step) of one
+    tensor-parallel rank's B1 calls on a ``ways``-way model axis at M =
+    ``rows``: N / ways for the column-parallel wq, wk, wv, w1, w3 and the
+    head, K / ways for the row-parallel wo and w2, whose partial products
+    leave in f32 (the residual is added after the all-reduce).  The head
+    runs in a decode step only (a chunk's count is 0)."""
+    d, n_l = cfg.d_model, cfg.n_layers
+    hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    f, v = cfg.d_ff, cfg.padded_vocab
+    return [("wq", rows, d, hd // ways, "none", False, n_l),
+            ("wk|wv", rows, d, kvd // ways, "none", False, 2 * n_l),
+            ("wo", rows, hd // ways, d, "none", True, n_l),
+            ("w1+silu", rows, d, f // ways, "silu", False, n_l),
+            ("w3", rows, d, f // ways, "none", False, n_l),
+            ("w2", rows, f // ways, d, "none", True, n_l),
+            ("head->f32", rows, d, v // ways, "none", True,
+             1 if rows == SLOTS else 0)]
+
+
+def shard_kernels(cfg, smi: str) -> tuple[dict, dict]:
+    """B1 at every shard shape (decode M = SLOTS, bf16 and f32, two
+    launches bit-equal; chunk M = SLOTS x PREFILL_BUDGET, bf16) and B2 at
+    each shard's local kv-heads (group 2, SHARD_TOKENS a slot, bf16 and
+    f32) against the plain versions, then timed (CUDA events, L2
+    flushed) beside ``torch.matmul`` and the bound.  Returns the B1 and B2
+    records by shard."""
+    import dataclasses
+
     import torch
+
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    rep = Report()
+    gen = torch.Generator(device="cuda").manual_seed(1313)
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        scratch.zero_()
+
+    b1, b2 = {}, {}
+    for ways in TP_WAYS:
+        print(f"[distributed] B1 at a {ways}-way model axis' shard shapes")
+        for rows, what in ((SLOTS, "decode"),
+                           (SLOTS * PREFILL_BUDGET, "chunk")):
+            gemms = shard_gemms(cfg, ways, rows)
+            for name, m, k, n, ep, f32, _ in gemms:
+                for dtype in ((torch.bfloat16, torch.float32)
+                              if what == "decode" else (torch.bfloat16,)):
+                    b1_check(rep, gen, f"tp{ways} {name}", m, k, n, dtype,
+                             ep, f32)
+                if what == "decode":
+                    b1_same_twice(rep, gen, f"tp{ways} {name}", m, k, n,
+                                  torch.bfloat16, ep, f32)
+            rec = time_b1(f"tp{ways} {what}", gemms, flush)
+            rec["launches"] = sum(g[-1] for g in gemms)
+            b1[f"qwen3-1.7b tp{ways} shard {what}"] = rec
+            print(f"[time] tp{ways} shard B1 a {what} step: {rec['ms']:.3f} "
+                  f"ms, bound {rec['bound_ms']:.3f} ({rec['bound_by']}), "
+                  f"torch.matmul {rec['library_ms']:.3f} ({smi})")
+        kv = cfg.n_kv_heads // ways
+        scfg = dataclasses.replace(cfg, n_heads=2 * kv, n_kv_heads=kv)
+        pos = torch.full((SLOTS,), SHARD_TOKENS - 1, dtype=torch.int32,
+                         device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tab = long_context_inputs(scfg, SHARD_TOKENS, dtype,
+                                                 gen)
+            b2_check(rep, f"tp{ways} shard {kv} kv-heads group 2 "
+                     f"{SHARD_TOKENS} tokens", q, kp, vp, tab, pos)
+            if dtype is torch.bfloat16:
+                ms = _time_ms(lambda: paged_decode_attention_cuda(
+                    q, kp, vp, tab, pos), 20, flush)
+                plain = _time_ms(lambda: paged_decode_attention_ref(
+                    q, kp, vp, tab, pos), 3, flush)
+                _, bound = b2_bound(q, kp, tab, pos)
+                b2[f"qwen3-1.7b tp{ways} shard {kv} kv-heads "
+                   f"{SHARD_TOKENS} tokens"] = {
+                    "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": None,
+                    "launches": cfg.n_layers}
+                print(f"[time] tp{ways} shard B2 ({kv} kv-heads, group 2, "
+                      f"{SHARD_TOKENS} tokens): {ms:.4f} ms a launch, plain "
+                      f"{plain:.4f}, bound {bound:.5f} ({smi})")
+            del q, kp, vp, tab
+        torch.cuda.empty_cache()
+    rep.raise_if_failed("distributed shard kernels")
+    return b1, b2
+
+
+def dist_train(cfg, smi: str) -> tuple[dict, dict]:
+    """``launch/train.py``'s ``main`` with --mesh 1,1,1 (the sharded step
+    on this world of one rank) and without (the unsharded
+    ``make_train_step``), each from the seed-0 state on the same
+    PackedSyntheticData batches: losses within DIST_LOSS_REL, B1's
+    launches ``train_launches_per_step`` a step on both, the sharded
+    step's collectives by kind; host ms and NVML joules a step from the
+    CLI's history."""
+    import torch
+
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.launch.train import main as train_main
+
+    common = ["--arch", "qwen3_1_7b",
+              "--steps", str(DIST_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+              "--seq", str(TRAIN_SEQ), "--log-every", "1",
+              "--power-backend", "nvml", "--no-obs"]
+    per_step = train_launches_per_step(cfg)
+    runs = {}
+    for name, extra in (("sharded", ["--mesh", "1,1,1"]), ("unsharded", [])):
+        _zero_launches()
+        dctx.COLLECTIVES.clear()
+        state = train_main(common + extra)
+        torch.cuda.synchronize()
+        hist = state["history"]
+        runs[name] = {
+            "losses": [h["loss"] for h in hist],
+            "ms": [h["ms"] for h in hist],
+            "joules": [h["joules"] for h in hist],
+            "launches": _kernel_launches()["B1"],
+            "collectives_per_step": {k: v / DIST_TRAIN_STEPS for k, v in
+                                     sorted(dctx.COLLECTIVES.items())},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    s, u = runs["sharded"], runs["unsharded"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(s["losses"], u["losses"]))
+    want = DIST_TRAIN_STEPS * per_step
+    ok = rel <= DIST_LOSS_REL and s["launches"] == u["launches"] == want \
+        and len(s["losses"]) == DIST_TRAIN_STEPS
+    print(f"[distributed] train --mesh 1,1,1 {'ok' if ok else 'FAIL'}: "
+          f"losses {s['losses']} against {u['losses']} (max rel "
+          f"{rel:.3e}, bound {DIST_LOSS_REL:g}); B1 {s['launches']} and "
+          f"{u['launches']} launches (want {want}, {per_step} a step); ms a "
+          f"step {[round(x, 1) for x in s['ms']]} against "
+          f"{[round(x, 1) for x in u['ms']]}; J a step "
+          f"{[round(x, 1) for x in s['joules']]} against "
+          f"{[round(x, 1) for x in u['joules']]}; collectives a step "
+          f"{s['collectives_per_step']} ({smi})")
+    if not ok:
+        raise SystemExit("chip_smoke: distributed train failed")
+    return {"sharded": s, "unsharded": u, "max_loss_rel": rel,
+            "launches_per_step": per_step}, {"B1": s["launches"]}
+
+
+def dist_serve(cfg, smi: str) -> tuple[dict, dict]:
+    """``build_serve_step`` at world size 1, paged (B2 on the kv-head
+    shard, here every head) and contiguous (the sequence-parallel
+    attention), DIST_SERVE_STEPS greedy steps of SLOTS slots from the
+    same state beside the unsharded ``decode_step``: every step's logits
+    within LOGIT_BOUND, the greedy tokens equal, B1 7 L + 1 and B2 L (paged)
+    launches a step; host ms a step on both."""
+    import torch
+
+    from repro_torch.distributed import ctx as dctx
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import SHAPES, decode_step, init_decode_state
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.serve.paged_kv import init_paged_serving
+
+    SHAPES["chip_dist"] = ShapeSpec("chip_dist", CACHE_LEN, SLOTS, "decode")
+    mesh = make_smoke_mesh((1, 1, 1))
+    params = train_params(cfg)
+    out, launches = {}, {}
+    first = torch.tensor([[p[0]] for p in serving_prompts(cfg)[:SLOTS]],
+                         dtype=torch.int32, device="cuda")
+    for layout in ("paged", "contiguous"):
+        fn, (ps, ss, ts, ls), _ = build_serve_step(
+            cfg, mesh, "chip_dist", cache_len=CACHE_LEN, layout=layout,
+            page_size=PAGE_SIZE)
+        if layout == "paged":
+            alloc, state = init_paged_serving(cfg, SLOTS, CACHE_LEN,
+                                              page_size=PAGE_SIZE,
+                                              device="cuda")
+            for slot in range(SLOTS):
+                alloc.ensure_range(slot, DIST_SERVE_STEPS)
+            state["block_tables"] = torch.as_tensor(alloc.block_table,
+                                                    device="cuda")
+        else:
+            state = init_decode_state(cfg, SLOTS, CACHE_LEN, device="cuda")
+        local = shard_tree(params, ps, mesh)
+        sstate = shard_tree(state, ss, mesh)
+        rec = {}
+        for name in ("sharded", "unsharded"):
+            toks, logits, tokens, ms = first.clone(), [], [], []
+            _zero_launches()
+            dctx.COLLECTIVES.clear()
+            with torch.no_grad():
+                for pos in range(DIST_SERVE_STEPS):
+                    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if name == "sharded":
+                        lg, sstate = fn(local, sstate, toks, p)
+                    else:
+                        lg, state = decode_step(params, cfg, state, toks, p)
+                    toks = lg[:, 0].argmax(-1).to(torch.int32)[:, None]
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    logits.append(lg)
+                    tokens.append(toks[:, 0].tolist())
+            rec[name] = {"logits": logits, "tokens": tokens, "ms": ms,
+                         "launches": _kernel_launches(),
+                         "collectives_per_step": {
+                             k: v / DIST_SERVE_STEPS for k, v in
+                             sorted(dctx.COLLECTIVES.items())}}
+        s, u = rec["sharded"], rec["unsharded"]
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(s["logits"], u["logits"]))
+        n_l = cfg.n_layers
+        want = {"B1": DIST_SERVE_STEPS * (7 * n_l + 1),
+                "B2": DIST_SERVE_STEPS * n_l if layout == "paged" else 0}
+        ok = err <= LOGIT_BOUND and s["tokens"] == u["tokens"] and \
+            s["launches"] == u["launches"] == want
+        print(f"[distributed] serve {layout} {'ok' if ok else 'FAIL'}: "
+              f"{DIST_SERVE_STEPS} steps, logits max err {err:.4e} (bound "
+              f"{LOGIT_BOUND}), greedy tokens equal "
+              f"{s['tokens'] == u['tokens']}; launches {s['launches']} and "
+              f"{u['launches']} (want {want}); ms a step "
+              f"{sum(s['ms'][1:]) / (DIST_SERVE_STEPS - 1):.2f} against "
+              f"{sum(u['ms'][1:]) / (DIST_SERVE_STEPS - 1):.2f}; "
+              f"collectives a step {s['collectives_per_step']} ({smi})")
+        if not ok:
+            raise SystemExit(f"chip_smoke: distributed serve {layout} failed")
+        out[layout] = {"max_logit_err": err, "tokens": s["tokens"],
+                       "ms": s["ms"], "unsharded_ms": u["ms"],
+                       "collectives_per_step": s["collectives_per_step"]}
+        launches[f"serve {layout}"] = s["launches"]
+        del local, sstate, state, rec
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def distributed_phase(smi: str) -> tuple[dict, dict, dict, dict]:
+    """Slice 13, last: a world of one NCCL rank through a ``FileStore``
+    in a temporary directory (no network); the shard kernels
+    (``shard_kernels``), the sharded train step (``dist_train``) and
+    serve step (``dist_serve``) on qwen3-1.7b at full width and depth,
+    bf16, seed 0; the world closed after.  Returns (the ``distributed``
+    line's object, launches by path, B1's and B2's shard records)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ctx import init_world
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3_1_7b")
+    with tempfile.TemporaryDirectory() as d:
+        init_world(0, 1, f"{d}/store", "cuda")
+        try:
+            nccl = ".".join(str(x) for x in torch.cuda.nccl.version())
+            print(f"[distributed] backend {dist.get_backend()}, NCCL {nccl}, "
+                  f"world size {dist.get_world_size()} ({smi})")
+            b1, b2 = shard_kernels(cfg, smi)
+            train, train_launches = dist_train(cfg, smi)
+            serve_rec, serve_launches = dist_serve(cfg, smi)
+        finally:
+            dist.destroy_process_group()
+    secs = time.perf_counter() - t0
+    print(f"[distributed] phase took {secs:.1f} s")
+    rec = {"backend": "nccl", "nccl": nccl, "world_size": 1,
+           "train": train, "serve": serve_rec, "seconds": secs, "card": smi}
+    return rec, {"distributed train --mesh 1,1,1": train_launches,
+                 **{f"distributed {k}": v for k, v in
+                    serve_launches.items()}}, b1, b2
+
+
+def main() -> int:
+    import dataclasses
+
+    import torch
+
+    phase_s: dict[str, float] = {}   # wall seconds of each part of main()
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Record the wall time since the previous lap under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+        print(f"[time] {name}: {phase_s[name]:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -4396,10 +4728,12 @@ def main() -> int:
     print(f"[build] nvcc sm_90a in parallel: "
           f"{', '.join(f'{k} {v:.1f}s' for k, v in secs.items())}; wall "
           f"{time.perf_counter() - t0:.1f}s into {_build.build_dir()}")
+    lap("start and build")
 
     nvml = nvml_phase(smi)
     cfg = get_config("qwen3_1_7b")
     errs = check_kernels(cfg)
+    lap("nvml and kernel checks")
 
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -4423,8 +4757,11 @@ def main() -> int:
           f"lockstep {sv['ms_per_decode_step']:.3f} ms a step) ({smi})")
     agree = token_agreement(sv, cv)
     shared = serve_shared(cfg, params)
+    lap("serve lockstep, continuous, shared")
     obs, obs_launches = serve_obs_phase(cfg, params, smi)
+    lap("serve obs")
     faults, fault_launches = serve_faults_phase(cfg, params, smi)
+    lap("serve faults")
     state, toks, pos = build_state(cfg, params)
     step = compare_step(cfg, params, state, toks, pos, LOGIT_BOUND)
     cstate, gang = chunk_state(cfg, params)
@@ -4436,33 +4773,48 @@ def main() -> int:
     compare_chunked_single(cfg32, params32, KV_BOUND_F32)
     del params32, state32
     torch.cuda.empty_cache()
+    lap("step and chunk checks")
     rows, long_rows = time_kernels(cfg, state, pos, smi)
     b1_prefill = time_chunk_gemms(cfg, smi)
     prof_paged = profile_steps(cfg, params, state, toks, pos, smi)
     chunk_prof = profile_chunk(cfg, params, cstate, gang, smi)
     del params, state
     torch.cuda.empty_cache()
+    lap("timings and profiles")
     study, b3_in, b4_in = locality_study()
     rows += time_study(b3_in, b4_in, smi)
     energy, energy_b3 = study_energy(b3_in, nvml["idle_watts"], smi)
     del b3_in, b4_in
     torch.cuda.empty_cache()
+    lap("locality study")
     tuner, tuner_launches = tuner_phase(cfg, smi)
+    lap("tuner")
     serve_layouts, layout_steps, ring, layout_launches = layouts_phase(
         sv, cv, prof_paged, smi)
+    lap("layouts and dense archs")
     families, family_launches = families_phase(smi)
     layout_launches.update(family_launches)
+    lap("families serving")
     train, train_launches = train_phase(smi)
+    lap("train qwen3-1.7b")
     fam_train = []
     for name in FAMILY_TRAIN:
-        rec, n = train_arch(get_config(name), smi, FAMILY_TRAIN_STEPS,
-                            ("fwd", "dgrad", "wgrad"))
+        full = get_config(name)
+        rec, n = train_arch(
+            dataclasses.replace(full, n_layers=FAMILY_TRAIN_LAYERS), smi,
+            FAMILY_TRAIN_STEPS, ("fwd", "dgrad", "wgrad"),
+            cut=f"{FAMILY_TRAIN_LAYERS} of {full.n_layers} layers")
         fam_train.append(rec)
         layout_launches[f"train {rec['arch']}"] = n
     families["train"] = fam_train
     families["card"] = smi
+    lap("families training")
     frontends, frontend_launches = frontends_phase(smi)
     layout_launches.update(frontend_launches)
+    lap("frontends")
+    distributed, dist_launches, shard_b1, shard_b2 = distributed_phase(smi)
+    layout_launches.update(dist_launches)
+    lap("distributed")
     # every path's launches, each read just after its own zeroing: the
     # three serving runs, the observed and the faulted runs (summed over
     # each phase's runs), the study, the study's energy windows and the
@@ -4489,6 +4841,9 @@ def main() -> int:
                 row.setdefault("by_arch", {})[
                     f"{r['arch']} {r['layout']}"] = {
                     **r["times"][kid], "launches": r["launches"][kid]}
+    # one tensor-parallel rank's shapes (slice 13)
+    for row, shard in zip(rows[:2], (shard_b1, shard_b2)):
+        row.setdefault("by_arch", {}).update(shard)
     for row in long_rows:
         row["max_abs_err"] = errs[f"B2@{row['tokens_per_slot']}"]
     print("kernels: [B1 sfc_matmul, B2 paged_decode_attention, B3 "
@@ -4524,7 +4879,9 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"families": families}))
     print(json.dumps({"frontends": frontends}))
+    print(json.dumps({"distributed": distributed}))
     print(json.dumps({"launches_by_path": by_path}))
+    print(json.dumps({"phase_seconds": phase_s, "card": smi}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("by_arch",)
                                    if k in r} for r in rows]}))
     print(smi)

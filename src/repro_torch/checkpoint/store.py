@@ -1,7 +1,9 @@
 """Integrity-checked checkpoints on disk (port of
 ``repro.checkpoint.store``: ``save_checkpoint``, ``load_checkpoint``,
-``latest_step`` and the asynchronous ``AsyncCheckpointer``; the
-resharding restore comes with the distributed slice).
+``latest_step``, the asynchronous ``AsyncCheckpointer`` and
+``restore_with_shardings``, which slices a loaded full tree into this
+rank's shards for a mesh).  Checkpoints hold full trees: a sharded run
+gathers to rank 0 and saves there, so any mesh restores them.
 
 Layout, the reference's byte for byte:  <root>/step_<N>/
             manifest.json     {step, meta, leaves: {key: shape, dtype, crc32}}
@@ -32,8 +34,15 @@ import zlib
 import numpy as np
 import torch
 
+# the reference's restore_with_shardings: this rank's shards of a loaded
+# full tree under a mesh's specs (possibly another mesh than the one
+# that saved it)
+from repro_torch.distributed.sharding import \
+    shard_tree as restore_with_shardings
+
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
-           "AsyncCheckpointer", "CheckpointCorruptionError"]
+           "AsyncCheckpointer", "CheckpointCorruptionError",
+           "restore_with_shardings"]
 
 _SEP = "__"
 
@@ -227,10 +236,14 @@ class AsyncCheckpointer:
             finally:
                 self._q.task_done()
 
-    def save(self, step: int, tree, meta: dict | None = None):
+    def save(self, step: int, tree, meta: dict | None = None, *,
+             copy: bool = True):
+        """Queue ``tree`` for writing; ``copy=False`` takes a tree that
+        already is a host copy no one else writes (``sharding.
+        gather_to_root``'s) as it is."""
         if self._err:
             raise self._err
-        self._q.put((step, _host_copy(tree), meta))
+        self._q.put((step, _host_copy(tree) if copy else tree, meta))
 
     def wait(self):
         self._q.join()

@@ -14,7 +14,9 @@ __all__ = ["resolve_device"]
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` -> ``cuda`` (or raise); otherwise the named device, which
-    must exist.  Only ``cpu`` and ``cuda`` are supported."""
+    must exist.  ``cpu`` and ``cuda`` are supported, and ``meta``
+    (shapes and dtypes without storage: the builders' abstract
+    states)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -22,6 +24,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run "
                 "the plain PyTorch versions on the CPU")
         return dev
-    if dev.type != "cpu":
+    if dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

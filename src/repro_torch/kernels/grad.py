@@ -19,7 +19,9 @@ accumulator), with cotangent ``dy``:
   written in its operand's dtype.
 
 The backward GEMMs run in the wider of the operands' and ``dy``'s
-dtypes.  So the vocab head (bf16 operands, f32 logits) keeps dLogits
+dtypes; ``grad_dtype`` casts ``dy`` first (a row-parallel shard's f32
+partial product takes its cotangent in the activation dtype, as the
+one-device GEMM whose output it replaces does).  So the vocab head (bf16 operands, f32 logits) keeps dLogits
 in f32 and multiplies it by the bf16 operand upcast to f32, exactly, as
 the reference's XLA gradient does (``dot_general(f32, bf16,
 preferred=f32)`` then a cast to bf16); a bf16 projection rounds ``dz``
@@ -73,9 +75,11 @@ class GemmOpts:
     bk: int = 128
     use_prefetch: bool = True
     objective: str = "time"
+    comm: object = None
 
     def kwargs(self) -> dict:
-        return dataclasses.asdict(self)
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)}
 
 
 class DotCache:
@@ -131,7 +135,7 @@ def _transposed(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class _SfcMatmulFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, residual, activation, out_dtype,
-                opts: GemmOpts):
+                opts: GemmOpts, grad_dtype):
         cache = _DOTS.get()
         if cache is not None and cache.replaying:
             out = cache.take()
@@ -145,6 +149,7 @@ class _SfcMatmulFn(torch.autograd.Function):
         ctx.save_for_backward(x, w, bias)
         ctx.activation = activation
         ctx.opts = opts
+        ctx.grad_dtype = grad_dtype
         ctx.res_dtype = residual.dtype if residual is not None else None
         return out
 
@@ -153,6 +158,8 @@ class _SfcMatmulFn(torch.autograd.Function):
         x, w, bias = ctx.saved_tensors
         kw = ctx.opts.kwargs()
         need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        if ctx.grad_dtype is not None:
+            dy = dy.to(ctx.grad_dtype)
         gd = torch.promote_types(x.dtype, dy.dtype)
         if ctx.activation == "none":
             dz32 = dy.float() if need_b else None
@@ -178,7 +185,7 @@ class _SfcMatmulFn(torch.autograd.Function):
             xt = _transposed(x, gd)
             with record_function("sfc_matmul.wgrad"):
                 dw = ops.sfc_matmul(xt, dz, out_dtype=w.dtype, **kw)
-        return dx, dw, dbias, dres, None, None, None
+        return dx, dw, dbias, dres, None, None, None, None
 
 
 def needs_grad(*tensors) -> bool:
@@ -190,9 +197,11 @@ def needs_grad(*tensors) -> bool:
 
 def sfc_matmul_grad(x: torch.Tensor, w: torch.Tensor, *, bias=None,
                     activation: str = "none", residual=None,
-                    out_dtype=None, opts: GemmOpts = GemmOpts()
-                    ) -> torch.Tensor:
+                    out_dtype=None, opts: GemmOpts = GemmOpts(),
+                    grad_dtype=None) -> torch.Tensor:
     """``ops.sfc_matmul(x, w, ...)`` (x (M, K), w (K, N)) with the
-    gradient above: the same output, recorded for autograd."""
+    gradient above: the same output, recorded for autograd.
+    ``grad_dtype``: the dtype the cotangent is cast to before the
+    backward's GEMMs (None: as it arrives)."""
     return _SfcMatmulFn.apply(x, w, bias, residual, activation,
-                              out_dtype or x.dtype, opts)
+                              out_dtype or x.dtype, opts, grad_dtype)

@@ -74,9 +74,9 @@ def library_matmul(a: torch.Tensor, b: torch.Tensor, bias=None,
 def _resolve_auto(a: torch.Tensor, m: int, n: int, k: int,
                   batched: bool = False, objective: str = "time",
                   has_bias: bool = False, activation: str = "none",
-                  has_residual: bool = False):
+                  has_residual: bool = False, comm=None):
     """Map schedule="auto" to a concrete (schedule, blocks, prefetch, g)
-    for operand ``a``'s dtype and device.
+    for operand ``a``'s dtype and device (``comm``: the mesh keyspace).
 
     The epilogue shape keys the tuner (a fused epilogue removes whole
     passes from the traffic model).  The winner's DVFS point
@@ -91,7 +91,7 @@ def _resolve_auto(a: torch.Tensor, m: int, n: int, k: int,
     cfg = resolve_config(int(m), int(n), int(k), a.dtype,
                          backend="cuda" if a.is_cuda else "cpu",
                          batched=batched, objective=objective,
-                         epilogue=None if ep.is_noop else ep)
+                         epilogue=None if ep.is_noop else ep, comm=comm)
     return cfg.schedule, cfg.bm, cfg.bn, cfg.bk, cfg.use_prefetch, cfg.g
 
 
@@ -99,20 +99,22 @@ def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
                bm: int = 128, bn: int = 128, bk: int = 128, out_dtype=None,
                use_prefetch: bool = True, g: int = 0,
                objective: str = "time", bias=None,
-               activation: str = "none", residual=None) -> torch.Tensor:
+               activation: str = "none", residual=None,
+               comm=None) -> torch.Tensor:
     """C = act(A @ B + bias) + residual, tiles visited in ``schedule``
     order.  ``bias`` (N,), ``activation`` in {none, relu, gelu, silu}
     and ``residual`` (M, N) form the fused epilogue, applied to the f32
     accumulator before one cast to ``out_dtype`` (default ``a.dtype``).
     ``schedule="auto"`` resolves (schedule, blocks, prefetch, g) through
     the tuner under ``objective`` ("time", "energy" or "edp"; ignored
-    for explicit schedules).
+    for explicit schedules) and ``comm``, the ``CommSpec`` of the
+    collective the output feeds on a mesh (None: the single-device keys).
     """
     if schedule == "auto":
         schedule, bm, bn, bk, use_prefetch, g = _resolve_auto(
             a, a.shape[0], b.shape[1], a.shape[1], objective=objective,
             has_bias=bias is not None, activation=activation,
-            has_residual=residual is not None)
+            has_residual=residual is not None, comm=comm)
     if schedule == "xla":
         return library_matmul(a, b, bias=bias, activation=activation,
                               residual=residual, out_dtype=out_dtype)

@@ -1,5 +1,5 @@
-"""End-to-end training on one device (port of
-``repro.launch.train``).
+"""End-to-end training (port of ``repro.launch.train``), on one device
+or on a mesh of ranks.
 
 Composes the config registry (``--arch``), synthetic packed data with a
 prefetching loader, the train step (``launch/steps.py``: every
@@ -14,16 +14,30 @@ kernel in ``--schedule`` order (default Morton; ``auto`` with
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_1_7b \\
       --smoke --device cpu --steps 4 --batch 4 --seq 32
 
-The mesh (``--mesh``, ``--device-order``) and pod compression
-(``--pod-compress``) wait for the distributed slice (ROADMAP.md queue
-A, A15) and raise.
+``--mesh 2,2,2`` trains on a (pod, data, model) mesh (fewer numbers
+name the last axes): the one command starts ``prod(dims)`` ranks itself
+(gloo ranks with ``--device cpu``, one NCCL rank per card otherwise; a
+mesh larger than the visible cards raises), or, inside a world already
+joined, runs as its ranks.  Every rank builds the full model from the
+seed and keeps its shards (``distributed.sharding``); the step is
+``launch/steps.py``'s sharded one, ``--pod-compress`` its error-feedback
+bf16 cross-pod mean, ``--device-order`` the curve the ranks are laid
+along (``launch/mesh.py``).  Checkpoints hold full trees, gathered to
+rank 0 and written there; a resume slices them for the mesh.
+
+``main`` returns the final state (``params``, ``opt``, ``last_loss`` and
+``history``: each step's loss, host ms and joules); a command that
+started its own ranks returns rank 0's ``last_loss``.
 """
 from __future__ import annotations
 
 import argparse
+import math
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, \
     load_checkpoint
@@ -32,10 +46,11 @@ from repro_torch.core.energy import H100
 from repro_torch.data import PackedSyntheticData, PrefetchLoader
 from repro_torch.data.pipeline import batch_to_device
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import _engine_for, make_train_step
+from repro_torch.launch.steps import _engine_for, build_train_step, \
+    make_train_step, sharded_opt_state
 from repro_torch.models import DotEngine, fused_epilogue_savings_bytes, \
     init_model
-from repro_torch.models.config import ShapeSpec
+from repro_torch.models.config import SHAPES, ShapeSpec
 from repro_torch.obs import Tracer, default_registry, null_registry, \
     set_default_tracer, trace_span
 from repro_torch.optim import AdamWConfig, init_opt_state
@@ -66,11 +81,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (ROADMAP.md queue A, A15)")
-    ap.add_argument("--device-order", default=None,
-                    help="not ported yet (ROADMAP.md queue A, A15)")
+                    help="e.g. '2,2,2' for a (pod, data, model) mesh of "
+                         "ranks")
+    ap.add_argument("--device-order", default="rowmajor",
+                    help="lay the mesh's ranks along this curve "
+                         "(rowmajor|hilbert|morton)")
     ap.add_argument("--pod-compress", action="store_true",
-                    help="not ported yet (ROADMAP.md queue A, A15)")
+                    help="error-feedback bf16 gradients across pods")
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
@@ -126,13 +143,112 @@ def _f_scales(cfg, args, tokens: int, backend: str) -> dict:
     return f_scales
 
 
+def _mesh_dims(args) -> tuple | None:
+    return tuple(int(x) for x in args.mesh.split(",")) if args.mesh \
+        else None
+
+
+def _spawn_ranks(argv, args, dev) -> dict:
+    """Start ``prod(dims)`` ranks of this command and return rank 0's
+    final loss: gloo ranks on the CPU, one NCCL rank per card."""
+    from repro_torch.distributed.ctx import spawn
+
+    n = math.prod(_mesh_dims(args))
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(
+            f"--mesh {args.mesh} needs {n} cards; "
+            f"{torch.cuda.device_count()} are visible (--device cpu runs "
+            f"it on CPU ranks)")
+    return spawn(_rank_main, n, list(argv), device=dev.type)
+
+
+def _rank_main(argv) -> dict:
+    return {"last_loss": main(argv)["last_loss"]}
+
+
+class _MeshRun:
+    """The mesh half of a run: the mesh, the sharded step and the
+    conversions between this rank's shards and the full trees."""
+
+    def __init__(self, args, cfg, shape, opt_cfg, engine, dev):
+        from repro_torch.launch.mesh import link_distance, make_smoke_mesh
+
+        dims = _mesh_dims(args)
+        names = ("pod", "data", "model")[-len(dims):]
+        self.mesh = make_smoke_mesh(dims, names,
+                                    device_order=args.device_order)
+        self.rank0 = dist.get_rank() == 0
+        if args.device_order != "rowmajor" and self.rank0:
+            hops = link_distance(self.mesh)
+            print("[train] device_order=%s ring-neighbour hops %s" % (
+                args.device_order,
+                " ".join(f"{a}={h:.2f}" for a, h in hops.items())))
+        SHAPES[shape.name] = shape
+        self.pod_compress = args.pod_compress and "pod" in names
+        self.step_fn, (self.ps, self.os, self.bs), _ = build_train_step(
+            cfg, self.mesh, shape.name, opt_cfg=opt_cfg,
+            grad_accum=args.grad_accum, pod_compress=self.pod_compress,
+            engine=engine, objective=args.objective)
+        self.cfg, self.dev = cfg, dev
+
+    def init(self, seed: int):
+        """This rank's parameter shards and AdamW state, each leaf drawn
+        in the unsharded run's order and sliced as soon as it is drawn
+        (the full tree never exists on the card)."""
+        from repro_torch.distributed.sharding import shard_leaf
+
+        self.n_params = 0
+
+        def place(path, leaf):
+            spec = self.ps
+            for k in path:
+                spec = spec[k]
+            self.n_params += leaf.numel()
+            return shard_leaf(spec, leaf, self.mesh)
+
+        params = init_model(self.cfg, torch.Generator(
+            device=self.dev).manual_seed(seed), device=self.dev,
+            moe_pad=self.mesh.shape["model"], place=place)
+        return params, sharded_opt_state(self.cfg, self.mesh, params,
+                                          pod_compress=self.pod_compress)
+
+    def full(self, params, opt):
+        """The full trees in rank 0's host memory, leaf by leaf (None on
+        the other ranks, which send their shards)."""
+        from repro_torch.distributed.sharding import gather_to_root
+        return gather_to_root({"params": params, "opt": opt},
+                              {"params": self.ps, "opt": self.os},
+                              self.mesh)
+
+    def shards(self, tree):
+        """This rank's shards of a loaded (host) tree, sliced on the host
+        and moved to the card."""
+        from repro_torch.checkpoint import restore_with_shardings
+        return (_to_device(restore_with_shardings(
+                    tree["params"], self.ps, self.mesh), self.dev),
+                _to_device(restore_with_shardings(
+                    tree["opt"], self.os, self.mesh), self.dev))
+
+    def put(self, batch):
+        from repro_torch.distributed.sharding import shard_tree
+        return shard_tree(batch_to_device(batch, self.dev), self.bs,
+                          self.mesh)
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.mesh or args.device_order or args.pod_compress:
-        raise NotImplementedError(
-            "--mesh, --device-order and --pod-compress are not ported yet "
-            "(ROADMAP.md queue A, A15)")
     dev = resolve_device(args.device)
+    if args.mesh:
+        from repro_torch.launch.mesh import DEVICE_ORDERS
+        if args.device_order not in DEVICE_ORDERS:
+            raise ValueError(
+                f"unknown device_order {args.device_order!r}; supported "
+                f"orders: {', '.join(DEVICE_ORDERS)}")
+    if args.mesh and not dist.is_initialized():
+        return _spawn_ranks(sys.argv[1:] if argv is None else argv, args,
+                            dev)
+    if args.mesh and dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
 
     # per-step spans (energy attributed to them by the meter) and a
     # step-latency histogram, written out on request
@@ -154,28 +270,44 @@ def main(argv=None):
         print(f"[train] kernels built in {max(secs.values()):.1f}s")
     engine = _engine_for(DotEngine(schedule=args.schedule)
                          if args.schedule else None, args.objective)
-    step_fn = make_train_step(cfg, None, opt_cfg, grad_accum=args.grad_accum,
-                              engine=engine, objective=args.objective)
+    run = _MeshRun(args, cfg, shape, opt_cfg, engine, dev) if args.mesh \
+        else None
+    rank0 = run is None or run.rank0
+    if run is None:
+        step_fn = make_train_step(cfg, None, opt_cfg,
+                                  grad_accum=args.grad_accum, engine=engine,
+                                  objective=args.objective)
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        opt_state = init_opt_state(params)
+    else:
+        step_fn = run.step_fn
+        params, opt_state = run.init(args.seed)
 
-    params = init_model(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), device=dev)
-    opt_state = init_opt_state(params)
+    def to_state(tree):
+        if run is None:
+            return (_to_device(tree["params"], dev),
+                    _to_device(tree["opt"], dev))
+        return run.shards(tree)
 
-    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    # a mesh run saves full trees, gathered to rank 0 (every rank joins
+    # the gather) and written there
+    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir and rank0 \
+        else None
     start = 0
     if args.ckpt_dir:
         last = latest_step(args.ckpt_dir)
         if last is not None:
             tree, _ = load_checkpoint(args.ckpt_dir, last,
                                       {"params": params, "opt": opt_state})
-            params = _to_device(tree["params"], dev)
-            opt_state = _to_device(tree["opt"], dev)
+            params, opt_state = to_state(tree)
             start = last
-            print(f"[train] resumed from step {start}")
+            if rank0:
+                print(f"[train] resumed from step {start}")
 
     data = PackedSyntheticData(cfg, shape, seed=args.seed)
-    loader = PrefetchLoader(data, start_step=start,
-                            put_fn=lambda b: batch_to_device(b, dev))
+    loader = PrefetchLoader(data, start_step=start, put_fn=(
+        run.put if run is not None else lambda b: batch_to_device(b, dev)))
     loader_iter = iter(loader)
 
     injector = FailureInjector(
@@ -187,7 +319,8 @@ def main(argv=None):
     # per-step energy: NVML on the card, the analytic model (static
     # power x step time + 6 N tokens FLOPs) where no counter is readable
     power = detect_backend(args.power_backend)
-    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_params = run.n_params if run is not None \
+        else sum(p.numel() for p in tree_leaves(params))
     tokens = args.batch * args.seq
     step_flops = 6.0 * n_params * tokens
     # device-memory passes the forward no longer makes (fused epilogues)
@@ -206,6 +339,8 @@ def main(argv=None):
         "schedule": engine.schedule,
         "device": str(dev)})
 
+    history: dict[int, dict] = {}   # the last attempt of each step
+
     def one_step(state, step):
         _, batch = next(loader_iter)
         t0 = time.perf_counter()
@@ -214,36 +349,55 @@ def main(argv=None):
                             hints=step_hints) as em:
             p, o, met = step_fn(state["params"], state["opt"], batch)
             state = {"params": p, "opt": o, "last_loss": float(met["loss"])}
-        m_step_ms.observe((time.perf_counter() - t0) * 1e3)
-        if step % args.log_every == 0 or step == start + args.steps - 1:
+        ms = (time.perf_counter() - t0) * 1e3
+        m_step_ms.observe(ms)
+        history[step] = {"loss": state["last_loss"], "ms": ms,
+                         "joules": em.reading.joules}
+        if rank0 and (step % args.log_every == 0
+                      or step == start + args.steps - 1):
             print(f"[train] step {step} loss {state['last_loss']:.4f} "
                   f"gnorm {float(met['grad_norm']):.3f} "
                   f"lr {float(met['lr']):.2e} "
                   f"E {em.reading.joules:.2f}J "
                   f"EDP {em.reading.edp:.3e}Js", flush=True)
-        if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, {"params": p, "opt": o})
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            tree = {"params": p, "opt": o} if run is None \
+                else run.full(p, o)
+            if ckpt:   # rank 0's gathered tree is a host copy already
+                ckpt.save(step + 1, tree, copy=run is None)
         return state
 
     def restore(step):
         if not args.ckpt_dir:
             return state
-        ckpt.wait()
+        if ckpt:
+            ckpt.wait()
+        if run is not None:   # rank 0's write is done before any reads
+            dist.barrier()
         last = latest_step(args.ckpt_dir)
         if last is None:
             return state
         tree, _ = load_checkpoint(
             args.ckpt_dir, last,
             {"params": state["params"], "opt": state["opt"]})
-        print(f"[train] restored step {last} after failure", flush=True)
-        return {"params": _to_device(tree["params"], dev),
-                "opt": _to_device(tree["opt"], dev), "last_loss": None}
+        if rank0:
+            print(f"[train] restored step {last} after failure", flush=True)
+        params, opt = to_state(tree)
+        return {"params": params, "opt": opt, "last_loss": None}
 
     executor = StepExecutor(one_step, restore, injector=injector,
                             monitor=monitor, metrics=metrics)
     t0 = time.time()
     final_state, _ = executor.run(state, start, args.steps)
+    final_state["history"] = [history[k] for k in sorted(history)]
     dt = time.time() - t0
+    loader.close()
+    if ckpt:
+        ckpt.close()
+    if hasattr(power, "close"):   # NVML's sampling thread
+        power.close()
+    if not rank0:
+        return final_state
     totals = energy.totals()
     print(f"[train] done: {args.steps} steps in {dt:.1f}s "
           f"({dt / max(args.steps, 1) * 1e3:.0f} ms/step) on "
@@ -274,9 +428,6 @@ def main(argv=None):
         tracer.write_jsonl(args.trace)
         print(f"[train] wrote {len(tracer.events)} trace events to "
               f"{args.trace}")
-    loader.close()
-    if ckpt:
-        ckpt.close()
     return final_state
 
 

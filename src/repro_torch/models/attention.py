@@ -3,8 +3,17 @@ with qwen3's per-head qk-norm and RoPE, full-sequence (prefill)
 attention with the reference's q-chunked exact softmax, and one-token
 decode against the paged KV pool (the paged decode kernel) or against
 per-slot contiguous strips, a ring of one window under SWA (plain torch
-ops, as the reference's are XLA).  The sequence-parallel decode waits
-for the distributed slice (ROADMAP.md queue A, A15)."""
+ops, as the reference's are XLA).
+
+On a mesh (an active :func:`repro_torch.distributed.ctx.mesh_context`)
+the projections are tensor-parallel (``layers.copy_to`` /
+``layers.out_proj``): the forward runs attention head-local on each
+rank's ``n_heads / m`` query and ``n_kv_heads / m`` kv-heads (where the
+reference shards the query sequence: the same function), and raises
+where the heads do not divide the model axis.  The paged decode runs the
+kernel on each rank's kv-head shard of the pool; the contiguous decode
+gathers every head and runs the sequence-parallel online softmax over
+the cache's sequence shards (``distributed.sp_attention``)."""
 from __future__ import annotations
 
 import math
@@ -13,37 +22,69 @@ import torch
 
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 
-from .layers import DotEngine, apply_rope, init_linear, init_rms, rms_norm
+from .layers import DotEngine, apply_rope, copy_to, gather, init_linear, \
+    init_rms, out_proj, rms_norm, tp_context
 
 __all__ = ["init_attention", "attention", "prefill_kv",
            "decode_attention", "decode_plan", "paged_decode_attention"]
 
 
 def init_attention(generator, cfg, dtype=torch.float32, *, lead=(),
-                   device=None):
+                   device=None, place=None):
+    """``place(name, leaf)``, when given, takes each leaf as soon as it
+    is drawn and the dict holds what it returns."""
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kw = dict(lead=lead, device=device)
+    put = place or (lambda _, t: t)
     p = {
-        "wq": init_linear(generator, d, h * dh, dtype, **kw),
-        "wk": init_linear(generator, d, hkv * dh, dtype, **kw),
-        "wv": init_linear(generator, d, hkv * dh, dtype, **kw),
-        "wo": init_linear(generator, h * dh, d, dtype, **kw),
+        "wq": put("wq", init_linear(generator, d, h * dh, dtype, **kw)),
+        "wk": put("wk", init_linear(generator, d, hkv * dh, dtype, **kw)),
+        "wv": put("wv", init_linear(generator, d, hkv * dh, dtype, **kw)),
+        "wo": put("wo", init_linear(generator, h * dh, d, dtype, **kw)),
     }
     if cfg.qk_norm:
-        p["q_norm"] = init_rms(dh, dtype, **kw)
-        p["k_norm"] = init_rms(dh, dtype, **kw)
+        p["q_norm"] = put("q_norm", init_rms(dh, dtype, **kw))
+        p["k_norm"] = put("k_norm", init_rms(dh, dtype, **kw))
     return p
 
 
-def _project_qkv(x, p, cfg, engine: DotEngine, cos, sin):
+def local_heads(cfg) -> tuple[int, int]:
+    """(query heads, kv-heads) of this rank: all of them on one device,
+    ``n / m`` each on a mesh's m-way model axis (both must divide)."""
+    c = tp_context()
+    if c is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    m = c.tp
+    if cfg.n_heads % m or cfg.n_kv_heads % m:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_heads} query heads and {cfg.n_kv_heads} "
+            f"kv-heads do not both divide the {m}-way model axis; "
+            f"head-local tensor-parallel attention needs them to")
+    return cfg.n_heads // m, cfg.n_kv_heads // m
+
+
+def _project_qkv(x, p, cfg, engine: DotEngine, cos, sin,
+                 full_heads: bool = False):
+    """q, k, v (B, S, heads, dh) after qk-norm and rope.  On a mesh the
+    column shards give this rank's heads (:func:`local_heads`), or with
+    ``full_heads`` (decode, no grad) every head, all-gathered."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = engine.dot(x, p["wq"]).reshape(b, s, h, dh)
-    k = engine.dot(x, p["wk"]).reshape(b, s, hkv, dh)
-    v = engine.dot(x, p["wv"]).reshape(b, s, hkv, dh)
+    dh = cfg.d_head
+    x = copy_to(x)
+    q = engine.dot(x, p["wq"])
+    k = engine.dot(x, p["wk"])
+    v = engine.dot(x, p["wv"])
+    c = tp_context()
+    if full_heads and c is not None and c.tp > 1:
+        q, k, v = (gather(t, -1) for t in (q, k, v))
+    elif not full_heads:
+        local_heads(cfg)
+    q = q.reshape(b, s, -1, dh)
+    k = k.reshape(b, s, -1, dh)
+    v = v.reshape(b, s, -1, dh)
     if cfg.qk_norm:  # before rope, as the reference
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, copy_to(p["q_norm"]))
+        k = rms_norm(k, copy_to(p["k_norm"]))
     if cfg.rope:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -104,7 +145,7 @@ def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
             outs.append(_sdpa(q[:, i * c:hi], k[:, lo:hi], v[:, lo:hi],
                               mask[None, None, None], scale))
         out = torch.cat(outs, dim=1)
-    out = engine.dot(out.reshape(b, s, -1), p["wo"], residual=residual)
+    out = out_proj(engine, out.reshape(b, s, -1), p["wo"], residual)
     return (out, k, v) if return_kv else out
 
 
@@ -133,11 +174,19 @@ def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
     own distinct pages, and rows that write back may repeat a location
     (the zero row) only with the value it already holds, so the index
     write is deterministic.  Returns (out (B, 1, d), k_pages, v_pages).
+
+    On a mesh the pool holds this rank's kv-heads (sharded over the
+    model axis) and the kernel runs on them and their query heads, with
+    no collective; a pool the kv-heads do not divide is replicated, and
+    every head is gathered, attended, and this rank's columns kept.
     """
     b = x.shape[0]
     page_size = k_pages.shape[1]
     max_pages = phys_tables.shape[1]
-    q, k_new, v_new = _project_qkv(x, p, cfg, engine, cos, sin)
+    c = tp_context()
+    full = c is not None and c.tp > 1 and k_pages.shape[2] == cfg.n_kv_heads
+    q, k_new, v_new = _project_qkv(x, p, cfg, engine, cos, sin,
+                                   full_heads=full)
 
     pos = torch.as_tensor(cur_pos, device=x.device).to(torch.int64)
     pos = pos.reshape(-1).expand(b)
@@ -156,9 +205,18 @@ def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
     v_pages[rows, offset] = torch.where(sel, v_new[:, 0], v_pages[rows, offset])
 
     out = paged_decode_attention_cuda(q[:, 0].contiguous(), k_pages, v_pages,
-                                      phys_tables, pos)
-    out = engine.dot(out.reshape(b, 1, -1), p["wo"], residual=residual)
+                                      phys_tables, pos).reshape(b, 1, -1)
+    if full:
+        out = _local_columns(out)
+    out = out_proj(engine, out, p["wo"], residual)
     return out, k_pages, v_pages
+
+
+def _local_columns(out):
+    """This rank's chunk of the flattened heads (the rows of its ``wo``
+    shard)."""
+    m = tp_context().mesh
+    return out.chunk(m.size("model"), -1)[m.index("model")]
 
 
 def ring_positions(cur_pos, c: int):
@@ -231,7 +289,19 @@ def decode_attention(x, p, cfg, engine: DotEngine, k_cache, v_cache,
     all layers of a step (the positions and ``row_mask`` are then not
     read again); None computes it here.
 
+    On a mesh the strips hold this rank's sequence shard (the entries
+    ``cache_positions`` describes): every head is gathered and the
+    sequence-parallel online softmax combines the shards
+    (:func:`repro_torch.distributed.sp_attention.sp_decode_attention`);
+    ``write_slot`` is then the global entry, and a vector position
+    raises, as in the reference.
+
     Returns (out (B, 1, d), k_cache, v_cache)."""
+    c_ = tp_context()
+    if c_ is not None:
+        return _sp_decode(x, p, cfg, engine, k_cache, v_cache,
+                          cache_positions, write_slot, cur_pos, cos, sin,
+                          row_mask, residual, c_)
     b, c = k_cache.shape[:2]
     q, k_new, v_new = _project_qkv(x, p, cfg, engine, cos, sin)
     idx, sel, mask = plan or decode_plan(cfg, b, c, cache_positions,
@@ -242,3 +312,22 @@ def decode_attention(x, p, cfg, engine: DotEngine, k_cache, v_cache,
     out = _sdpa(q, k_cache, v_cache, mask, 1.0 / math.sqrt(cfg.d_head))
     out = engine.dot(out.reshape(b, 1, -1), p["wo"], residual=residual)
     return out, k_cache, v_cache
+
+
+def _sp_decode(x, p, cfg, engine, k_cache, v_cache, cache_positions,
+               write_slot, cur_pos, cos, sin, row_mask, residual, c):
+    from repro_torch.distributed.sp_attention import sp_decode_attention
+
+    if torch.as_tensor(cur_pos).dim() > 0:
+        raise NotImplementedError(
+            "per-slot position vectors are single-device only; the "
+            "sequence-parallel decode path takes a scalar position")
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(x, p, cfg, engine, cos, sin,
+                                   full_heads=True)
+    out, k_cache, v_cache = sp_decode_attention(
+        q, k_cache, v_cache, cache_positions, k_new, v_new, write_slot,
+        cur_pos, mesh=c.mesh, window=cfg.swa_window,
+        seq_axes=c.sp, row_mask=row_mask)
+    out = _local_columns(out.reshape(b, 1, -1))
+    return out_proj(engine, out, p["wo"], residual), k_cache, v_cache

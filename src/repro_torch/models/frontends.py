@@ -5,8 +5,9 @@ numpy calls, so a seed gives the same tokens, labels, frame features
 and vision embeddings.  Per the reference, the encoder's and the vlm's
 modality frontends are stubs: the batch carries *precomputed* frame or
 patch embeddings of the documented width, which ``frontend_proj`` maps
-into the model.  The abstract batch of the reference's dry-run waits
-for the distributed slice (ROADMAP.md queue A, A15)."""
+into the model.  :func:`input_specs` is the same batch on the meta
+device (shapes and dtypes, no storage), the builders' abstract inputs,
+and :func:`decode_inputs` a decode step's."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 
 from .config import SHAPES, ArchConfig, ShapeSpec
 
-__all__ = ["make_batch"]
+__all__ = ["make_batch", "input_specs", "decode_inputs"]
 
 
 def _tokens(shape, seed: int, maxval: int, device):
@@ -62,3 +63,35 @@ def make_batch(cfg: ArchConfig, shape: ShapeSpec | str, *, seed: int = 0,
         mask[:, :nv] = 0.0
         batch["loss_mask"] = mask
     return batch
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec | str) -> dict:
+    """:func:`make_batch`'s keys, shapes and dtypes as meta tensors."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+    dt = cfg.act_torch_dtype()
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if cfg.family == "encoder":
+        return {"features": meta((b, s, cfg.frontend_dim), dt),
+                "labels": meta((b, s), torch.int32)}
+    batch = {"tokens": meta((b, s), torch.int32),
+             "labels": meta((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        nv = min(cfg.frontend_tokens, s // 2)
+        batch["vision_embeds"] = meta((b, nv, cfg.frontend_dim), dt)
+        batch["loss_mask"] = meta((b, s), torch.float32)
+    return batch
+
+
+def decode_inputs(cfg: ArchConfig, shape: ShapeSpec | str):
+    """A decode step's (tokens (B, 1) int32, pos 0-d int32) as meta
+    tensors (the reference's ``decode_inputs(..., abstract=True)``)."""
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b = shape.global_batch
+    return (torch.empty((b, 1), dtype=torch.int32, device="meta"),
+            torch.empty((), dtype=torch.int32, device="meta"))

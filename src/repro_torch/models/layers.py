@@ -4,15 +4,35 @@ functions on tensors, parameters in nested dicts.
 All GEMMs route through :class:`DotEngine`, the point where the paper's
 technique enters the model: a curve schedule runs every projection
 through the hand-written SFC GEMM kernel.
+
+Tensor parallelism.  Under an active mesh context
+(:func:`repro_torch.distributed.ctx.mesh_context`) each rank holds its
+column shards (``wq``, ``wk``, ``wv``, ``w1``, ``w3``, ``lm_head``: N/m
+columns) and row shards (``wo``, ``w2``: K/m rows) and runs them through
+the unchanged :meth:`DotEngine.dot`, so B1 runs every shard.  The
+collectives are two autograd ``Function`` pairs: :func:`copy_to`
+(identity forward, all-reduce backward) where a replicated activation
+enters column-parallel work, and :func:`reduce_sum` (all-reduce forward,
+identity backward) after a row-parallel GEMM (:func:`out_proj`: the
+partial products summed in f32, the residual added once, after the
+all-reduce).  :func:`scatter` and
+:func:`gather` (a slice one way, an all-gather the other) carry the moe
+layer's token split and expert outputs.  Every rank then computes the
+same replicated activations and the same full gradient of each
+replicated parameter.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
+
 import torch
 
 __all__ = ["DotEngine", "rms_norm", "layer_norm", "rope", "apply_rope",
-           "swiglu_mlp", "init_linear", "init_rms", "init_swiglu"]
+           "swiglu_mlp", "init_linear", "init_rms", "init_swiglu",
+           "copy_to", "reduce_sum", "scatter", "gather", "out_proj",
+           "tp_context"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,17 +50,24 @@ class DotEngine:
     "energy" or "edp".  Ignored for explicit schedules.  An "energy" or
     "edp" winner also carries a DVFS point that never changes the
     launch; the serving loop reads it back for its energy accounting
-    (``repro_torch.tune.resolved_f_scale``)."""
+    (``repro_torch.tune.resolved_f_scale``).
+
+    comm: the :class:`repro_torch.tune.CommSpec` of the collective each
+    GEMM's output feeds on a mesh (``launch.steps._comm_for``).  Only
+    read under "auto", where it keys the tuner's mesh keyspace; None
+    (default) keeps every single-device cache key as it is."""
     schedule: str = "morton"
     block: tuple = (128, 128, 128)
     use_prefetch: bool = True
     objective: str = "time"
+    comm: Any = None
 
     def dot(self, x, w, *, bias=None, activation: str = "none",
-            residual=None, out_dtype=None):
+            residual=None, out_dtype=None, grad_dtype=None):
         """x: (..., d_in) @ w: (d_in, d_out) -> (..., d_out), with the
         fused epilogue ``act(x @ w + bias) + residual`` and one cast to
-        ``out_dtype``.  Every schedule, "xla" included, goes through
+        ``out_dtype``.  ``grad_dtype``: the dtype the backward's GEMMs
+        take the cotangent in (None: the output's).  Every schedule, "xla" included, goes through
         :func:`repro_torch.kernels.ops.sfc_matmul`; when grad is enabled
         and an operand requires it, through its autograd ``Function``
         (:func:`repro_torch.kernels.grad.sfc_matmul_grad`), whose
@@ -59,13 +86,14 @@ class DotEngine:
                 x2, w, bias=bias, activation=activation, residual=res2,
                 out_dtype=out_dtype,
                 opts=GemmOpts(self.schedule, bm, bn, bk, self.use_prefetch,
-                              self.objective))
+                              self.objective, self.comm),
+                grad_dtype=grad_dtype)
         else:
             out = sfc_matmul(x2, w, schedule=self.schedule, bm=bm, bn=bn,
                              bk=bk, use_prefetch=self.use_prefetch,
                              out_dtype=out_dtype, objective=self.objective,
                              bias=bias, activation=activation,
-                             residual=res2)
+                             residual=res2, comm=self.comm)
         return out.reshape(*lead, w.shape[-1])
 
     def dot_batched(self, x, w, *, bias=None, activation: str = "none",
@@ -110,12 +138,15 @@ def init_rms(d: int, dtype=torch.float32, *, lead=(), device=None):
 
 
 def init_swiglu(generator: torch.Generator, d: int, d_ff: int,
-                dtype=torch.float32, *, lead=(), device=None):
+                dtype=torch.float32, *, lead=(), device=None, place=None):
+    """``place(name, leaf)``, when given, takes each leaf as soon as it
+    is drawn and the dict holds what it returns."""
     kw = dict(lead=lead, device=device)
+    put = place or (lambda _, t: t)
     return {
-        "w1": init_linear(generator, d, d_ff, dtype, **kw),
-        "w3": init_linear(generator, d, d_ff, dtype, **kw),
-        "w2": init_linear(generator, d_ff, d, dtype, **kw),
+        "w1": put("w1", init_linear(generator, d, d_ff, dtype, **kw)),
+        "w3": put("w3", init_linear(generator, d, d_ff, dtype, **kw)),
+        "w2": put("w2", init_linear(generator, d_ff, d, dtype, **kw)),
     }
 
 
@@ -166,7 +197,139 @@ def apply_rope(x, cos, sin):
 
 def swiglu_mlp(x, params, engine: DotEngine, residual=None):
     """SwiGLU: w2(silu(w1 x) * w3 x); the silu rides the up-projection's
-    fused epilogue and ``residual`` the down-projection's."""
+    fused epilogue and ``residual`` the down-projection's (on a mesh:
+    w1/w3 column-parallel, w2 row-parallel, :func:`out_proj`)."""
+    x = copy_to(x)
     g = engine.dot(x, params["w1"], activation="silu")
     u = engine.dot(x, params["w3"])
-    return engine.dot(g * u, params["w2"], residual=residual)
+    return out_proj(engine, g * u, params["w2"], residual)
+
+
+# ------------------------------------------------- tensor parallelism --
+def tp_context():
+    """The active mesh context, or None on one device."""
+    from repro_torch.distributed import ctx as dctx
+    return dctx.current()
+
+
+def _model(c, axes):
+    return (c.model_axis,) if axes is None else axes
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axes), None, None
+
+
+class _ReduceSum(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x.clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's chunk along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return x.chunk(mesh.size(axes), dim)[mesh.index(axes)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward, this rank's chunk backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return (g.chunk(m.size(ctx.axes), ctx.dim)[m.index(ctx.axes)]
+                .contiguous(), None, None, None)
+
+
+def _grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to(x, axes=None):
+    """A replicated tensor entering work sharded over ``axes`` (default
+    the model axis): identity, whose backward sums the ranks' partial
+    gradients.  Identity off a mesh."""
+    c = tp_context()
+    if c is None or not _grad(x):
+        return x
+    return _CopyTo.apply(x, c.mesh, _model(c, axes))
+
+
+def reduce_sum(x, axes=None):
+    """The sum of every rank's ``x`` over ``axes`` (default the model
+    axis), the gradient passed through unchanged.  Without grad the
+    all-reduce runs in place on ``x``, which must be a temporary."""
+    c = tp_context()
+    if c is None:
+        return x
+    axes = _model(c, axes)
+    if _grad(x):
+        return _ReduceSum.apply(x, c.mesh, axes)
+    return c.mesh.all_reduce(x, axes)
+
+
+def scatter(x, dim: int, axes=None):
+    """This rank's chunk of a replicated tensor along ``dim``."""
+    c = tp_context()
+    if c is None:
+        return x
+    axes = _model(c, axes)
+    if _grad(x):
+        return _Scatter.apply(x, c.mesh, axes, dim)
+    return x.chunk(c.mesh.size(axes), dim)[c.mesh.index(axes)].contiguous()
+
+
+def gather(x, dim: int, axes=None):
+    """Every rank's chunk concatenated along ``dim`` (mesh order)."""
+    c = tp_context()
+    if c is None:
+        return x
+    axes = _model(c, axes)
+    if _grad(x):
+        return _Gather.apply(x, c.mesh, axes, dim)
+    return c.mesh.all_gather(x, axes, dim)
+
+
+def out_proj(engine: DotEngine, x, w, residual=None):
+    """A row-parallel GEMM ``x @ w + residual``: one device fuses the
+    residual into the GEMM's epilogue; on a mesh each rank's partial
+    product (f32 out) is summed over the model axis in f32 and the
+    residual is added once, after the all-reduce, with one rounding to
+    the activation dtype: on one rank the fused epilogue's arithmetic,
+    forward and backward."""
+    if tp_context() is None:
+        return engine.dot(x, w, residual=residual)
+    # the backward's dgrad and wgrad take the cotangent in x's dtype, as
+    # the fused GEMM's (whose output is in that dtype) do
+    part = engine.dot(x, w, out_dtype=torch.float32, grad_dtype=x.dtype)
+    y = reduce_sum(part)
+    dtype = x.dtype if residual is None else residual.dtype
+    return (y if residual is None else y + residual.float()).to(dtype)

@@ -1,16 +1,21 @@
 """Token-choice top-k MoE, granite-3.0 style (port of ``repro.models.moe``).
 
-Two paths on one device:
+Three paths:
 
 * :func:`moe_dense`: every expert on every token, gates combined by a
   sum of one-hots; dropless, the decode path and the oracle.
 * :func:`moe_capacity`: sort-based capacity dispatch (GShard style),
   ``c = max(1, int(T * k / E * capacity_factor))`` slots per expert;
   assignments past an expert's capacity drop (weight zero).
+* :func:`moe_ep`: expert parallelism over a mesh's model axis: each rank
+  routes its own slice of the tokens, two all-to-alls carry the buckets
+  to their experts' ranks and back, and the expert GEMMs run through
+  :class:`~repro_torch.models.layers.DotEngine`.
 
-:func:`moe_ffn` picks between them as the reference does.  Expert
-parallelism (``moe_ep``, the reference's ``mesh`` branch) waits for the
-distributed slice (ROADMAP.md queue A, A15).
+:func:`moe_ffn` picks between them as the reference does.  Under an
+active mesh context the experts are sharded over the model axis
+(padded to a multiple of it, :func:`padded_experts`): the dense and
+capacity paths run this rank's experts and all-gather their outputs.
 
 The router's f32 product and the expert einsums are plain products
 outside any Pallas kernel in the reference (XLA); here they are torch
@@ -24,20 +29,31 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import DotEngine, init_linear
+from .layers import DotEngine, copy_to, gather, init_linear, reduce_sum, \
+    scatter, tp_context
 
-__all__ = ["init_moe", "moe_dense", "moe_capacity", "moe_ep", "moe_ffn"]
+__all__ = ["init_moe", "padded_experts", "moe_dense", "moe_capacity",
+           "moe_ep", "moe_ffn"]
 
 
-def init_moe(generator, cfg, dtype=torch.float32, *, lead=(), device=None):
+def padded_experts(cfg, model_axis_size: int | None = None) -> int:
+    """The expert count rounded up to a multiple of the model axis."""
+    e = cfg.moe_experts
+    if model_axis_size:
+        e = -(-e // model_axis_size) * model_axis_size
+    return e
+
+
+def init_moe(generator, cfg, dtype=torch.float32, *, lead=(), device=None,
+             model_axis_size: int | None = None):
     """The reference's expert weights, stacked on ``lead``: per stacked
     element a router (d, E) in f32 and one SwiGLU drawn once and
     repeated over the experts (w1 scaled by 1 + 0.01 e in ``dtype``),
-    each element drawn on its own (no whole-stack f32 temporary).  The
-    reference's padding of E to a multiple of the model axis serves
-    expert parallelism and comes with it (ROADMAP.md queue A, A15)."""
+    each element drawn on its own (no whole-stack f32 temporary).  E is
+    :func:`padded_experts` of ``model_axis_size`` (the pad experts are
+    never routed)."""
     d, ff = cfg.d_model, cfg.moe_dff
-    e = cfg.moe_experts
+    e = padded_experts(cfg, model_axis_size)
     p = {"router": torch.empty((*lead, d, e), dtype=torch.float32,
                                device=device),
          "w1": torch.empty((*lead, e, d, ff), dtype=dtype, device=device),
@@ -89,12 +105,16 @@ def _expert_ffn(buf, params):
 
 def moe_dense(x, params, cfg, engine: DotEngine):
     """Every expert on every token, combined by the gates (T, E), a sum
-    of one-hots weighted by the router: x (B, S, d) -> (y, aux)."""
+    of one-hots weighted by the router: x (B, S, d) -> (y, aux).  On a
+    mesh this rank's experts run on every token and their outputs are
+    all-gathered over the model axis."""
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     w, idx, aux = _router(xf, params, cfg)
-    e = params["w1"].shape[0]
-    y_all = _expert_ffn(xf.expand(e, *xf.shape), params)     # (E, T, d)
+    e_loc = params["w1"].shape[0]
+    xe = copy_to(xf)
+    y_all = gather(_expert_ffn(xe.expand(e_loc, *xf.shape), params), 0)
+    e = y_all.shape[0]                                        # (E, T, d)
     gate = (F.one_hot(idx, e).to(xf.dtype)
             * w[..., None].to(xf.dtype)).sum(dim=1)           # (T, E)
     y = torch.einsum("te,etd->td", gate, y_all)
@@ -137,7 +157,7 @@ def moe_capacity(x, params, cfg, engine: DotEngine,
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     t = xf.shape[0]
-    e = params["w1"].shape[0]
+    e = params["router"].shape[-1]
     k = cfg.moe_topk
     c = capacity or max(1, int(t * k / e * capacity_factor))
     w, idx, aux = _router(xf, params, cfg)
@@ -146,27 +166,111 @@ def moe_capacity(x, params, cfg, engine: DotEngine,
     slot = torch.where(keep, bucket, torch.full_like(bucket, e * c))
     xa = xf[:, None, :].expand(t, k, d).reshape(t * k, d)    # src = pos // k
     buf = xf.new_zeros((e * c + 1, d)).index_put((slot,), xa)
-    out_buf = _expert_ffn(buf[:e * c].reshape(e, c, d), params)
+    # on a mesh: this rank's experts' buckets, outputs all-gathered
+    out_buf = gather(_expert_ffn(scatter(buf[:e * c].reshape(e, c, d), 0),
+                                 params), 0)
     out_pad = torch.cat([out_buf.reshape(e * c, d), xf.new_zeros((1, d))])
     y = (out_pad[slot] * wf[:, None].to(xf.dtype)).reshape(t, k, d).sum(1)
     return y.reshape(b, s, d), aux
 
 
-def moe_ep(*args, **kwargs):
-    raise NotImplementedError(
-        "expert parallelism (moe_ep) is not ported yet (ROADMAP.md queue A, "
-        "A15)")
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all over ``axes``; its backward is the reverse
+    all-to-all (split and concat dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_dim, concat_dim):
+        ctx.args = (mesh, axes, split_dim, concat_dim)
+        return mesh.all_to_all(x, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_dim, concat_dim = ctx.args
+        return (mesh.all_to_all(g, axes, concat_dim, split_dim),
+                None, None, None, None)
+
+
+def _all_to_all(x, mesh, axes, split_dim, concat_dim):
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, mesh, axes, split_dim, concat_dim)
+    return mesh.all_to_all(x, axes, split_dim, concat_dim)
+
+
+def _expert_ffn_dot(buf, params, engine: DotEngine):
+    """buf: (E_loc, C', d) -> (E_loc, C', d), each expert's SwiGLU as
+    three ``engine.dot`` GEMMs (the silu in the up-projection's
+    epilogue)."""
+    outs = []
+    for i in range(buf.shape[0]):
+        g = engine.dot(buf[i], params["w1"][i], activation="silu")
+        u = engine.dot(buf[i], params["w3"][i])
+        outs.append(engine.dot(g * u, params["w2"][i]))
+    return torch.stack(outs)
+
+
+def moe_ep(x, params, cfg, mesh, engine: DotEngine,
+           capacity_factor: float = 1.25, data_axes=("data",),
+           model_axis: str = "model"):
+    """Expert-parallel MoE on this rank's shards (the reference's
+    ``shard_map`` body): x (B_loc, S/m, d), this rank's distinct tokens;
+    ``router`` replicated, ``w1``/``w3``/``w2`` this rank's E/m experts.
+
+    Each rank routes its tokens into (E, C, d) buckets (C from its own
+    token count), an all-to-all over ``model_axis`` sends every expert's
+    buckets to the rank that owns it ((E/m, m C, d)), the experts run
+    through ``engine.dot``, and the reverse all-to-all brings the
+    outputs back for the combine.  Returns (y (B_loc, S/m, d), aux): the
+    router's load-balance loss averaged over the model axis and over
+    ``data_axes`` (pass ``()`` to keep it per data shard)."""
+    m = mesh.shape[model_axis]
+    e_loc = params["w1"].shape[0]
+    e = e_loc * m
+    bl, sl, dl = x.shape
+    k = cfg.moe_topk
+    xf = x.reshape(-1, dl)
+    tl = xf.shape[0]
+    c = max(1, int(tl * k / e * capacity_factor))
+    # the router is replicated but reads this rank's tokens only
+    w, idx, aux = _router(xf, {"router": copy_to(params["router"])}, cfg)
+    bucket, keep, _ = _dispatch_indices(idx, w, e, c)
+    wf = torch.where(keep, w.reshape(-1), torch.zeros_like(w.reshape(-1)))
+    slot = torch.where(keep, bucket, torch.full_like(bucket, e * c))
+    xa = xf[:, None, :].expand(tl, k, dl).reshape(tl * k, dl)
+    buf = xf.new_zeros((e * c + 1, dl)).index_put((slot,), xa)
+    buf = _all_to_all(buf[:e * c].reshape(e, c, dl), mesh, (model_axis,),
+                      0, 1)                               # (E_loc, m C, d)
+    out = _expert_ffn_dot(buf, params, engine)
+    out = _all_to_all(out, mesh, (model_axis,), 1, 0)     # (E, C, d)
+    out_pad = torch.cat([out.reshape(e * c, dl), xf.new_zeros((1, dl))])
+    y = (out_pad[slot] * wf[:, None].to(xf.dtype)).reshape(tl, k, dl).sum(1)
+    aux = reduce_sum(aux, (model_axis,)) / m
+    if data_axes:
+        aux = reduce_sum(aux, tuple(data_axes)) / mesh.size(data_axes)
+    return y.reshape(bl, sl, dl), aux
 
 
 def moe_ffn(x, params, cfg, engine: DotEngine, mesh=None, impl="auto",
-            capacity=None):
+            model_axis="model", capacity=None):
     """The reference's dispatcher: ``impl="dense"``, or ``"auto"`` on at
     most 256 tokens (``x.shape[0] * x.shape[1]``), runs
     :func:`moe_dense`; a ``mesh`` with ``impl`` "auto" or "ep" runs
-    expert parallelism (raises until A15); anything else
-    :func:`moe_capacity` with ``capacity``."""
+    :func:`moe_ep` under the active mesh context (``x`` replicated over
+    the model axis: its sequence is split before routing and the outputs
+    gathered after; the load-balance loss stays per data shard, the
+    loss averages it); anything else :func:`moe_capacity` with
+    ``capacity``."""
     if impl == "dense" or (impl == "auto" and x.shape[0] * x.shape[1] <= 256):
         return moe_dense(x, params, cfg, engine)
     if mesh is not None and impl in ("auto", "ep"):
-        return moe_ep(x, params, cfg, mesh, engine)
+        if tp_context() is None:
+            raise ValueError("moe_ffn on a mesh runs under its "
+                             "mesh_context (repro_torch.distributed.ctx)")
+        m = mesh.shape[model_axis]
+        if x.shape[1] % m:
+            raise ValueError(f"expert parallelism splits the sequence over "
+                             f"the {m}-way model axis: {x.shape[1]} tokens "
+                             f"do not divide")
+        y, aux = moe_ep(scatter(x, 1, (model_axis,)), params, cfg, mesh,
+                        engine, data_axes=(), model_axis=model_axis)
+        return gather(y, 1, (model_axis,)), aux
     return moe_capacity(x, params, cfg, engine, capacity=capacity)

@@ -12,8 +12,8 @@ a = -exp(A_log) per head, softplus dt, and a causal depthwise conv of
 width 4 ahead of x/B/C, as in the reference.  ``in_proj`` and
 ``out_proj`` go through the engine (the SFC GEMM); the rest are torch
 ops, as they are XLA in the reference.  The reference's sharding
-constraints on the chunk views are the identity on one device and are
-left out (the distributed slice, ROADMAP.md queue A, A15).
+constraints on the chunk views have no counterpart: on a mesh the port
+replicates the SSD blocks (``distributed.sharding.param_specs``).
 """
 from __future__ import annotations
 

@@ -15,6 +15,16 @@ selects a per-layer checkpoint (``"full"``) or the GEMM-output-keeping
 ``"dots"``.  The encoder (bidirectional, no decode step) and the vlm
 (decoding, prefilling and serving as dense) take their modality stub's
 embeddings through ``frontend_proj`` (:func:`embed_inputs`).
+
+On a mesh (an active :func:`repro_torch.distributed.ctx.mesh_context`,
+parameters sharded by ``distributed.sharding.param_specs``) the forward,
+the loss and the decode step run tensor-parallel: ``embed`` is
+vocab-parallel (a masked local lookup, then an all-reduce), the layers'
+GEMMs column- and row-parallel (``layers``, ``attention``), the vocab
+head column-parallel with the loss's max and sum-exp taken across the
+shards, and the batch split over the context's ``dp`` axes (the loss
+over the global batch; each rank's gradients are its own share, summed
+over ``dp`` by the train step).  The prefills are single-device.
 """
 from __future__ import annotations
 
@@ -31,8 +41,8 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ArchConfig
-from .layers import DotEngine, init_linear, init_rms, init_swiglu, rms_norm, \
-    rope, swiglu_mlp
+from .layers import DotEngine, copy_to, init_linear, init_rms, init_swiglu, \
+    reduce_sum, rms_norm, rope, swiglu_mlp, tp_context
 
 __all__ = ["init_model", "forward", "embed_inputs", "loss_fn",
            "init_decode_state", "decode_step", "prefill_kv",
@@ -82,7 +92,8 @@ def _require_decode(cfg: ArchConfig):
 
 
 def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
-               device=None) -> dict[str, Any]:
+               device=None, moe_pad: int | None = None,
+               place=None) -> dict[str, Any]:
     """Random parameters with the reference's distributions: linears
     normal / sqrt(d_in), ``embed`` 0.02 * normal at ``padded_vocab``
     rows, norms ones, the moe and ssm families' own
@@ -93,43 +104,68 @@ def init_model(cfg: ArchConfig, generator: torch.Generator | None = None,
     ``generator`` (seed 0 on ``device`` when None) straight on
     ``device`` (``cuda`` unless the caller asks for cpu).  The numbers
     differ from the reference's jax.random draws; use :func:`repro_torch.models.convert.params_from_jax` for
-    identical weights."""
+    identical weights.  ``moe_pad``: pad the moe experts to a multiple
+    of it (the model axis, for expert parallelism; never routed).
+
+    ``place(path, leaf)``, when given, takes each leaf (``path`` its
+    keys) as soon as it is drawn -- the moe and ssm blocks' leaves, drawn
+    interleaved, as soon as their block is -- and the tree holds what it
+    returns: a sharded run keeps only its shard of each
+    (``distributed.sharding.shard_leaf``), so the full tree never
+    exists.  The draws are the same with and without it."""
     _require_family(cfg)
     dev = resolve_device(device)
+    # "meta" (the builders' abstract state) draws with a CPU generator
+    gen_dev = "cpu" if dev.type == "meta" else dev
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
+        generator = torch.Generator(device=gen_dev).manual_seed(0)
+    if generator.device.type != torch.device(gen_dev).type:
         raise ValueError(f"generator on {generator.device}, device {dev}")
     dtype = cfg.param_torch_dtype()
     d = cfg.d_model
     kw = dict(lead=(cfg.n_layers,), device=dev)
-    layers: dict[str, Any] = {"norm1": init_rms(d, dtype, **kw)}
+    put = place or (lambda _, t: t)
+
+    def under(*path):
+        if place is None:
+            return None
+        return lambda name, t: place((*path, name), t)
+
+    def put_all(path, block):
+        return {k: put((*path, k), v) for k, v in block.items()}
+
+    layers: dict[str, Any] = {
+        "norm1": put(("layers", "norm1"), init_rms(d, dtype, **kw))}
     if cfg.has_attention:
-        layers["attn"] = attn_mod.init_attention(generator, cfg, dtype, **kw)
+        layers["attn"] = attn_mod.init_attention(
+            generator, cfg, dtype, **kw, place=under("layers", "attn"))
     if cfg.has_ssm:
-        layers["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype, **kw)
+        layers["ssm"] = put_all(("layers", "ssm"), ssm_mod.init_ssm(
+            generator, cfg, dtype, **kw))
     if cfg.family == "hybrid":
-        layers["attn_out_norm"] = init_rms(d, dtype, **kw)
-        layers["ssm_out_norm"] = init_rms(d, dtype, **kw)
+        for k in ("attn_out_norm", "ssm_out_norm"):
+            layers[k] = put(("layers", k), init_rms(d, dtype, **kw))
     if cfg.family != "ssm":
-        layers["norm2"] = init_rms(d, dtype, **kw)
+        layers["norm2"] = put(("layers", "norm2"), init_rms(d, dtype, **kw))
     if cfg.family == "moe":
-        layers["moe"] = moe_mod.init_moe(generator, cfg, dtype, **kw)
+        layers["moe"] = put_all(("layers", "moe"), moe_mod.init_moe(
+            generator, cfg, dtype, **kw, model_axis_size=moe_pad))
     elif cfg.family != "ssm":
-        layers["mlp"] = init_swiglu(generator, d, cfg.d_ff, dtype, **kw)
+        layers["mlp"] = init_swiglu(generator, d, cfg.d_ff, dtype, **kw,
+                                    place=under("layers", "mlp"))
     params: dict[str, Any] = {
         "layers": layers,
-        "final_norm": init_rms(d, dtype, device=dev),
+        "final_norm": put(("final_norm",), init_rms(d, dtype, device=dev)),
     }
     embed = torch.randn((cfg.padded_vocab, d), generator=generator,
                         dtype=torch.float32, device=dev)
-    params["embed"] = (embed * 0.02).to(dtype)
+    params["embed"] = put(("embed",), (embed * 0.02).to(dtype))
     del embed
-    params["lm_head"] = init_linear(generator, d, cfg.padded_vocab, dtype,
-                                    device=dev)
+    params["lm_head"] = put(("lm_head",), init_linear(
+        generator, d, cfg.padded_vocab, dtype, device=dev))
     if cfg.frontend:
-        params["frontend_proj"] = init_linear(generator, cfg.frontend_dim, d,
-                                              dtype, device=dev)
+        params["frontend_proj"] = put(("frontend_proj",), init_linear(
+            generator, cfg.frontend_dim, d, dtype, device=dev))
     return params
 
 
@@ -262,7 +298,7 @@ def embed_inputs(params, cfg: ArchConfig, batch, engine: DotEngine):
     if cfg.family == "encoder":
         return engine.dot(batch["features"].to(dtype),
                           params["frontend_proj"].to(dtype))
-    x = F.embedding(batch["tokens"].long(), params["embed"]).to(dtype)
+    x = _embed(params["embed"], batch["tokens"], dtype)
     if cfg.family == "vlm" and "vision_embeds" in batch:
         v = engine.dot(batch["vision_embeds"].to(dtype),
                        params["frontend_proj"].to(dtype))
@@ -294,10 +330,8 @@ def forward(params, cfg: ArchConfig, batch, engine: DotEngine | None = None):
         x, aux = layer(x, lp, cfg, engine, cos, sin)
         auxs.append(aux)
     x = rms_norm(x, params["final_norm"])
-    # the f32 cast rides the vocab head's single output write
-    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32) \
-        if cfg.vocab else x
-    return _mask_padded_vocab(logits, cfg), torch.stack(auxs).mean()
+    logits = _head(x, params, cfg, engine) if cfg.vocab else x
+    return logits, torch.stack(auxs).mean()
 
 
 def loss_fn(params, cfg: ArchConfig, batch, engine: DotEngine | None = None,
@@ -305,7 +339,14 @@ def loss_fn(params, cfg: ArchConfig, batch, engine: DotEngine | None = None,
     """Next-token (causal) or per-position cross entropy in f32 ->
     ``(ce + aux_weight * aux, {"ce": ce, "aux": aux})``.  ``loss_mask``
     (optional, (B, S)) weights the positions; the mean is over its sum
-    (at least 1), else over every position."""
+    (at least 1), else over every position.
+
+    On a mesh the logits are this rank's vocab shard: the log-partition
+    takes its max (all-reduce MAX) and its sum of exponentials (SUM)
+    across the model axis and the gold logit from the shard that holds
+    the label; the mean runs over the global batch (every ``dp`` rank's
+    positions or mask), and the value returned is the global loss on
+    every rank."""
     logits, aux = forward(params, cfg, batch, engine)
     labels = batch["labels"].long()
     if cfg.causal:
@@ -314,21 +355,78 @@ def loss_fn(params, cfg: ArchConfig, batch, engine: DotEngine | None = None,
     mask = batch.get("loss_mask")
     if mask is not None and cfg.causal:
         mask = mask[:, 1:]
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    c = tp_context()
+    if c is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        logz, gold = _sharded_logz_gold(logits, labels, c)
     nll = logz - gold
+    n_dp = c.mesh.size(c.dp) if c is not None and c.dp else 1
     if mask is not None:
         nll = nll * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
+        msum = mask.sum().detach().float()
+        if n_dp > 1:
+            c.mesh.all_reduce(msum, c.dp)
+        denom = torch.clamp(msum, min=1.0)
     else:
-        denom = nll.numel()
+        denom = nll.numel() * n_dp
     loss = nll.sum() / denom
+    if n_dp > 1:
+        loss = reduce_sum(loss, c.dp)
+        aux = reduce_sum(aux, c.dp) / n_dp
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
+
+
+def _vocab_offset(n: int) -> int:
+    """The first vocab row or column of this rank's ``n``-wide shard."""
+    c = tp_context()
+    return 0 if c is None else c.mesh.index(c.model_axis) * n
+
+
+def _sharded_logz_gold(logits, labels, c):
+    """log-partition and gold logit over a vocab-sharded head: each
+    shard's log-sum-exp, combined by their max (all-reduce MAX) and the
+    sum of their exponentials (SUM); on one shard exactly
+    ``torch.logsumexp`` of the logits, forward and backward."""
+    n = logits.shape[-1]
+    lse = torch.logsumexp(logits, dim=-1)
+    mx = lse.detach().clone()
+    c.mesh.all_reduce(mx, c.model_axis, "max")
+    logz = mx + torch.log(reduce_sum(torch.exp(lse - mx)))
+    t = labels - _vocab_offset(n)
+    inside = (t >= 0) & (t < n)
+    gold = torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    return logz, reduce_sum(gold * inside)
+
+
+def _embed(table, tokens, dtype):
+    """The tokens' rows of ``embed``; on a mesh (vocab-parallel rows) a
+    masked lookup of the rows this rank holds, then an all-reduce."""
+    tokens = tokens.long()
+    if tp_context() is None:
+        return F.embedding(tokens, table).to(dtype)
+    n = table.shape[0]
+    t = tokens - _vocab_offset(n)
+    inside = (t >= 0) & (t < n)
+    x = F.embedding(torch.where(inside, t, torch.zeros_like(t)), table)
+    return reduce_sum(x * inside[..., None].to(x.dtype)).to(dtype)
+
+
+def _head(x, params, cfg: ArchConfig, engine: DotEngine):
+    """The vocab head (column-parallel on a mesh: this rank's vocab
+    shard) with its f32 output fused into the GEMM, padded columns
+    masked."""
+    logits = engine.dot(copy_to(x), params["lm_head"],
+                        out_dtype=torch.float32)
+    return _mask_padded_vocab(logits, cfg)
 
 
 def _mask_padded_vocab(logits, cfg: ArchConfig):
     if cfg.vocab and cfg.padded_vocab != cfg.vocab:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        n = logits.shape[-1]
+        lo = _vocab_offset(n)
+        pad = torch.arange(lo, lo + n, device=logits.device) >= cfg.vocab
         logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
     return logits
 
@@ -347,7 +445,9 @@ def _ffn(x, lp, cfg: ArchConfig, engine: DotEngine, impl: str = "dense"):
     ``"auto"`` in training."""
     h = rms_norm(x, lp["norm2"])
     if cfg.family == "moe":
-        y, aux = moe_mod.moe_ffn(h, lp["moe"], cfg, engine, impl=impl)
+        c = tp_context()
+        y, aux = moe_mod.moe_ffn(h, lp["moe"], cfg, engine,
+                                 mesh=c.mesh if c else None, impl=impl)
         return x + y, aux
     return swiglu_mlp(h, lp["mlp"], engine, residual=x), None
 
@@ -370,7 +470,7 @@ def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
     from repro_torch.serve.paged_kv import physical_rows, zero_row_index
 
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(cfg.act_torch_dtype())
+    x = _embed(params["embed"], tokens, cfg.act_torch_dtype())
     cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
     kp, vp = state["k_pages"], state["v_pages"]
     bt = state["block_tables"]
@@ -385,8 +485,7 @@ def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
             row_mask, residual=x)
         x, _ = _ffn(x, lp, cfg, engine)
     x = rms_norm(x, params["final_norm"])
-    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
-    return _mask_padded_vocab(logits, cfg), state
+    return _head(x, params, cfg, engine), state
 
 
 def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
@@ -399,16 +498,24 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
     does; per-row positions leave ``kv_pos`` alone, since their
     validity comes from each row's own clock and never reads it.  The
     SSD's rows (ssm and hybrid) are updated in place; the ssm family
-    reads no position."""
+    reads no position.
+
+    On a mesh the strips hold this rank's sequence shard of every entry
+    (``seq_axes`` of the context: the global entry ``pos % C`` is
+    written by the rank that owns it, ``kv_pos`` likewise) and the
+    attention is sequence-parallel."""
     dev = tokens.device
-    x = params["embed"][tokens.long()].to(cfg.act_torch_dtype())
+    x = _embed(params["embed"], tokens, cfg.act_torch_dtype())
     p = torch.as_tensor(pos, device=dev).to(torch.int64)
+    c = tp_context()
     if cfg.has_attention:
         cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
         k, v, kv_pos = state["k"], state["v"], state["kv_pos"]
-        slot = torch.remainder(p, k.shape[2])
-        plan = attn_mod.decode_plan(cfg, k.shape[1], k.shape[2], kv_pos,
-                                    slot, p, row_mask, dev)
+        seq = c.sp if c is not None else ()
+        n_seq = c.mesh.size(seq) if seq else 1
+        slot = torch.remainder(p, k.shape[2] * n_seq)
+        plan = None if c is not None else attn_mod.decode_plan(
+            cfg, k.shape[1], k.shape[2], kv_pos, slot, p, row_mask, dev)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
@@ -428,10 +535,17 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
                 cos, sin, row_mask, residual=x, plan=plan)
         x, _ = _ffn(x, lp, cfg, engine)
     if cfg.has_attention and p.dim() == 0:
-        kv_pos[slot] = p.to(kv_pos.dtype)
+        if c is None:
+            kv_pos[slot] = p.to(kv_pos.dtype)
+        else:   # the owning rank writes its entry
+            s_loc = kv_pos.shape[0]
+            local = slot - (c.mesh.index(seq) * s_loc if seq else 0)
+            own = (local >= 0) & (local < s_loc)
+            local = local.clamp(0, s_loc - 1)
+            kv_pos[local] = torch.where(own, p.to(kv_pos.dtype),
+                                        kv_pos[local])
     x = rms_norm(x, params["final_norm"])
-    logits = engine.dot(x, params["lm_head"], out_dtype=torch.float32)
-    return _mask_padded_vocab(logits, cfg), state
+    return _head(x, params, cfg, engine), state
 
 
 def _require_attention_only(cfg: ArchConfig, what: str):

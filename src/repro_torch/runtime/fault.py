@@ -6,8 +6,7 @@ faults.
 Transient step failures (preemption, a lost device) restore the last
 checkpoint and replay; stragglers are flagged by a step-time EMA.  The
 control plane is host code, exercised by the tests on the CPU.  The
-elastic re-mesh after a permanent node loss waits for the distributed
-slice (ROADMAP.md queue A, A15).
+elastic re-mesh after a permanent node loss is ``runtime/elastic.py``.
 """
 from __future__ import annotations
 

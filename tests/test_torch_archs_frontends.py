@@ -18,15 +18,26 @@ within 2e-5 absolute; the loss and ``ce`` within 1e-5 relative; every
 gradient leaf within 1e-4 of its largest magnitude; a decode step's
 logits within 2e-5 and its state within 1e-5; three ``make_train_step``
 steps' losses and gradient norms within 1e-5 relative and the final
-parameters within 1e-4 absolute but for at most one element in a
-thousand, and those within 2 lr a step (Adam's normalised step turns an
-f32 rounding difference of a tiny gradient into a difference of up to
-2 lr: hubert's SMOKE step moves one of 16384 MLP weights 3.5e-4 apart);
+parameters within 1e-4 absolute, but for the C4 element below;
 decode against the full forward within 2e-3 (the reference's own
 ``test_decode_matches_prefill`` bound: the q-chunked causal softmax
 against one position at a time); ``layer_norm`` within 1e-6 in f32 and
 one bf16 rounding step (2**-7 relative) in bf16; batches and tokens
 exact.
+
+C4 (ROADMAP.md queue C), closed as confined: hubert's SMOKE step moves
+one weight, ``layers.mlp.w2[1, 102, 22]``, 3.5455e-4 from the
+reference's.  Its step-0 gradient is 1.651509e-9 in the reference and
+-9.506488e-10 in the port, both under the f32 noise of its leaf (largest
+gradient 6.192e-2, times 2**-23: 7.4e-9), so the two signs are noise.
+Adam's first step (m = 0.1 g, v = 0.05 g**2 after bias correction is g
+and g**2) moves it by lr * g s / (|g s| + eps) with s = 1 / 2.242035
+(the clip) and eps = 1e-8: +0.06863 lr against -0.04068 lr, apart by
+0.1093 lr = 3.279e-4 at lr 3e-3; the next steps' gradients agree
+(-3.955638e-3 against -3.955214e-3, m and v to 1e-4 relative).  So every
+element is held to 1e-4 except elements whose step-0 gradients are f32
+noise on both sides, and those must sit within 1e-4 of that predicted
+first move; hubert has exactly that one, llava none.
 """
 import dataclasses
 
@@ -70,6 +81,10 @@ from repro_torch.serve import ServeConfig
 
 FRONTENDS = ["hubert_xlarge", "llava_next_34b"]
 ENCODER, VLM = FRONTENDS
+# C4: the elements three train steps may move more than 1e-4 from the
+# reference's (see the module docstring)
+C4_NOISE = {ENCODER: {("['layers']['mlp']['w2']", (1, 102, 22))},
+            VLM: set()}
 REF_ENGINE = JaxEngine(schedule="morton")
 # B1 GEMMs a layer of the forward: the attention's 4 and the MLP's 3
 LAYER_GEMMS = 7
@@ -312,6 +327,10 @@ def test_three_train_steps_match_reference(arch):
     tp = jax.tree.map(lambda t: t.clone(), tp)
     embed0 = tp["embed"].clone()
     ocfg = dict(peak_lr=3e-3, warmup=1, total_steps=3)
+    jb0, tb0 = _batches(arch, seed=10)
+    g0_ref = jax.tree.leaves(jax.grad(
+        lambda p: ref_loss_fn(p, jcfg, jb0, REF_ENGINE)[0])(jp))
+    g0 = tree_leaves(grads_of(cfg, tp, tb0, DotEngine())[2])
     ref_step = jax.jit(ref_make_train_step(jcfg, None, RefAdamWConfig(**ocfg),
                                            engine=REF_ENGINE))
     step = make_train_step(cfg, None, AdamWConfig(**ocfg))
@@ -322,11 +341,27 @@ def test_three_train_steps_match_reference(arch):
         tp, to, m = step(tp, to, tb)
         for k in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5)
-    diff = np.concatenate([np.abs(got.numpy() - np.asarray(want)).ravel()
-                           for got, want in zip(tree_leaves(tp),
-                                                jax.tree.leaves(jp))])
-    assert float(diff.max()) <= 2 * 3 * ocfg["peak_lr"]
-    assert float(np.mean(diff > 1e-4)) <= 1e-3, int((diff > 1e-4).sum())
+        if i == 0:
+            scale = min(1.0, 1.0 / float(m["grad_norm"]))   # the clip
+    names = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(jp)[0]]
+    over = []
+    for li, (got, want) in enumerate(zip(tree_leaves(tp),
+                                         jax.tree.leaves(jp))):
+        diff = np.abs(got.numpy() - np.asarray(want))
+        for idx in zip(*np.nonzero(diff > 1e-4)):
+            over.append((names[li], tuple(int(j) for j in idx)))
+            # the exception: a step-0 gradient that is f32 noise on both
+            # sides, which Adam's first step turns into a move of O(lr)
+            floor = 2.0 ** -23 * float(np.abs(np.asarray(g0_ref[li])).max())
+            gs = [float(np.asarray(g0_ref[li])[idx]) * scale,
+                  float(g0[li][idx]) * scale]
+            assert max(abs(g) for g in gs) <= floor * scale, (names[li], gs)
+            move = [g / (abs(g) + 1e-8) for g in gs]
+            predicted = ocfg["peak_lr"] * abs(move[0] - move[1])
+            assert abs(float(diff[idx]) - predicted) <= 1e-4, \
+                (names[li], float(diff[idx]), predicted)
+    assert set(over) <= C4_NOISE[arch], over
     if arch == ENCODER:
         np.testing.assert_allclose(tp["embed"].numpy(), np.asarray(jp["embed"]),
                                    rtol=1e-6, atol=0)

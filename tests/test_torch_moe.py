@@ -158,16 +158,29 @@ def test_dispatch_rule_at_256_and_257_tokens(arch, tokens):
 
 
 def test_expert_parallelism_waits_for_a15():
-    """A mesh under ``impl`` "auto" or "ep" raises naming A15; without a
-    mesh "ep", and with one any other impl, run the capacity path with
-    the caller's ``capacity``, as the reference's dispatcher does."""
+    """A mesh under ``impl`` "auto" or "ep" runs expert parallelism
+    (``moe_ep``, 2 gloo ranks, a (1, 2) mesh, 4 of the 8 experts each):
+    every rank routes its half of the sequence with the capacity of its
+    own tokens, so the output is ``moe_capacity`` of each half, within
+    2e-5; outside its mesh context it raises.  Without a mesh "ep", and
+    with one any other impl, run the capacity path with the caller's
+    ``capacity``, as the reference's dispatcher does."""
+    import _dist_ranks
+    from repro_torch.distributed.ctx import spawn
+
     arch = "granite_moe_1b_a400m"
     jp, tp = _params(arch)
     cfg = get_smoke_config(arch)
+    x = _x((2, 300, 64), seed=10)
+    xt = torch.from_numpy(x)
+    halves = [moe.moe_capacity(h, tp, cfg, DotEngine())[0]
+              for h in xt.chunk(2, 1)]
     for impl in ("auto", "ep"):
-        with pytest.raises(NotImplementedError, match="A15"):
-            moe.moe_ffn(torch.zeros(1, 300, 64), tp, cfg, DotEngine(),
-                        mesh=object(), impl=impl)
+        with pytest.raises(ValueError, match="mesh_context"):
+            moe.moe_ffn(xt, tp, cfg, DotEngine(), mesh=object(), impl=impl)
+        got = spawn(_dist_ranks.moe_ffn_ranks, 2, arch,
+                    jax.tree.map(np.asarray, jp), x, impl)
+        _close(torch.from_numpy(got["y"]), torch.cat(halves, 1).numpy())
     x = _x((2, 6, 64), seed=9)
     xt = torch.from_numpy(x)
     for mesh, impl in ((None, "ep"), (object(), "capacity")):

@@ -60,6 +60,17 @@ REF_ENGINE = RefDotEngine(schedule="morton")
 SHAPE = (4, 32)            # batch, seq
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the multi-rank tests' ranks share the cores
+    with this module's worker, and an oversubscribed thread pool waits
+    far longer than one thread computes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch, **over):
     return (dataclasses.replace(ref_configs.get_smoke_config(arch), **over),
             dataclasses.replace(get_smoke_config(arch), **over))
@@ -296,8 +307,49 @@ def test_five_train_steps_match_reference(grad_accum):
 
 
 def test_train_step_raises_for_a_mesh():
-    cfg = get_smoke_config("qwen3_1_7b")
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_train_step(cfg, object(), AdamWConfig())
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_train_step(cfg, None, AdamWConfig(), pod_compress=True)
+    """Given a mesh, ``make_train_step`` runs on the shards (2 gloo
+    ranks, a (1, 1, 2) mesh): the same loss within 1e-5 relative, the
+    parameters within the reference selftest's 5e-2 of the
+    single-device step, and the update within 1e-6 of the single-device
+    ``adamw_update`` (``_dist_ranks.assert_update_matches``); it
+    raises, naming the shapes, only on a model axis the heads do not
+    divide (4 ranks: 2 kv-heads).  Off a mesh ``pod_compress`` changes
+    nothing, as in the reference."""
+    import _dist_ranks
+    from repro_torch.distributed.ctx import spawn
+
+    ref_cfg, cfg = _configs("qwen3_1_7b")
+    ref_p, p = _params(ref_cfg)
+    _, b = _batch(ref_cfg, step=0, seed=1)
+    ocfg = dict(peak_lr=1e-2, warmup=0)
+    np_p = jax.tree.map(np.asarray, ref_p)
+    np_b = {k: v.numpy() for k, v in b.items()}
+    bad = spawn(_dist_ranks.mesh_step_ranks, 4, "qwen3_1_7b", np_p, np_b,
+                ocfg, 4)
+    assert "2 kv-heads do not both divide the 4-way model axis" \
+        in bad["error"]
+    got = spawn(_dist_ranks.mesh_step_ranks, 2, "qwen3_1_7b", np_p, np_b,
+                ocfg, 2)
+    runs = []
+    for pod_compress in (False, True):
+        q = jax.tree.map(lambda t: t.clone(), p)
+        q, _, m = make_train_step(cfg, None, AdamWConfig(**ocfg),
+                                  pod_compress=pod_compress)(
+            q, init_opt_state(q), b)
+        runs.append((float(m["loss"]), tree_leaves(q)))
+    assert runs[0][0] == runs[1][0]
+    for x, y in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(x, y)
+    loss, want = runs[0]
+    assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+    for g, w in zip(got["params"], want):
+        np.testing.assert_allclose(g, w.numpy(), rtol=5e-2, atol=5e-2)
+    g_single = [g.numpy() for g in tree_leaves(grads_of(
+        cfg, p, b, DotEngine())[2])]
+    for g, w in zip(got["grads"], g_single):
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+    noise = _dist_ranks.assert_update_matches(
+        got["step"], _dist_ranks.adamw_single(p, got["grads"], ocfg),
+        _dist_ranks.adamw_single(p, g_single, ocfg), g_single,
+        got["names"], lr=ocfg["peak_lr"])
+    assert noise <= sum(x.size for x in g_single) // 1000

@@ -30,6 +30,17 @@ SMOKE = ["--arch", "qwen3_1_7b", "--smoke", "--batch", "4", "--seq", "32",
          "--power-backend", "model"] + CPU
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the multi-rank tests' ranks share the cores
+    with this module's worker, and an oversubscribed thread pool waits
+    far longer than one thread computes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def isolated_tune_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune.json"))
@@ -97,12 +108,51 @@ def test_trace_and_metrics_reports(tmp_path):
     assert "train.step_ms" in json.dumps(snap)
 
 
+# each distributed flag on the mesh that exercises it, on gloo ranks
+FLAG_MESH = {"--mesh": [], "--device-order": ["--mesh", "2,2"],
+             "--pod-compress": ["--mesh", "2,1,1"]}
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "2,2"],
                                   ["--device-order", "hilbert"],
                                   ["--pod-compress"]])
-def test_distributed_flags_wait_for_a15(flag):
-    with pytest.raises(NotImplementedError, match="A15"):
-        train_main(SMOKE + ["--steps", "1"] + flag)
+def test_distributed_flags_wait_for_a15(flag, capfd):
+    """Each distributed flag trains: ``--mesh 2,2`` on 4 CPU ranks the
+    command starts itself, ``--device-order hilbert`` on that mesh (the
+    hop map printed; an unknown order raises), ``--pod-compress`` across
+    the pods of a (2, 1, 1) mesh.  Without a mesh the two others change
+    nothing, as in the reference."""
+    state = train_main(SMOKE + ["--steps", "2"] + flag + FLAG_MESH[flag[0]])
+    assert np.isfinite(state["last_loss"])
+    if flag[0] == "--device-order":
+        assert "device_order=hilbert ring-neighbour hops" in \
+            capfd.readouterr().out
+        with pytest.raises(ValueError, match="unknown device_order"):
+            train_main(SMOKE + ["--steps", "1", "--mesh", "1,1",
+                                "--device-order", "zorder"])
+    if flag[0] != "--mesh":
+        alone = train_main(SMOKE + ["--steps", "2"] + flag)
+        plain = train_main(SMOKE + ["--steps", "2"])
+        assert alone["last_loss"] == plain["last_loss"]
+
+
+def test_mesh_larger_than_the_visible_cards_raises(monkeypatch):
+    """One rank per card: a mesh of more ranks than cards raises, naming
+    both counts, and no rank moves to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 8 cards; 1 are visible"):
+        train_main(["--arch", "qwen3_1_7b", "--smoke", "--steps", "1",
+                    "--mesh", "2,2,2"])
+
+
+def test_mesh_without_a_card_raises(monkeypatch):
+    """``--mesh`` without ``--device cpu`` on a host with no card raises,
+    as every entry point does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_main(["--arch", "qwen3_1_7b", "--smoke", "--steps", "1",
+                    "--mesh", "1,1,1"])
 
 
 def test_async_checkpointer_round_trip(tmp_path):
