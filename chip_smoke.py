@@ -74,6 +74,18 @@ just before it and read just after:
   wgrad GEMMs at their shapes against the plain version, the same
   step-0 gradient checks, and 2 steps of each schedule from the seed-0
   state with their joules and a profiled step;
+* the dry-run's counter (``dryrun_phase``, after qwen3's training):
+  ``launch/opcount.py``'s ``count_step`` around one real qwen3-1.7b
+  Morton train step at full width and depth (4 x 256 tokens, seed 0)
+  and one contiguous decode step, and around each step's meta twin (the
+  same builders' meta tensors, as the dry-run runs them): FLOPs, GEMM
+  shapes, collectives and traffic must be equal, and B1's launches 619
+  and 197 on both and in the kernel wrapper's own counter; the meta
+  argument + temp memory printed beside ``max_memory_allocated``, and
+  the step's roofline fraction, model FLOPs over the measured step time
+  at the H100 model's peak; then ``examples_torch/quickstart.py`` and
+  ``serve_lm.py --layout paged`` as subprocesses (``examples_phase``),
+  a non-zero exit failing the run;
 * the frontend archs, last (``frontends_phase``): hubert-xlarge (the
   encoder) at full width and all 48 layers, B1 at its encode shapes
   (``frontend_proj`` at M = 4096, K = 512; the layers; the head at N =
@@ -154,7 +166,11 @@ archs (``frontends``: hubert's encodes per schedule with their ms,
 frames/s, J, peak memory and logit error, B1 per encode beside its
 bound, its training record; llava's serving runs, decode steps, peak
 memory, ``frontend_proj``'s time and its training record at its depth
-cut), the wall seconds of each part of the run (``phase_seconds``; each
+cut), the dry-run's counts (``dryrun``: each step's FLOPs, traffic,
+kernels by route and launches on the card, whether the meta twin
+equals them, both memories, the allocator's peak, the roofline
+fraction), the examples' exits and seconds (``examples``), the wall
+seconds of each part of the run (``phase_seconds``; each
 part also printed as it ends), the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed phase exits non-zero.  Without a CUDA device, or
@@ -4689,6 +4705,217 @@ def distributed_phase(smi: str) -> tuple[dict, dict, dict, dict]:
                     serve_launches.items()}}, b1, b2
 
 
+# ------------------------------------------------------------- dry-run ----
+# slice 14: the step counter (launch/opcount.py, the dry-run's) around one
+# real step on the card and around the same step's meta twin.  The two
+# must agree exactly; the meta twin's memory is an estimate, held beside
+# torch's allocator peak (a gap over DRYRUN_MEM_REL is printed and
+# explained in PERF.md, not a gate).
+DRYRUN_POS = 5           # the decode step's position
+DRYRUN_MEM_REL = 0.2
+DRYRUN_EQUAL = ("flops", "traffic_bytes", "traffic_bytes_upper",
+                "collectives", "gemms", "kernels")
+
+
+def dryrun_twins(cfg, device: str = "cuda") -> dict:
+    """``cfg``'s train step (Morton, seed 0 weights and a seed 0
+    ``PackedSyntheticData`` batch of TRAIN_BATCH x TRAIN_SEQ, AdamW as
+    ``run_train_steps`` builds it) and its contiguous decode step
+    (SLOTS slots of CACHE_LEN entries, position DRYRUN_POS), each
+    counted by ``count_step`` on ``device`` and on its meta twin (the
+    same builders' meta tensors).  On the card also the allocator's
+    peak over the train step and the memory allocated before it."""
+    import torch
+
+    from repro_torch.data import PackedSyntheticData
+    from repro_torch.data.pipeline import batch_to_device
+    from repro_torch.launch.opcount import count_step
+    from repro_torch.launch.steps import abstract_train_state, \
+        make_train_step
+    from repro_torch.models import DotEngine, init_decode_state, init_model
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.transformer import decode_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cuda = device == "cuda"
+    engine = DotEngine(schedule="morton")
+    step = make_train_step(cfg, None, AdamWConfig(
+        peak_lr=TRAIN_LR, warmup=1, total_steps=TRAIN_STEPS), engine=engine)
+    data = PackedSyntheticData(cfg, ShapeSpec(
+        "chip", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, kind="train"),
+        seed=0)
+    batch = batch_to_device(data.batch(0), device)
+    params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    opt = init_opt_state(params)
+    out = {}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["allocated_before"] = torch.cuda.memory_allocated()
+    out["train"] = count_step(step, params, opt, batch)
+    if cuda:
+        torch.cuda.synchronize()
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, opt
+    p_m, o_m = abstract_train_state(cfg)
+    b_m = {k: torch.empty_like(v, device="meta") for k, v in batch.items()}
+    out["train_meta"] = count_step(step, p_m, o_m, b_m)
+
+    def decode(p, st, toks, pos):
+        with torch.no_grad():
+            return decode_step(p, cfg, st, toks, pos, engine)
+
+    params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    toks = torch.randint(2, cfg.vocab, (SLOTS, 1), generator=g,
+                         dtype=torch.int32).to(device)
+    state = init_decode_state(cfg, SLOTS, CACHE_LEN, device=device)
+    pos = torch.tensor(DRYRUN_POS, dtype=torch.int32, device=device)
+    out["decode"] = count_step(decode, params, state, toks, pos)
+    del params, state
+    if cuda:
+        torch.cuda.empty_cache()
+    out["decode_meta"] = count_step(
+        decode, init_model(cfg, device="meta"),
+        init_decode_state(cfg, SLOTS, CACHE_LEN, device="meta"),
+        torch.empty_like(toks, device="meta"),
+        torch.empty_like(pos, device="meta"))
+    return out
+
+
+def _b1(count: dict) -> int:
+    return sum(v["launches"] for k, v in count["kernels"].items()
+               if k.startswith("b1"))
+
+
+def dryrun_phase(smi: str, train_ms: float) -> tuple[dict, dict]:
+    """Slice 14: ``dryrun_twins`` on qwen3-1.7b at full width and depth
+    in bf16.  Gates: for the train step and the decode step, the card's
+    count and the meta twin's equal in FLOPs, GEMM shapes (and routes),
+    collectives and both traffic models; B1's launches, as the kernel
+    wrapper counted them on the card and as both counts route them,
+    ``train_launches_per_step`` (619) a train step and 7 L + 1 a decode
+    step.  Printed: the meta twin's argument + temp beside the card's
+    ``max_memory_allocated`` over the train step, and the train step's
+    roofline fraction, ``model_flops`` / (``train_ms`` x the H100
+    model's peak), ``train_ms`` being ``train_phase``'s steady Morton
+    step.  Returns (the ``dryrun`` line's object, the path's launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.energy import H100
+    from repro_torch.launch.roofline import model_flops
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3_1_7b")
+    torch.cuda.empty_cache()
+    _zero_launches()
+    tw = dryrun_twins(cfg)
+    fails = []
+    want = {"train": train_launches_per_step(cfg),
+            "decode": B1_PER_LAYER[cfg.family] * cfg.n_layers + 1}
+    rec = {}
+    for kind in ("train", "decode"):
+        card, meta = tw[kind], tw[f"{kind}_meta"]
+        diff = [k for k in DRYRUN_EQUAL if card[k] != meta[k]]
+        launched = card["launched"]["b1"]
+        if diff:
+            fails.append(f"{kind}: card and meta differ in {diff}")
+        if not launched == _b1(card) == _b1(meta) == want[kind]:
+            fails.append(f"{kind}: B1 launched {launched}, counted "
+                         f"{_b1(card)} (card) and {_b1(meta)} (meta), "
+                         f"want {want[kind]}")
+        census = {k: (card["op_census"].get(k), meta["op_census"].get(k))
+                  for k in set(card["op_census"]) | set(meta["op_census"])
+                  if card["op_census"].get(k) != meta["op_census"].get(k)}
+        rec[kind] = {"flops": card["flops"],
+                     "traffic_bytes": card["traffic_bytes"],
+                     "traffic_bytes_upper": card["traffic_bytes_upper"],
+                     "collectives": card["collectives"]["total_count"],
+                     "kernels": card["kernels"], "launched": card["launched"],
+                     "equal": not diff, "census_diff": census,
+                     "memory_card": card["memory"],
+                     "memory_meta": meta["memory"]}
+        print(f"[dryrun] {cfg.name} {kind} step: card {card['flops']:.6e} "
+              f"FLOPs, traffic {card['traffic_bytes']:.6e} B fused / "
+              f"{card['traffic_bytes_upper']:.6e} B upper, "
+              f"{len(card['gemms'])} GEMM shapes, "
+              f"{card['collectives']['total_count']} collectives; meta twin "
+              f"{'equal' if not diff else 'DIFFERS in ' + str(diff)}; B1 "
+              f"launched {launched}, routed {_b1(card)} (card) / "
+              f"{_b1(meta)} (meta), want {want[kind]}; op census "
+              f"differences {census or 'none'}")
+    mem = tw["train_meta"]["memory"]
+    meta_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    card_peak = tw["max_memory_allocated"]
+    other = tw["allocated_before"] - \
+        tw["train"]["memory"]["argument_size_in_bytes"]
+    rel = meta_peak / card_peak - 1.0
+    mf = model_flops({"kind": "train", "active_params":
+                      cfg.active_params_count(), "seq_len": TRAIN_SEQ,
+                      "global_batch": TRAIN_BATCH})
+    frac = mf / (train_ms * 1e-3 * H100.peak_flops)
+    hw_frac = tw["train"]["flops"] / (train_ms * 1e-3 * H100.peak_flops)
+    secs = time.perf_counter() - t0
+    print(f"[dryrun] {cfg.name} train step memory: meta argument + temp "
+          f"{meta_peak / 1e9:.3f} GB beside the card's "
+          f"max_memory_allocated {card_peak / 1e9:.3f} GB ({rel:+.1%}; "
+          f"{other / 1e9:.3f} GB of it allocated before the step and not "
+          f"an argument; stated bound {DRYRUN_MEM_REL:.0%}, not a gate) "
+          f"({smi})")
+    print(f"[dryrun] {cfg.name} train step roofline fraction: model_flops "
+          f"{mf:.6e} / ({train_ms:.1f} ms measured x H100 model peak "
+          f"{H100.peak_flops:.4g} FLOP/s) = {frac:.4f}; counted FLOPs "
+          f"{tw['train']['flops']:.6e} give {hw_frac:.4f}; phase "
+          f"{secs:.1f} s ({smi})")
+    rec.update({"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "meta_argument_plus_temp": meta_peak,
+                "card_max_memory_allocated": card_peak,
+                "card_allocated_before_not_argument": other,
+                "memory_rel": rel, "model_flops": mf, "train_ms": train_ms,
+                "roofline_fraction": frac, "counted_flops_fraction": hw_frac,
+                "seconds": secs, "card": smi})
+    if fails:
+        raise SystemExit(f"chip_smoke: dryrun failed: {fails}")
+    return rec, {"B1": _kernel_launches()["B1"]}
+
+
+def examples_phase(smi: str) -> dict:
+    """``examples_torch/quickstart.py`` and ``serve_lm.py`` (paged, so B1
+    and B2 run) on the card, as subprocesses of this checkout (the
+    kernels already built, a tuner cache of their own); a non-zero exit
+    fails the run.  Returns each one's seconds and the last lines it
+    printed."""
+    import os
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TUNE_CACHE=f"{d}/tune.json")
+        for name, args in (("quickstart", []),
+                           ("serve_lm", ["--layout", "paged"])):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+                 *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=300)
+            secs = time.perf_counter() - t0
+            tail = run.stdout.strip().splitlines()[-4:]
+            print(f"[examples] {name}.py {' '.join(args)}: exit "
+                  f"{run.returncode} in {secs:.1f} s ({smi})")
+            for line in tail:
+                print(f"[examples]   {line}")
+            if run.returncode != 0:
+                raise SystemExit(f"chip_smoke: examples_torch/{name}.py "
+                                 f"exited {run.returncode}:\n"
+                                 f"{run.stderr[-4000:]}")
+            out[name] = {"seconds": secs, "tail": tail}
+    return out
+
+
 def main() -> int:
     import dataclasses
 
@@ -4797,6 +5024,11 @@ def main() -> int:
     lap("families serving")
     train, train_launches = train_phase(smi)
     lap("train qwen3-1.7b")
+    dryrun, dryrun_launches = dryrun_phase(
+        smi, train["morton"]["ms_per_step"])
+    lap("dryrun")
+    examples = examples_phase(smi)
+    lap("examples")
     fam_train = []
     for name in FAMILY_TRAIN:
         full = get_config(name)
@@ -4825,7 +5057,8 @@ def main() -> int:
                "shared": shared["launches"], "obs": obs_launches,
                "faults": fault_launches, "study": study,
                "study_energy": {"B3": energy_b3}, "tuner": tuner_launches,
-               **layout_launches, "train": train_launches}
+               **layout_launches, "train": train_launches,
+               "dryrun": dryrun_launches}
     launches = {**cv["launches"], "B3": study["B3"], "B4": study["B4"]}
     print(f"[launches] by path: {json.dumps(by_path)}; main path "
           f"{launches}")
@@ -4880,6 +5113,8 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"frontends": frontends}))
     print(json.dumps({"distributed": distributed}))
+    print(json.dumps({"dryrun": dryrun}))
+    print(json.dumps({"examples": examples, "card": smi}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"phase_seconds": phase_s, "card": smi}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys + ("by_arch",)

@@ -11,6 +11,14 @@ where the model code needs it, so ``constrain`` has no counterpart.
 Backends: NCCL for CUDA tensors, one rank per card; gloo only where the
 caller asks for the CPU.  A collective refuses a CUDA tensor on a gloo
 group (:meth:`Mesh.check`), so no card tensor takes the host's path.
+
+:class:`AbstractMesh` is a mesh that needs no world: the same answers
+for one chosen rank, collectives that move nothing and return a tensor
+of the result's shape (the dry-run's production meshes,
+``launch/dryrun.py``).  Every collective of either mesh is reported to
+the active recorders (:func:`record_collectives`): its kind, axes,
+group size and operand bytes per chip, the measure of the reference's
+``launch/hlo.py::_operand_bytes``.
 """
 from __future__ import annotations
 
@@ -27,17 +35,50 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "MeshCtx", "mesh_context", "current", "dp_axes",
-           "COLLECTIVES", "init_world", "spawn", "world_backend"]
+__all__ = ["Mesh", "AbstractMesh", "MeshCtx", "mesh_context", "current",
+           "dp_axes", "COLLECTIVES", "record_collectives", "init_world",
+           "spawn", "world_backend"]
 
 # collectives issued, by kind: the sharded steps' communication, read
 # (and zeroed) by whoever measures a step
 COLLECTIVES: collections.Counter = collections.Counter()
 
+# lists that every collective appends its record to (record_collectives)
+_RECORDERS: list[list] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Yield a list that gets one dict per collective issued inside the
+    block, by any mesh: ``kind`` (a :data:`COLLECTIVES` key), ``axes``,
+    ``size`` (the group's ranks) and ``bytes``, the operand bytes this
+    rank puts in (all-reduce: its whole buffer; all-gather: its shard;
+    all-to-all: its input; a shift or send: the tensor sent)."""
+    log: list[dict] = []
+    _RECORDERS.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDERS.remove(log)
+
+
+def _issue(kind: str, axes, size: int, t: torch.Tensor) -> None:
+    COLLECTIVES[kind] += 1
+    if _RECORDERS:
+        rec = {"kind": kind, "axes": tuple(axes), "size": int(size),
+               "bytes": t.numel() * t.element_size()}
+        for log in _RECORDERS:
+            log.append(rec)
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 WORLD_TIMEOUT_S = 300.0   # a collective's wait for its peers
 SPAWN_TIMEOUT_S = 600.0   # spawn's wait for each rank to finish
+
+
+def _group(pg, members: tuple) -> "_Group":
+    return _Group(pg, members, tuple(members.index(r)
+                                     for r in sorted(members)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,32 +109,47 @@ class Mesh:
     mesh needs ``prod(shape)`` ranks of the world and raises otherwise.
     """
 
+    abstract = False
+
     def __init__(self, shape, axis_names, ranks=None):
+        sizes = self._layout(shape, axis_names, ranks)
+        n = int(np.prod(sizes))
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if n > world:
+            raise ValueError(f"a {sizes} mesh needs {n} ranks; the world "
+                             f"holds {world}")
+        self._place(dist.get_rank() if dist.is_initialized() else 0)
+        if dist.is_initialized():
+            for axes, members in self._group_members():
+                pg = dist.new_group(sorted(members))
+                if self.rank in members:
+                    self._groups[axes] = _group(pg, members)
+
+    def _layout(self, shape, axis_names, ranks) -> tuple:
         self.axis_names = tuple(axis_names)
         sizes = tuple(int(s) for s in shape)
         if len(sizes) != len(self.axis_names):
             raise ValueError(f"mesh shape {sizes} does not match axes "
                              f"{self.axis_names}")
         n = int(np.prod(sizes))
-        world = dist.get_world_size() if dist.is_initialized() else 1
-        if n > world:
-            raise ValueError(f"a {sizes} mesh needs {n} ranks; the world "
-                             f"holds {world}")
         ranks = list(range(n)) if ranks is None else [int(r) for r in ranks]
         if sorted(ranks) != list(range(n)):
             raise ValueError(f"mesh ranks {ranks} are not a permutation of "
                              f"0..{n - 1}")
         self.shape = dict(zip(self.axis_names, sizes))
         self.devices = np.asarray(ranks, dtype=np.int64).reshape(sizes)
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        return sizes
+
+    def _place(self, rank: int) -> None:
+        self.rank = rank
         where = np.argwhere(self.devices == self.rank)
         self.coord = dict(zip(self.axis_names, (int(c) for c in where[0]))) \
             if len(where) else None
         self._groups: dict[tuple, _Group] = {}
-        if dist.is_initialized():
-            self._build_groups()
 
-    def _build_groups(self):
+    def _group_members(self):
+        """``(axes, members)`` of every group of the mesh, in the order
+        every rank creates them."""
         names = self.axis_names
         for k in range(1, len(names) + 1):
             for axes in itertools.combinations(names, k):
@@ -104,12 +160,7 @@ class Mesh:
                 grid = grid.reshape(int(np.prod([self.shape[a]
                                                  for a in axes])), -1)
                 for col in range(grid.shape[1]):
-                    members = tuple(int(r) for r in grid[:, col])
-                    pg = dist.new_group(sorted(members))
-                    if self.rank in members:
-                        order = tuple(members.index(r)
-                                      for r in sorted(members))
-                        self._groups[axes] = _Group(pg, members, order)
+                    yield axes, tuple(int(r) for r in grid[:, col])
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -140,14 +191,17 @@ class Mesh:
                                f"{backend} group of {self}")
 
     # ------------------------------------------------------- collectives --
+    # An abstract mesh runs every tensor operation of a collective but
+    # the transfer: the result has its real shape, dtype and device.
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"):
         """In-place all-reduce of ``t`` over ``axes``; returns ``t``.  A
         non-contiguous ``t`` goes through a contiguous copy."""
         g = self.group(axes)
         self.check(t, g)
-        COLLECTIVES[f"all_reduce_{op}"] += 1
+        _issue(f"all_reduce_{op}", _axes(axes), g.size, t)
         buf = t if t.is_contiguous() else t.contiguous()
-        dist.all_reduce(buf, op=_OPS[op], group=g.pg)
+        if not self.abstract:
+            dist.all_reduce(buf, op=_OPS[op], group=g.pg)
         if buf is not t:
             t.copy_(buf)
         return t
@@ -157,9 +211,10 @@ class Mesh:
         g = self.group(axes)
         t = t.contiguous()
         self.check(t, g)
-        COLLECTIVES["all_gather"] += 1
+        _issue("all_gather", _axes(axes), g.size, t)
         parts = [torch.empty_like(t) for _ in range(g.size)]
-        dist.all_gather(parts, t, group=g.pg)
+        if not self.abstract:
+            dist.all_gather(parts, t, group=g.pg)
         ordered = [None] * g.size
         for i, p in enumerate(parts):
             ordered[g.order[i]] = p
@@ -173,13 +228,14 @@ class Mesh:
         mesh order."""
         g = self.group(axes)
         self.check(t, g)
-        COLLECTIVES["all_to_all"] += 1
+        _issue("all_to_all", _axes(axes), g.size, t)
         chunks = [c.contiguous() for c in t.chunk(g.size, dim=split_dim)]
         # torch numbers the group's ranks by global rank: send and
         # receive in that numbering, reorder to mesh order
         send = [chunks[g.order[i]] for i in range(g.size)]
         recv = [torch.empty_like(send[i]) for i in range(g.size)]
-        dist.all_to_all(recv, send, group=g.pg)
+        if not self.abstract:
+            dist.all_to_all(recv, send, group=g.pg)
         ordered = [None] * g.size
         for i, r in enumerate(recv):
             ordered[g.order[i]] = r
@@ -192,31 +248,63 @@ class Mesh:
         g = self.group((axis,))
         self.check(t, g)
         i = self.coord[axis]
-        COLLECTIVES["send_recv"] += 1
+        _issue("send_recv", (axis,), g.size, t)
         req = None
-        if i + 1 < g.size:
+        if i + 1 < g.size and not self.abstract:
             req = dist.isend(t.contiguous(), g.members[i + 1])
         out = torch.zeros(t.shape, dtype=t.dtype, device=t.device)
-        if i > 0:
+        if i > 0 and not self.abstract:
             dist.recv(out, g.members[i - 1])
         if req is not None:
             req.wait()
         return out
 
-
     def send(self, t: torch.Tensor, dst: int) -> None:
         """Send ``t`` to the global rank ``dst`` (point to point)."""
         self.check(t, None)
-        COLLECTIVES["send_recv"] += 1
-        dist.send(t.contiguous(), dst)
+        _issue("send_recv", (), 2, t)
+        buf = t.contiguous()
+        if not self.abstract:
+            dist.send(buf, dst)
 
     def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
         """Receive a tensor shaped like ``like`` from the global rank
-        ``src``."""
+        ``src`` (the sender's :meth:`send` counts the transfer)."""
         self.check(like, None)
         out = torch.empty_like(like, memory_format=torch.contiguous_format)
-        dist.recv(out, src)
+        if not self.abstract:
+            dist.recv(out, src)
         return out
+
+
+class AbstractMesh(Mesh):
+    """A mesh that needs no world: the answers of a real :class:`Mesh`
+    (``shape``, ``axis_names``, ``devices``, ``coord``, ``size``,
+    ``index``, ``group``) for the global rank ``rank``, and no process
+    group.  Its collectives skip the backend check and the transfer,
+    count in :data:`COLLECTIVES` and report to the recorders as a real
+    mesh's do, and return a tensor of the result's shape and dtype on
+    the input's device, whose values are undefined: a rank's step runs
+    with the control flow and the shapes of the real one (the dry-run,
+    on meta tensors)."""
+
+    abstract = True
+
+    def __init__(self, shape, axis_names, ranks=None, *, rank: int = 0):
+        self._layout(shape, axis_names, ranks)
+        if not 0 <= rank < self.devices.size:
+            raise ValueError(f"rank {rank} is not in a mesh of "
+                             f"{self.devices.size} ranks")
+        self._place(int(rank))
+        for axes, members in self._group_members():
+            if self.rank in members:
+                self._groups[axes] = _group(None, members)
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape}, rank={self.rank})"
+
+    def check(self, t: torch.Tensor, g: _Group | None) -> None:
+        pass
 
 
 def _axes(axes) -> tuple:

@@ -24,6 +24,12 @@ which on the CPU is exact for bf16 operands as well.
 cache when present, otherwise from a search, analytic on the CPU and
 measured on the card (``"cuda"`` is the backend of a CUDA tensor).  The
 winner may be ``"xla"``, the library call, where it measures faster.
+
+Inside :func:`repro_torch.launch.opcount.count_step` both entries
+report each GEMM to the step's counter (:data:`gemm_counter`), which
+records it and, for a meta tensor, returns an empty meta output of the
+kernel's shape and dtype instead of reaching a kernel wrapper.  Outside
+that context the counter is None and nothing changes.
 """
 from __future__ import annotations
 
@@ -34,7 +40,13 @@ import torch
 from .ref import apply_epilogue_ref, matmul_fused_ref
 from .sfc_matmul import sfc_matmul_batched_cuda, sfc_matmul_cuda
 
-__all__ = ["sfc_matmul", "sfc_matmul_batched", "library_matmul"]
+__all__ = ["sfc_matmul", "sfc_matmul_batched", "library_matmul",
+           "gemm_counter"]
+
+# the GEMM counter of an active count_step (launch/opcount.py), or None.
+# A module global, not a context variable: autograd runs a CUDA
+# backward on a thread of its own, which sees no caller's context
+gemm_counter = None
 
 
 @functools.cache
@@ -110,6 +122,22 @@ def sfc_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule: str = "morton",
     for explicit schedules) and ``comm``, the ``CommSpec`` of the
     collective the output feeds on a mesh (None: the single-device keys).
     """
+    counter = gemm_counter
+    if counter is not None:
+        return counter.gemm(functools.partial(
+            _sfc_matmul, a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
+            out_dtype=out_dtype, use_prefetch=use_prefetch, g=g,
+            objective=objective, bias=bias, activation=activation,
+            residual=residual, comm=comm), a, b, schedule=schedule, bn=bn,
+            out_dtype=out_dtype, bias=bias, residual=residual)
+    return _sfc_matmul(a, b, schedule=schedule, bm=bm, bn=bn, bk=bk,
+                       out_dtype=out_dtype, use_prefetch=use_prefetch, g=g,
+                       objective=objective, bias=bias,
+                       activation=activation, residual=residual, comm=comm)
+
+
+def _sfc_matmul(a, b, *, schedule, bm, bn, bk, out_dtype, use_prefetch, g,
+                objective, bias, activation, residual, comm):
     if schedule == "auto":
         schedule, bm, bn, bk, use_prefetch, g = _resolve_auto(
             a, a.shape[0], b.shape[1], a.shape[1], objective=objective,
@@ -150,6 +178,28 @@ def sfc_matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
     if residual is not None and residual.shape != (*lead, m, n):
         raise ValueError(f"residual shape {tuple(residual.shape)} != "
                          f"{(*lead, m, n)}")
+    counter = gemm_counter
+    if counter is not None:
+        return counter.gemm(functools.partial(
+            _sfc_matmul_batched, a, b, schedule=schedule, bm=bm, bn=bn,
+            bk=bk, out_dtype=out_dtype, use_prefetch=use_prefetch,
+            per_element=per_element, g=g, objective=objective, bias=bias,
+            activation=activation, residual=residual), a, b,
+            schedule=schedule, bn=bn, out_dtype=out_dtype, bias=bias,
+            residual=residual, batched="b1" if per_element else "b3")
+    return _sfc_matmul_batched(
+        a, b, schedule=schedule, bm=bm, bn=bn, bk=bk, out_dtype=out_dtype,
+        use_prefetch=use_prefetch, per_element=per_element, g=g,
+        objective=objective, bias=bias, activation=activation,
+        residual=residual)
+
+
+def _sfc_matmul_batched(a, b, *, schedule, bm, bn, bk, out_dtype,
+                        use_prefetch, per_element, g, objective, bias,
+                        activation, residual):
+    lead = a.shape[:-2]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     if schedule == "auto":
         schedule, bm, bn, bk, use_prefetch, g = _resolve_auto(
             a, m, n, k, batched=True, objective=objective,

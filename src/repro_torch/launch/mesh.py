@@ -5,10 +5,13 @@
 :class:`~repro_torch.distributed.ctx.Mesh` over the ranks of the
 current ``torch.distributed`` world (one rank per card under NCCL, CPU
 ranks under gloo); a mesh needs ``prod(shape)`` ranks and raises on a
-smaller world.  ``device_order`` lays the logical mesh along a curve
-over an assumed physical 2-D grid of ranks (:func:`device_permutation`,
-the rank-to-coordinate bijection), as the reference lays it over a
-TPU pod's ICI torus.
+smaller world.  With ``abstract=True`` they build an
+:class:`~repro_torch.distributed.ctx.AbstractMesh` instead, the same
+mesh seen from one ``rank`` without a world (the dry-run's).
+``device_order`` lays the logical mesh along a curve over an assumed
+physical 2-D grid of ranks (:func:`device_permutation`, the
+rank-to-coordinate bijection), as the reference lays it over a TPU
+pod's ICI torus.
 
 :func:`link_distance` is pure numpy on the mesh's shape and is the
 reference's, so the tuner's ``CommSpec`` (``launch/steps._comm_for``)
@@ -22,7 +25,7 @@ import weakref
 
 import numpy as np
 
-from repro_torch.distributed.ctx import Mesh
+from repro_torch.distributed.ctx import AbstractMesh, Mesh
 
 __all__ = ["DEVICE_ORDERS", "default_torus", "device_permutation",
            "link_distance", "make_production_mesh", "make_smoke_mesh",
@@ -175,28 +178,40 @@ def _placed_ranks(shape, axes, device_order: str, per_pod: int) -> list:
     return ordered
 
 
+def _mesh(shape, axes, ranks, abstract: bool, rank: int) -> Mesh:
+    if abstract:
+        return AbstractMesh(shape, axes, ranks, rank=rank)
+    return Mesh(shape, axes, ranks)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_order: str = "rowmajor") -> Mesh:
+                         device_order: str = "rowmajor",
+                         abstract: bool = False, rank: int = 0) -> Mesh:
     """The reference's production meshes, (16, 16) or (2, 16, 16): 256
-    or 512 ranks."""
+    or 512 ranks; ``abstract``: the mesh as the global rank ``rank``
+    sees it, with no world."""
     _check_order(device_order)
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     ranks = _placed_ranks(shape, axes, device_order, 256)
-    return _record_device_order(Mesh(shape, axes, ranks), device_order)
+    return _record_device_order(_mesh(shape, axes, ranks, abstract, rank),
+                                device_order)
 
 
 def make_smoke_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), *,
-                    device_order: str = "rowmajor") -> Mesh:
+                    device_order: str = "rowmajor", abstract: bool = False,
+                    rank: int = 0) -> Mesh:
     """A small mesh (8 CPU ranks under gloo in the tests; one card at
     world size 1).  ``device_order`` lays the non-pod axes on the
-    :func:`default_torus` of their rank count, as production."""
+    :func:`default_torus` of their rank count, as production;
+    ``abstract`` as :func:`make_production_mesh`."""
     _check_order(device_order)
     shape, axes = tuple(shape), tuple(axes)
     pods = shape[axes.index("pod")] if "pod" in axes else 1
     per_pod = int(np.prod(shape)) // pods
     ranks = _placed_ranks(shape, axes, device_order, per_pod)
-    return _record_device_order(Mesh(shape, axes, ranks), device_order)
+    return _record_device_order(_mesh(shape, axes, ranks, abstract, rank),
+                                device_order)
 
 
 def mesh_chips(mesh) -> int:

@@ -8,12 +8,14 @@ ops, as the reference's are XLA).
 On a mesh (an active :func:`repro_torch.distributed.ctx.mesh_context`)
 the projections are tensor-parallel (``layers.copy_to`` /
 ``layers.out_proj``): the forward runs attention head-local on each
-rank's ``n_heads / m`` query and ``n_kv_heads / m`` kv-heads (where the
-reference shards the query sequence: the same function), and raises
-where the heads do not divide the model axis.  The paged decode runs the
-kernel on each rank's kv-head shard of the pool; the contiguous decode
-gathers every head and runs the sequence-parallel online softmax over
-the cache's sequence shards (``distributed.sp_attention``)."""
+rank's ``n_heads / m`` query and ``n_kv_heads / m`` kv-heads where the
+heads divide the m-way model axis, and otherwise as the reference does
+for any head count, sequence-parallel (:func:`_seq_parallel_attention`:
+every head gathered, each rank attending its rows of every query chunk
+against all keys).  The paged decode runs the kernel on each rank's
+kv-head shard of the pool; the contiguous decode gathers every head and
+runs the sequence-parallel online softmax over the cache's sequence
+shards (``distributed.sp_attention``)."""
 from __future__ import annotations
 
 import math
@@ -23,7 +25,7 @@ import torch
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 
 from .layers import DotEngine, apply_rope, copy_to, gather, init_linear, \
-    init_rms, out_proj, rms_norm, tp_context
+    init_rms, out_proj, rms_norm, scatter, tp_context
 
 __all__ = ["init_attention", "attention", "prefill_kv",
            "decode_attention", "decode_plan", "paged_decode_attention"]
@@ -48,6 +50,12 @@ def init_attention(generator, cfg, dtype=torch.float32, *, lead=(),
     return p
 
 
+def heads_divide(cfg, m: int) -> bool:
+    """Whether both head counts divide an m-way model axis (head-local
+    tensor-parallel attention)."""
+    return cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+
+
 def local_heads(cfg) -> tuple[int, int]:
     """(query heads, kv-heads) of this rank: all of them on one device,
     ``n / m`` each on a mesh's m-way model axis (both must divide)."""
@@ -55,7 +63,7 @@ def local_heads(cfg) -> tuple[int, int]:
     if c is None:
         return cfg.n_heads, cfg.n_kv_heads
     m = c.tp
-    if cfg.n_heads % m or cfg.n_kv_heads % m:
+    if not heads_divide(cfg, m):
         raise ValueError(
             f"{cfg.name}: {cfg.n_heads} query heads and {cfg.n_kv_heads} "
             f"kv-heads do not both divide the {m}-way model axis; "
@@ -121,32 +129,99 @@ def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
     ``return_kv=True`` also returns the post-rope/qk-norm (k, v), what
     the decode cache stores."""
     b, s, _ = x.shape
+    c = tp_context()
+    if c is not None and c.tp > 1 and not heads_divide(cfg, c.tp) \
+            and not return_kv:
+        return _seq_parallel_attention(x, p, cfg, engine, cos, sin,
+                                       q_chunk, residual)
     q, k, v = _project_qkv(x, p, cfg, engine, cos, sin)
     scale = 1.0 / math.sqrt(cfg.d_head)
-    window = cfg.swa_window
     if not cfg.causal:
         out = _sdpa(q, k, v, None, scale)
     else:
-        c = min(q_chunk, s)
-        if s % c:
-            raise ValueError(f"sequence {s} is not a multiple of q_chunk {c}")
+        ch = min(q_chunk, s)
+        if s % ch:
+            raise ValueError(f"sequence {s} is not a multiple of q_chunk "
+                             f"{ch}")
         outs = []
-        for i in range(s // c):
-            hi = (i + 1) * c
-            lo = 0
-            if window is not None:
-                lo = max(0, hi - c - window + 1)
-                lo = (lo // c) * c
-            qpos = torch.arange(i * c, hi, device=x.device)[:, None]
-            kpos = torch.arange(lo, hi, device=x.device)[None, :]
-            mask = kpos <= qpos
-            if window is not None:
-                mask &= kpos > qpos - window
-            outs.append(_sdpa(q[:, i * c:hi], k[:, lo:hi], v[:, lo:hi],
-                              mask[None, None, None], scale))
+        for i in range(s // ch):
+            qpos = torch.arange(i * ch, (i + 1) * ch, device=x.device)
+            lo, hi, mask = _chunk_keys(cfg, i, ch, qpos)
+            outs.append(_sdpa(q[:, i * ch:hi], k[:, lo:hi], v[:, lo:hi],
+                              mask, scale))
         out = torch.cat(outs, dim=1)
     out = out_proj(engine, out.reshape(b, s, -1), p["wo"], residual)
     return (out, k, v) if return_kv else out
+
+
+def _chunk_keys(cfg, i: int, ch: int, qpos):
+    """(lo, hi, mask) of causal q chunk ``i`` of ``ch`` rows: it attends
+    to keys [lo, (i + 1) * ch), lo = 0 or the window's start aligned
+    down to a chunk; ``mask`` broadcasts against the scores of the
+    query positions ``qpos``."""
+    window = cfg.swa_window
+    hi = (i + 1) * ch
+    lo = 0
+    if window is not None:
+        lo = max(0, hi - ch - window + 1)
+        lo = (lo // ch) * ch
+    kpos = torch.arange(lo, hi, device=qpos.device)[None, :]
+    mask = kpos <= qpos[:, None]
+    if window is not None:
+        mask &= kpos > qpos[:, None] - window
+    return lo, hi, mask[None, None, None]
+
+
+def _seq_parallel_attention(x, p, cfg, engine: DotEngine, cos, sin,
+                            q_chunk: int, residual):
+    """Full-sequence attention on a mesh whose m-way model axis the head
+    counts do not divide: the reference's sequence-parallel core (its
+    queries sharded over the model axis, head-count independent).
+
+    The column shards of q, k and v are gathered into every head; each
+    rank takes its ``ch / m`` rows of every q chunk of ``ch`` rows (each
+    chunk split evenly, so every rank does 1/m of the work) and attends
+    them against the chunk's keys, all heads; the outputs are gathered
+    back into sequence order and this rank's columns go through the
+    row-parallel out-projection.  The collectives' backward (``gather``:
+    this rank's chunk; ``scatter``: an all-gather; ``copy_to``: an
+    all-reduce) sums each rank's share of every gradient, so the step
+    equals the one-device step.  A non-causal sequence is one chunk."""
+    b, s, _ = x.shape
+    ctx = tp_context()
+    m, r = ctx.tp, ctx.mesh.index(ctx.model_axis)
+    dh = cfg.d_head
+    ch = min(q_chunk, s) if cfg.causal else s
+    if s % ch or ch % m:
+        raise ValueError(f"{cfg.name}: sequence {s} in q chunks of {ch} "
+                         f"rows does not split over the {m}-way model "
+                         f"axis")
+    n, rows = s // ch, ch // m
+    x = copy_to(x)
+    q = gather(engine.dot(x, p["wq"]), -1)
+    # k and v: every rank attends its rows against all of them, so
+    # their gradients are summed over the model axis
+    k = copy_to(gather(engine.dot(x, p["wk"]), -1)).reshape(b, s, -1, dh)
+    v = copy_to(gather(engine.dot(x, p["wv"]), -1)).reshape(b, s, -1, dh)
+    q = scatter(q.reshape(b, n, m, rows, -1), 2).reshape(b, n * rows, -1, dh)
+    qpos = torch.arange(s, device=x.device).reshape(n, m, rows)[:, r]
+    if cfg.qk_norm:  # before rope, as the reference
+        q = rms_norm(q, copy_to(p["q_norm"]))
+        k = rms_norm(k, copy_to(p["k_norm"]))
+    if cfg.rope:
+        q = apply_rope(q, cos[..., qpos.reshape(-1), :],
+                       sin[..., qpos.reshape(-1), :])
+        k = apply_rope(k, cos, sin)
+    scale = 1.0 / math.sqrt(dh)
+    outs = []
+    for i in range(n):
+        lo, hi, mask = _chunk_keys(cfg, i, ch, qpos[i]) if cfg.causal \
+            else (0, s, None)
+        outs.append(_sdpa(q[:, i * rows:(i + 1) * rows], k[:, lo:hi],
+                          v[:, lo:hi], mask, scale))
+    out = torch.cat(outs, dim=1).reshape(b, n, 1, rows, -1)
+    out = scatter(gather(out, 2).reshape(b, s, -1), -1)
+    return out_proj(engine, out, p["wo"], residual)
 
 
 def prefill_kv(x, p, cfg, engine: DotEngine, cos, sin):
@@ -232,11 +307,12 @@ def decode_plan(cfg, b: int, c: int, cache_positions, write_slot, cur_pos,
                 row_mask=None, device=None):
     """What every layer of one contiguous decode step shares, since it
     depends on the positions alone: ``(index, select, mask)``, the
-    index of the entry each row writes in a layer's (B, C, ...) strip,
-    the rows that write ((B, 1, 1) bool, ``row_mask`` or all) and the
-    attention mask over the C entries, broadcast against
-    :func:`_sdpa`'s (B, Hkv, G, 1, C).  The rules are
-    :func:`decode_attention`'s."""
+    index of the entry each row writes in a layer's (B, C, ...) strip
+    (index tensors of one entry a row, so a read gives (B, 1, ...) and
+    no index is read on the host), the rows that write ((B, 1, 1, 1)
+    bool, ``row_mask`` or all) and the attention mask over the C
+    entries, broadcast against :func:`_sdpa`'s (B, Hkv, G, 1, C).  The
+    rules are :func:`decode_attention`'s."""
     window = cfg.swa_window
     cur = torch.as_tensor(cur_pos, device=device).to(torch.int64)
     ws = torch.as_tensor(write_slot, device=device).to(torch.int64)
@@ -249,14 +325,14 @@ def decode_plan(cfg, b: int, c: int, cache_positions, write_slot, cur_pos,
         valid = held >= 0
         if window is not None:
             valid &= held > cur[:, None] - window
-        return (torch.arange(b, device=device), ws), sel[:, None, None], \
-            valid[:, None, None, None, :]
+        return (torch.arange(b, device=device)[:, None], ws[:, None]), \
+            sel[:, None, None, None], valid[:, None, None, None, :]
     slots = torch.arange(c, device=device)
     held = torch.where(slots == ws, cur, cache_positions.to(torch.int64))
     valid = (held >= 0) & (held <= cur)
     if window is not None:
         valid &= held > cur - window
-    return (slice(None), ws), sel[:, None, None], \
+    return (slice(None), ws.reshape(1)), sel[:, None, None, None], \
         valid[None, None, None, None, :]
 
 
@@ -307,8 +383,8 @@ def decode_attention(x, p, cfg, engine: DotEngine, k_cache, v_cache,
     idx, sel, mask = plan or decode_plan(cfg, b, c, cache_positions,
                                          write_slot, cur_pos, row_mask,
                                          x.device)
-    k_cache[idx] = torch.where(sel, k_new[:, 0], k_cache[idx])
-    v_cache[idx] = torch.where(sel, v_new[:, 0], v_cache[idx])
+    k_cache[idx] = torch.where(sel, k_new, k_cache[idx])
+    v_cache[idx] = torch.where(sel, v_new, v_cache[idx])
     out = _sdpa(q, k_cache, v_cache, mask, 1.0 / math.sqrt(cfg.d_head))
     out = engine.dot(out.reshape(b, 1, -1), p["wo"], residual=residual)
     return out, k_cache, v_cache

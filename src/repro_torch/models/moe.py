@@ -71,6 +71,13 @@ def init_moe(generator, cfg, dtype=torch.float32, *, lead=(), device=None,
     return p
 
 
+def _one_hot(idx, n: int):
+    """``F.one_hot(idx, n)``'s values as a bool comparison: the same ops
+    on every device (``F.one_hot`` reads its indices' range on the host
+    on the CPU and builds another graph on meta)."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def _router(xf, params, cfg):
     """xf: (T, d) -> (weights (T, k) f32, idx (T, k), aux loss).
 
@@ -91,7 +98,7 @@ def _router(xf, params, cfg):
     w, idx = w[:, :cfg.moe_topk], idx[:, :cfg.moe_topk]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     pe = probs.mean(0)
-    fe = F.one_hot(idx[:, 0], e_pad).float().mean(0)
+    fe = _one_hot(idx[:, 0], e_pad).float().mean(0)
     aux = e_real * torch.sum(fe * pe)
     return w, idx, aux
 
@@ -115,7 +122,7 @@ def moe_dense(x, params, cfg, engine: DotEngine):
     xe = copy_to(xf)
     y_all = gather(_expert_ffn(xe.expand(e_loc, *xf.shape), params), 0)
     e = y_all.shape[0]                                        # (E, T, d)
-    gate = (F.one_hot(idx, e).to(xf.dtype)
+    gate = (_one_hot(idx, e).to(xf.dtype)
             * w[..., None].to(xf.dtype)).sum(dim=1)           # (T, E)
     y = torch.einsum("te,etd->td", gate, y_all)
     return y.reshape(b, s, d), aux

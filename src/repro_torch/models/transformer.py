@@ -535,13 +535,14 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
                 cos, sin, row_mask, residual=x, plan=plan)
         x, _ = _ffn(x, lp, cfg, engine)
     if cfg.has_attention and p.dim() == 0:
+        # a (1,) index: a 0-d index tensor would be read on the host
         if c is None:
-            kv_pos[slot] = p.to(kv_pos.dtype)
+            kv_pos[slot.reshape(1)] = p.to(kv_pos.dtype)
         else:   # the owning rank writes its entry
             s_loc = kv_pos.shape[0]
             local = slot - (c.mesh.index(seq) * s_loc if seq else 0)
             own = (local >= 0) & (local < s_loc)
-            local = local.clamp(0, s_loc - 1)
+            local = local.clamp(0, s_loc - 1).reshape(1)
             kv_pos[local] = torch.where(own, p.to(kv_pos.dtype),
                                         kv_pos[local])
     x = rms_norm(x, params["final_norm"])

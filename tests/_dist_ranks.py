@@ -456,3 +456,116 @@ def moe_ffn_ranks(arch, np_params, np_x, impl):
         y, aux = moe_ffn(torch.from_numpy(np_x), params, cfg, DotEngine(),
                          mesh=mesh, impl=impl)
     return {"y": y.numpy(), "aux": float(aux)}
+
+
+def _materialize(tree, gen):
+    """Real CPU tensors shaped like the meta tensors of ``tree`` (floats
+    drawn from ``gen``, scaled down; integers zero)."""
+    from repro_torch.serve.state import DecodeState
+
+    def leaf(t):
+        if t.is_floating_point():
+            return (0.02 * torch.randn(t.shape, generator=gen)).to(t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype)
+
+    if isinstance(tree, DecodeState):
+        return DecodeState({k: _materialize(v, gen) for k, v in tree.items()},
+                           tree.layout)
+    if isinstance(tree, dict):
+        return {k: _materialize(v, gen) for k, v in tree.items()}
+    return leaf(tree)
+
+
+def count_collectives_ranks(arch):
+    """Rank 0's collectives, counted by ``count_step`` around the real
+    (2, 2, 2) sharded train step (grad_accum 2, pod compression off and
+    on) and serve step (contiguous), and around the same builders'
+    steps on an ``AbstractMesh`` seen from rank 0 with their meta
+    inputs: per run, ``COLLECTIVES`` and the records
+    (``collective_log``).  Also, per rank, whether the abstract mesh
+    answers as the real one does."""
+    from repro_torch.launch.opcount import count_step
+
+    SHAPES[TRAIN_SHAPE.name] = TRAIN_SHAPE
+    SHAPES[DEC_SHAPE.name] = DEC_SHAPE
+    cfg = get_smoke_config(arch)
+    rank = dist.get_rank()
+    out = {"real": {}, "abstract": {}}
+    for kind in ("real", "abstract"):
+        if kind == "abstract" and rank != 0:
+            break
+        mesh = make_smoke_mesh((2, 2, 2), abstract=kind == "abstract",
+                               rank=rank)
+        runs = []
+        for pc in (False, True):
+            fn, specs, abs_args = build_train_step(
+                cfg, mesh, TRAIN_SHAPE.name, grad_accum=2, pod_compress=pc)
+            runs.append((f"train pod_compress={pc}", fn, specs, abs_args))
+        fn, (ps, ss, ts, _), (p, s, t, pos) = build_serve_step(
+            cfg, mesh, DEC_SHAPE.name, cache_len=32)
+        runs.append(("serve", fn, (ps, ss, ts), (p, s, t, pos)))
+        for name, fn, specs, abs_args in runs:
+            gen = torch.Generator().manual_seed(0)
+            args = list(abs_args)
+            if kind == "real":
+                args = [_materialize(a, gen) for a in args]
+            args = [shd.shard_tree(a, sp, mesh)
+                    for a, sp in zip(args, specs)] + args[len(specs):]
+            dctx.COLLECTIVES.clear()
+            c = count_step(fn, *args)
+            out[kind][name] = {"counter": dict(dctx.COLLECTIVES),
+                               "log": c["collective_log"],
+                               "collectives": c["collectives"]}
+    real = make_smoke_mesh((2, 2, 2))
+    ab = make_smoke_mesh((2, 2, 2), abstract=True, rank=rank)
+    same = (real.shape == ab.shape and real.coord == ab.coord
+            and (real.devices == ab.devices).all()
+            and all(real.size(a) == ab.size(a) and real.index(a) == ab.index(a)
+                    and real.group(a).members == ab.group(a).members
+                    and real.group(a).order == ab.group(a).order
+                    for a in (("pod",), ("data",), ("model",),
+                              ("pod", "data"), ("data", "model"),
+                              ("pod", "data", "model"))))
+    flags = [torch.zeros(1) for _ in range(dist.get_world_size())]
+    dist.all_gather(flags, torch.tensor([float(same)]))
+    out["mesh_answers_equal"] = [bool(f.item()) for f in flags]
+    return out
+
+
+def seq_parallel_ranks(arch):
+    """A (2, 4) ("data", "model") mesh, whose 4-way model axis the smoke
+    config's 2 kv-heads do not divide, so attention runs
+    sequence-parallel: the sharded gradients (gathered) and loss at
+    grad_accum 1, and the sharded prefill logits (gathered), beside the
+    single-device ones, from seed-0 weights and a seed-1 batch."""
+    from repro_torch.launch.steps import _unflatten
+    from repro_torch.models import forward, init_model
+
+    cfg = get_smoke_config(arch)
+    mesh = make_smoke_mesh((2, 4), ("data", "model"))
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu",
+                        moe_pad=4)
+    g = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=g,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    ps, bs = shd.param_specs(cfg), shd.batch_specs(cfg, mesh, 8)
+    engine = DotEngine()
+    mets, grads = sharded_grads(cfg, mesh, engine,
+                                shd.shard_tree(params, ps, mesh),
+                                shd.shard_tree(batch, bs, mesh), dp=("data",))
+    full = shd.gather_tree(_unflatten(params, grads), ps, mesh)
+    loss, _, single = grads_of(cfg, params, batch, engine)
+    icfg = dataclasses.replace(cfg, remat=False)
+    tok = {"tokens": batch["tokens"]}
+    with torch.no_grad():
+        with dctx.mesh_context(mesh, dp=("data",)):
+            lg, _ = forward(shd.shard_tree(params, ps, mesh), icfg,
+                            shd.shard_tree(tok, {"tokens": bs["tokens"]},
+                                           mesh), engine)
+        lg = shd.gather_tree(lg, (("data",), None, "model"), mesh)
+        ls, _ = forward(params, icfg, tok, engine)
+    return {"loss": float(mets["loss"]), "loss_single": float(loss),
+            "grads": [x.numpy() for x in tree_leaves(full)],
+            "grads_single": [x.numpy() for x in tree_leaves(single)],
+            "logits": lg.numpy(), "logits_single": ls.numpy(),
+            "names": leaf_names(params)}

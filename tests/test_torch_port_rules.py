@@ -10,7 +10,11 @@
 * ``chip_smoke.py`` exits non-zero and prints no result without a card,
   and in a directory that holds nothing else of the repository;
 * ``NvmlBackend()`` raises where the NVML library is missing: the card's
-  energy readings never degrade to another backend inside it.
+  energy readings never degrade to another backend inside it;
+* ``examples_torch/`` imports neither ``jax`` nor ``repro`` either;
+  outside ``count_step`` a meta tensor still raises in ``ops.sfc_matmul``
+  (the counter's hook is taken only inside it); the dry-run, host-only
+  by design, neither names nor initialises ``torch.cuda``.
 """
 import ast
 import json
@@ -38,7 +42,8 @@ from repro_torch.models import init_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -196,3 +201,48 @@ def test_chip_smoke_prints_no_json_line_without_a_card():
     assert not [line for line in out.stdout.splitlines()
                 if line.startswith("{")]
     assert "[nvml]" not in out.stdout
+
+
+def test_gemm_hook_is_taken_only_inside_count_step():
+    from repro_torch.launch.opcount import count_step
+
+    a = torch.zeros(4, 8, device="meta")
+    b = torch.zeros(8, 4, device="meta")
+    for fn, x, y in ((ops.sfc_matmul, a, b),
+                     (ops.sfc_matmul_batched, a[None], b[None])):
+        with pytest.raises(ValueError, match="runs on cuda"):
+            fn(x, y)
+        count = count_step(fn, x, y)
+        # N = 4 is no multiple of 8: B1's tile path
+        assert count["kernels"] == {
+            "b1_tile" if fn is ops.sfc_matmul else "b3":
+            {"launches": 1, "flops": 2.0 * 4 * 8 * 4}}
+        with pytest.raises(ValueError, match="runs on cuda"):
+            fn(x, y)
+    assert ops.gemm_counter is None
+
+
+DRYRUN_FILES = [PORT / "launch" / n
+                for n in ("dryrun.py", "opcount.py", "roofline.py")]
+
+
+def test_dryrun_touches_no_cuda(tmp_path):
+    """The dry-run's modules name no ``torch.cuda``, and a cell run with
+    no card visible leaves CUDA uninitialised."""
+    for path in DRYRUN_FILES:
+        tree = ast.parse(path.read_text())
+        bad = [n for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+               and n.attr == "cuda" and isinstance(n.value, ast.Name)
+               and n.value.id == "torch"]
+        assert not bad, path.name
+    code = ("import sys, torch\n"
+            "from repro_torch.launch import dryrun\n"
+            f"r = dryrun.run_cell('qwen3_1_7b', 'decode_32k', 'single', "
+            f"{str(tmp_path)!r})\n"
+            "print(r['status'], torch.cuda.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-2:] == ["ok", "False"]

@@ -311,10 +311,11 @@ def test_train_step_raises_for_a_mesh():
     ranks, a (1, 1, 2) mesh): the same loss within 1e-5 relative, the
     parameters within the reference selftest's 5e-2 of the
     single-device step, and the update within 1e-6 of the single-device
-    ``adamw_update`` (``_dist_ranks.assert_update_matches``); it
-    raises, naming the shapes, only on a model axis the heads do not
-    divide (4 ranks: 2 kv-heads).  Off a mesh ``pod_compress`` changes
-    nothing, as in the reference."""
+    ``adamw_update`` (``_dist_ranks.assert_update_matches``).  On a
+    model axis the heads do not divide (4 ranks: 2 kv-heads), where it
+    raised before, its attention runs sequence-parallel, as the
+    reference's does for any head count, and the same bounds hold.  Off
+    a mesh ``pod_compress`` changes nothing, as in the reference."""
     import _dist_ranks
     from repro_torch.distributed.ctx import spawn
 
@@ -324,12 +325,11 @@ def test_train_step_raises_for_a_mesh():
     ocfg = dict(peak_lr=1e-2, warmup=0)
     np_p = jax.tree.map(np.asarray, ref_p)
     np_b = {k: v.numpy() for k, v in b.items()}
-    bad = spawn(_dist_ranks.mesh_step_ranks, 4, "qwen3_1_7b", np_p, np_b,
-                ocfg, 4)
-    assert "2 kv-heads do not both divide the 4-way model axis" \
-        in bad["error"]
-    got = spawn(_dist_ranks.mesh_step_ranks, 2, "qwen3_1_7b", np_p, np_b,
-                ocfg, 2)
+    seq_parallel = spawn(_dist_ranks.mesh_step_ranks, 4, "qwen3_1_7b",
+                         np_p, np_b, ocfg, 4)
+    assert "error" not in seq_parallel, seq_parallel.get("error")
+    head_local = spawn(_dist_ranks.mesh_step_ranks, 2, "qwen3_1_7b", np_p,
+                       np_b, ocfg, 2)
     runs = []
     for pod_compress in (False, True):
         q = jax.tree.map(lambda t: t.clone(), p)
@@ -341,15 +341,16 @@ def test_train_step_raises_for_a_mesh():
     for x, y in zip(runs[0][1], runs[1][1]):
         assert torch.equal(x, y)
     loss, want = runs[0]
-    assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
-    for g, w in zip(got["params"], want):
-        np.testing.assert_allclose(g, w.numpy(), rtol=5e-2, atol=5e-2)
     g_single = [g.numpy() for g in tree_leaves(grads_of(
         cfg, p, b, DotEngine())[2])]
-    for g, w in zip(got["grads"], g_single):
-        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
-    noise = _dist_ranks.assert_update_matches(
-        got["step"], _dist_ranks.adamw_single(p, got["grads"], ocfg),
-        _dist_ranks.adamw_single(p, g_single, ocfg), g_single,
-        got["names"], lr=ocfg["peak_lr"])
-    assert noise <= sum(x.size for x in g_single) // 1000
+    for got in (head_local, seq_parallel):
+        assert abs(got["loss"] - loss) <= 1e-5 * abs(loss)
+        for g, w in zip(got["params"], want):
+            np.testing.assert_allclose(g, w.numpy(), rtol=5e-2, atol=5e-2)
+        for g, w in zip(got["grads"], g_single):
+            assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+        noise = _dist_ranks.assert_update_matches(
+            got["step"], _dist_ranks.adamw_single(p, got["grads"], ocfg),
+            _dist_ranks.adamw_single(p, g_single, ocfg), g_single,
+            got["names"], lr=ocfg["peak_lr"])
+        assert noise <= sum(x.size for x in g_single) // 1000
