@@ -75,6 +75,22 @@ time; a prefill chunk does not, so ``serve.prefill_chunk`` is the
 host's enqueue time of the chunk (its device time shows in the next
 synchronising span).
 
+Inside those two spans the loop opens children (port-only names):
+``serve.decode.pages`` (paged), ``serve.decode.upload`` (``rows``: the
+live slots), ``serve.decode.dispatch``, ``serve.decode.sync`` (the
+logits' copy) and ``serve.decode.sample``; ``serve.prefill_chunk.plan``
+and ``serve.prefill_chunk.dispatch`` (``tokens``: the gang's prompt
+tokens; ``rows``: ``slots x prefill_budget``).  With an enabled tracer
+on CUDA, each dispatch span also gets ``device_ms``: the elapsed time
+of a pair of CUDA events recorded on the current stream just before and
+after ``decode_step`` / ``prefill_kv_chunk``, read after the decode's
+logits copy (no synchronisation of its own; a disabled tracer creates
+no event).  A pair measures the stream's wall time between its marks:
+where the host enqueues more slowly than the card runs, it includes the
+card's idle inside the step.  The counters ``serve.prefill.rows``,
+``serve.decode.rows`` and ``serve.decode.steps`` sum the same rows and
+steps for ``--metrics-report``.
+
 Fault tolerance, as in the reference: a deterministic chaos schedule
 (``ServeConfig.chaos``, :mod:`repro_torch.runtime.chaos`) injects
 faults at allocation, the decode step, the top of an iteration, the
@@ -323,8 +339,9 @@ class ServeLoop:
     # -------------------------------------------------------------- obs --
     def _bind_obs(self, metrics: MetricsRegistry, tracer: Tracer) -> None:
         """Bind the metrics registry and tracer and hand out this loop's
-        instruments (the reference's names; ``serve.degraded`` stays 0:
-        the port has no kernel fallback)."""
+        instruments (the reference's names, then the port's row
+        counters; ``serve.degraded`` stays 0: the port has no kernel
+        fallback)."""
         self.metrics = m = metrics
         self.tracer = tracer
         self.m_ttft = m.histogram("serve.ttft_ms")
@@ -351,6 +368,37 @@ class ServeLoop:
         self.c_degraded = m.counter("serve.degraded")
         self.h_restore_ms = m.histogram("serve.restore_ms")
         self._fault_counters: dict[str, object] = {}
+        # the steps' rows, summed as the dispatch spans' args give them
+        self.c_prefill_rows = m.counter("serve.prefill.rows")
+        self.c_decode_rows = m.counter("serve.decode.rows")
+        self.c_decode_steps = m.counter("serve.decode.steps")
+        # (dispatch span args, start event, end event) not yet read
+        self._device_marks: list[tuple[dict, object, object]] = []
+
+    def _device_mark(self):
+        """A timing event recorded on the current stream, or None: only
+        while the tracer records on a CUDA device."""
+        if not (self.tracer.enabled and self.device.type == "cuda"):
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _close_mark(self, args: dict, start) -> None:
+        """Pair ``start`` (a :meth:`_device_mark`, or None) with a mark
+        recorded now; the pair's elapsed time becomes
+        ``args["device_ms"]`` at the next :meth:`_read_device_ms`."""
+        if start is not None:
+            self._device_marks.append((args, start, self._device_mark()))
+
+    def _read_device_ms(self) -> None:
+        """Write ``device_ms`` of every pair recorded so far.  Called
+        right after the decode's copy of its logits to the host, which
+        waited for the stream: each pair has completed, and reading it
+        synchronises nothing."""
+        for args, start, end in self._device_marks:
+            args["device_ms"] = start.elapsed_time(end)
+        self._device_marks.clear()
 
     def _fault(self, point: str, **args) -> None:
         """Count one observed or injected fault at ``point``: a
@@ -600,13 +648,19 @@ class ServeLoop:
                 break
         return forked
 
-    def _step(self, toks: np.ndarray, pos, mask: np.ndarray):
+    def _upload(self, toks: np.ndarray, pos, mask: np.ndarray):
+        """A decode step's tokens, positions and row mask on the device,
+        in that order (each a blocking copy from host memory)."""
         dev = self.device
+        return (torch.tensor(toks, device=dev),
+                torch.tensor(pos, dtype=torch.int32, device=dev),
+                torch.tensor(mask, device=dev))
+
+    def _step(self, toks: torch.Tensor, pos: torch.Tensor,
+              mask: torch.Tensor):
         logits, self.state = decode_step(
-            self.params, self.cfg, self.state,
-            torch.tensor(toks, device=dev),
-            torch.tensor(pos, dtype=torch.int32, device=dev),
-            self.engine, row_mask=torch.tensor(mask, device=dev))
+            self.params, self.cfg, self.state, toks, pos, self.engine,
+            row_mask=mask)
         self.steps += 1
         return logits
 
@@ -750,7 +804,7 @@ class ServeLoop:
                 for i, tok in enumerate(prompt):
                     toks = np.zeros((self.slots, 1), np.int32)
                     toks[slot, 0] = tok
-                    self._step(toks, i, mask)
+                    self._step(*self._upload(toks, i, mask))
             self.request_joules[req_id] = \
                 self.request_joules.get(req_id, 0.0) + em.reading.joules
             self.pos[slot] = len(prompt)
@@ -862,15 +916,14 @@ class ServeLoop:
                 self._prefill_len[slot] = len(prompt)
                 self._prefill_done[slot] = adopted
 
-    def _prefill_step(self) -> int:
-        """One chunked-prefill gang under the per-step token budget:
-        oldest admissions first, each taking up to the budget left.  The
-        gang is always (slots, prefill_budget), short rows padded and
-        pad rows of length 0, so every chunk's GEMMs have M = slots x
-        prefill_budget.  Returns the prompt tokens prefilled."""
+    def _plan_chunk(self):
+        """The chunk's gang: its rows (slot, tokens done, tokens taken)
+        and its host inputs (tokens, slots, starts, lengths), with the
+        rows' pages allocated (preempting on exhaustion), scrubbed and
+        the tables uploaded; None when no prompt is mid-prefill."""
         gang = [s for s in range(self.slots) if self._prefill_len[s] >= 0]
         if not gang:
-            return 0
+            return None
         gang.sort(key=lambda s: self._admit_seq[s])
         budget = self.prefill_budget
         rows: list[tuple[int, int, int]] = []
@@ -884,7 +937,7 @@ class ServeLoop:
             rows.append((s, int(self._prefill_done[s]), take))
             budget -= take
         if not rows:
-            return 0
+            return None
         if self.paged:
             new: list[int] = []
             for s, done, take in rows:
@@ -903,7 +956,7 @@ class ServeLoop:
                 self._scrub_pages(new)
             self._sync_tables()
             if not rows:
-                return 0
+                return None
         toks = np.zeros((self.slots, self.prefill_budget), np.int32)
         sl = np.zeros(self.slots, np.int32)
         st = np.zeros(self.slots, np.int32)
@@ -918,20 +971,45 @@ class ServeLoop:
                      if s not in {r[0] for r in rows})
         for i in range(len(rows), self.slots):
             sl[i] = next(spare)
+        return rows, (toks, sl, st, ln)
+
+    def _prefill_step(self) -> int:
+        """One chunked-prefill gang under the per-step token budget:
+        oldest admissions first, each taking up to the budget left.  The
+        gang is always (slots, prefill_budget), short rows padded and
+        pad rows of length 0, so every chunk's GEMMs have M = slots x
+        prefill_budget.  Returns the prompt tokens prefilled.
+
+        Under ``serve.prefill_chunk``: ``serve.prefill_chunk.plan``
+        (:meth:`_plan_chunk`), then ``serve.prefill_chunk.dispatch``
+        around the inputs' upload and the ``prefill_kv_chunk`` call,
+        with ``tokens`` (the prompt tokens in the gang), ``rows``
+        (``slots x prefill_budget``) and, traced on CUDA, ``device_ms``
+        (:meth:`_read_device_ms`)."""
+        tr = self.tracer
+        with tr.span("serve.prefill_chunk.plan"):
+            plan = self._plan_chunk()
+        if plan is None:
+            return 0
+        rows, host = plan
         dev = self.device
         total = sum(t for _, _, t in rows)
+        gang_rows = self.slots * self.prefill_budget
         with EnergyMeter("prefill-chunk", backend=self.power,
                          reporter=self.energy,
                          hints=WorkloadHints(
                              flops=self._tok_flops * total,
                              hbm_bytes=self._gemm_bytes_step,
                              gemm_bytes=self._gemm_bytes_step,
-                             f_scale=self.f_scale)) as em:
-            self.state = prefill_kv_chunk(
-                self.params, self.cfg, self.state,
-                torch.tensor(toks, device=dev), torch.tensor(sl, device=dev),
-                torch.tensor(st, device=dev), torch.tensor(ln, device=dev),
-                self.engine)
+                             f_scale=self.f_scale)) as em, \
+                tr.span("serve.prefill_chunk.dispatch", tokens=total,
+                        rows=gang_rows) as args:
+            inputs = [torch.tensor(a, device=dev) for a in host]
+            start = self._device_mark()
+            self.state = prefill_kv_chunk(self.params, self.cfg, self.state,
+                                          *inputs, self.engine)
+            self._close_mark(args, start)
+        self.c_prefill_rows.inc(gang_rows)
         self.chunk_steps += 1
         # charged by the prompt tokens each row processed in the chunk
         for s, done, take in rows:
@@ -983,13 +1061,24 @@ class ServeLoop:
     def _decode_once(self, max_new: int):
         """One decode step over the live slots: page allocation (with
         preemption on exhaustion), copy-on-write forks, the step, then
-        sampling and retirement.  Shared by both schedulers."""
+        sampling and retirement.  Shared by both schedulers.
+
+        Under ``serve.decode``, in order: ``serve.decode.pages`` (paged
+        only: :meth:`_ensure_decode_pages`), ``serve.decode.upload``
+        (:meth:`_upload`; ``rows``, the live slots),
+        ``serve.decode.dispatch`` (the ``decode_step`` call; traced on
+        CUDA, ``device_ms``), ``serve.decode.sync`` (the logits' copy to
+        the host, which waits for the stream) and
+        ``serve.decode.sample`` (the NaN quarantine, sampling and
+        retirement)."""
+        tr = self.tracer
         if self.chaos is not None and self.chaos.match(
                 "kernel", step=self._iter) is not None:
             # a launch fault of the step, injected before any launch
             raise InjectedFault("kernel", f"step={self._iter}")
         if self.paged:
-            self._ensure_decode_pages()
+            with tr.span("serve.decode.pages"):
+                self._ensure_decode_pages()
         toks = np.zeros((self.slots, 1), np.int32)
         for s in range(self.slots):
             if self.active[s]:
@@ -1007,8 +1096,18 @@ class ServeLoop:
                              attn_bytes=attn_bytes,
                              gemm_bytes=self._gemm_bytes_step,
                              f_scale=self.f_scale)) as em:
-            logits = self._step(toks, self.pos, self.active)
-            logits = logits[:, 0].float().cpu().numpy()   # synchronises
+            with tr.span("serve.decode.upload", rows=n_active):
+                inputs = self._upload(toks, self.pos, self.active)
+            self.c_decode_rows.inc(n_active)
+            self.c_decode_steps.inc()
+            with tr.span("serve.decode.dispatch") as args:
+                start = self._device_mark()
+                logits = self._step(*inputs)
+                self._close_mark(args, start)
+            with tr.span("serve.decode.sync"):
+                logits = logits[:, 0].float().cpu().numpy()
+            if self._device_marks:
+                self._read_device_ms()
         # one token per live slot: an even split
         j_per_req = em.reading.joules / max(n_active, 1)
         for s in range(self.slots):
@@ -1016,6 +1115,13 @@ class ServeLoop:
                 r = self.slot_req[s]
                 self.request_joules[r] = \
                     self.request_joules.get(r, 0.0) + j_per_req
+        with tr.span("serve.decode.sample"):
+            self._sample_and_retire(logits, max_new)
+
+    def _sample_and_retire(self, logits: np.ndarray, max_new: int) -> None:
+        """After a decode step's logits reach the host: the NaN
+        quarantine, then a token per live slot and the retirement of
+        finished requests."""
         # NaN/Inf quarantine: injected poisoning first, then the scan.
         # Only the offending slot's request fails; the others sample this
         # very step.  It never raises and runs after every retryable

@@ -24,7 +24,17 @@ reference -- the trace answers "which phase burned the joules".
 Spans read the host clock only and never synchronise the device: a
 span around asynchronous CUDA work measures the host's enqueue time
 unless the work inside it ends in a copy to the host (the serving
-loop's decode step does; its prefill chunk does not).
+loop's decode step does; its prefill chunk does not).  Where a caller
+wants the device's side of a span it records a pair of CUDA events
+around the work and writes their elapsed time into the span's args
+(the serving loop's ``device_ms``), reading it only after a
+synchronisation it makes anyway.
+
+:meth:`Tracer.wall_offset_ns` is the offset from the tracer's clock to
+``time.time_ns``, the clock ``torch.profiler`` stamps the device's
+events with; :meth:`Tracer.to_chrome` records it under ``otherData``
+(the Chrome format's metadata), so a span trace lines up with a
+profiler trace of the same run.
 
 A disabled tracer's ``span()`` returns a shared no-op context manager
 and records nothing.
@@ -127,11 +137,28 @@ class Tracer:
         self.enabled = bool(enabled)
         self.events: list[dict] = []
         self.pid = os.getpid()
+        self._wall_offset: int | None = None
 
     @staticmethod
     def now_us() -> float:
         """Microseconds on the same monotonic clock every event uses."""
         return time.monotonic_ns() / 1e3
+
+    def wall_offset_ns(self) -> int:
+        """Nanoseconds from the events' monotonic clock to
+        ``time.time_ns``: an event starts at ``ts * 1e3 + offset`` on
+        the wall clock.  Read once per tracer, from the tightest of a
+        few (monotonic, wall, monotonic) brackets."""
+        if self._wall_offset is None:
+            best = None
+            for _ in range(8):
+                m0 = time.monotonic_ns()
+                w = time.time_ns()
+                m1 = time.monotonic_ns()
+                if best is None or m1 - m0 < best[0]:
+                    best = (m1 - m0, w - (m0 + m1) // 2)
+            self._wall_offset = best[1]
+        return self._wall_offset
 
     # ------------------------------------------------------------- spans --
     def span(self, name: str, **args):
@@ -176,9 +203,11 @@ class Tracer:
 
     # ----------------------------------------------------------- exports --
     def to_chrome(self) -> dict:
-        """Chrome ``trace_event`` document (Perfetto / chrome://tracing)."""
+        """Chrome ``trace_event`` document (Perfetto / chrome://tracing);
+        its ``otherData`` holds :meth:`wall_offset_ns`."""
         return {"traceEvents": list(self.events),
-                "displayTimeUnit": "ms"}
+                "displayTimeUnit": "ms",
+                "otherData": {"wall_offset_ns": self.wall_offset_ns()}}
 
     def write_jsonl(self, path: str) -> None:
         """One event per line -- the streaming-friendly raw form the

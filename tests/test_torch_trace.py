@@ -174,3 +174,21 @@ def test_energy_lands_on_the_innermost_span():
     assert "joules" not in outer
     ev = next(e for e in tr.events if e["name"] == "phase")
     assert ev["args"]["joules"] == args["joules"]
+
+
+def test_wall_offset_is_recorded_in_the_chrome_document():
+    """The offset from the events' clock to ``time.time_ns`` (the clock
+    of ``torch.profiler``'s device events) agrees with a direct read,
+    sits in the document's metadata, and leaves the document valid for
+    both packages."""
+    tr = trace.Tracer()
+    with tr.span("work"):
+        pass
+    off = tr.wall_offset_ns()
+    assert abs(off - (time.time_ns() - time.monotonic_ns())) < 1_000_000
+    doc = tr.to_chrome()
+    assert doc["otherData"] == {"wall_offset_ns": off}
+    assert trace.validate_trace(doc) == []
+    assert jax_trace.validate_trace(doc) == []
+    ev = doc["traceEvents"][0]
+    assert abs(ev["ts"] * 1e3 + off - time.time_ns()) < 1e9
