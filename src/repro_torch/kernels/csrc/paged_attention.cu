@@ -76,6 +76,10 @@ namespace cg = cooperative_groups;
 using repro_torch::from_f32;
 using repro_torch::kBF16;
 using repro_torch::kF32;
+using repro_torch::mbar_arrive_expect;
+using repro_torch::mbar_init;
+using repro_torch::mbar_wait;
+using repro_torch::smem_u32;
 
 constexpr int kThreads = 128;
 constexpr int kStages = 2;    // ring depth: one stage lands while one is computed
@@ -85,45 +89,6 @@ constexpr int kMaxDh = 256;   // 16 lanes of 16 values hold a row
 constexpr int kSmemMax = 232448;  // bytes of shared memory one block may use
 constexpr float kNeg = -1e30f;
 
-constexpr long long kWatchdogCycles = 20000000000ll;  // ~10 s at 1.98 GHz
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-// arrive, and hold the phase open until ``bytes`` more have landed by
-// complete_tx
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// wait (acquire) until the phase of parity ``parity`` of ``bar`` completed;
-// a copy that never lands traps after ~10 s instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  for (unsigned n = 1;; ++n) {
-    if (mbar_try(bar, parity)) return;
-    if ((n & 1023u) == 0 && clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
 // the (dh, 1, ps) box at (0, head, token row) of ``map``'s (dh, hkv,
 // rows * ps) pool into shared memory at ``dst`` (128-byte aligned);
 // completes on ``bar`` by complete_tx
@@ -511,35 +476,12 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // the map of a (rows, ps, hkv, dh) pool seen as (dh, hkv, rows * ps), read
 // in (dh, 1, ps) boxes: one kv-head of one page
 template <typename T>
 bool pool_map(CUtensorMap* map, const void* pool, int rows, int ps, int hkv,
               int dh) {
-  const EncodeTiled encode = encoder();
+  const auto encode = repro_torch::tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
                               static_cast<cuuint64_t>(hkv),

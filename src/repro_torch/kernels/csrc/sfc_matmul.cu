@@ -17,8 +17,8 @@
 //   is the paper's trade of index computation for locality.  The
 //   epilogue (bias -> act -> residual) runs on the f32 accumulator, then
 //   one cast and one store; ragged M/N/K edges are masked here, so the
-//   wrapper never pads.  The launcher picks one of two paths from the
-//   shapes.
+//   wrapper never pads.  The launcher picks a path from the dtype and the
+//   shapes (kernels/sfc_matmul.py::tile_path mirrors it).
 //
 // Rows path (M <= 8, bn = 128, N % 8 == 0, 16-byte aligned rows): every
 // serving-path GEMM (M = 4 decode slots).  The work is ~4 FLOP per weight
@@ -56,29 +56,58 @@
 //    Every sum has a fixed order, so results are identical run to run;
 //    no atomics.
 //
-// Tile path (everything else; the study's f32 GEMMs, bound by the f32
-// FFMA rate, 67 TFLOP/s): one 256-thread block per bm x bn tile (up to
-// 128 x 128), each thread an 8 x 8 register micro-tile in the 2 x 2
-// quadrant placement (rows 4ty..4ty+3 and 64+4ty.., columns likewise by
-// tx).  k advances in slices 16 deep in f32, 32 in bf16, through a ring
-// of 4 shared-memory stages: B arrives by 16-byte cp.async (zero-filled
-// past the ragged edge), A through registers so it can be stored k-major
-// (transposed, rows padded to 132), and the inner loop reads each
-// thread's 8 A and 8 B values as four vector loads without bank
-// conflicts.  Three slices are in flight while one is multiplied; 66,560
-// bytes of shared memory and <= 128 registers a thread let two blocks
-// share an SM.  Each element is still summed by sequential FMAs in k
-// order into one f32 accumulator.  bf16 operands are widened to f32 in
-// registers (no tensor cores on this path yet).  `bk` sets neither
-// path's shared memory any more: it names only the plain version's k
-// blocking, and the entry refuses the bm/bn/bk it refused before.
+// Tile path, bf16 on tensor cores (every other bf16 launch whose operands
+// are 16-byte vectors: a prefill chunk's projections, training's forward,
+// dgrad and wgrad, an encoder's).  An M x N x K GEMM does 2 M N K
+// operations on ~2 (M K + K N) bytes, so past M ~ 300 (the H100's ridge,
+// 989 TFLOP/s bf16 over 3.35 TB/s) it is bound by operations, which only
+// the tensor cores deliver.  What the design does about it:
+//
+//  * One persistent block per SM walks units u = blockIdx.x, + gridDim.x,
+//    ... of the batch x T tile steps, batch outermost, the tile of step t
+//    from decode_tile: the tiles in flight are gridDim.x consecutive steps
+//    of the curve, neighbours on the card's L2 as the paper's order wants.
+//  * A producer warp keeps a ring of six 64-deep k stages filled by TMA
+//    (cp.async.bulk.tensor, A K-major and B N-major, 128-byte swizzle,
+//    zero-filled past the matrix, so nothing is padded), full and empty
+//    mbarriers handing stages between it and the consumers; its next
+//    tile's loads run under the current tile's epilogue.
+//  * One or two consumer warpgroups (64 block rows each) run
+//    wgmma.mma_async m64 x 64|128 x k16 (bf16 in, f32 accumulate) straight
+//    from the swizzled stages, one stage's wgmmas in flight while the next
+//    is awaited; bias and residual are fetched into registers while the
+//    k-loop runs, and the epilogue stores two columns at a time.
+//  * The block is bm x bn rounded up to 64 (at most 128 x 128, the grid
+//    of tiles the caller's bm and bn make); only the tile's elements are
+//    stored.  Each element's k-blocks are summed in order, so results
+//    repeat bit for bit; no split K.
+//
+// Tile path, SIMT (f32 always: the study's GEMMs, bound by the f32 FFMA
+// rate, 67 TFLOP/s; bf16 operands that are not 16-byte vectors, which TMA
+// cannot describe, such as hymba's N = 3257): one 256-thread block per bm
+// x bn tile (up to 128 x 128), each thread an 8 x 8 register micro-tile in
+// the 2 x 2 quadrant placement (rows 4ty..4ty+3 and 64+4ty.., columns
+// likewise by tx).  k advances in slices 16 deep in f32, 32 in bf16,
+// through a ring of 4 shared-memory stages: B arrives by 16-byte cp.async
+// (zero-filled past the ragged edge) or, without vectors, through
+// registers, A through registers so it can be stored k-major (transposed,
+// rows padded to 132), and the inner loop reads each thread's 8 A and 8 B
+// values as four vector loads without bank conflicts.  Three slices are in
+// flight while one is multiplied; 66,560 bytes of shared memory and <= 128
+// registers a thread let two blocks share an SM.  Each element is still
+// summed by sequential FMAs in k order into one f32 accumulator, bf16
+// widened to f32 in registers.  `bk` sets no path's shared memory: it
+// names only the plain version's k blocking, and the entry refuses the
+// bm/bn/bk it refused before.
 //
 // Batched (B3): the same kernels, instantiated with kBatched, take the
 // batch element from blockIdx.y and offset A (b, M, K), B (b, K, N), the
 // residual and the output (b, M, N) by it in 64-bit arithmetic; bias
 // (N,) is shared.  The grid is (T * split, batch), tile step in x, so
 // blocks are dispatched batch outermost with the curve inside each
-// element, as in the reference.  The split is the one-GEMM one for the
+// element, as in the reference; the tensor-core tile kernel walks the
+// same order as its units, and its tensor maps carry the batch as their
+// third dimension.  The split is the one-GEMM one for the
 // element's shape, and the per-element arithmetic is the one-GEMM
 // kernel's, so each element equals B1 on it bit for bit.  The one-GEMM
 // instantiations (kBatched false) compile without the offsets: moving
@@ -97,6 +126,11 @@ namespace cg = cooperative_groups;
 using repro_torch::kBF16;
 using repro_torch::kF32;
 using repro_torch::load_as_f32;
+using repro_torch::mbar_arrive;
+using repro_torch::mbar_arrive_expect;
+using repro_torch::mbar_init;
+using repro_torch::mbar_wait;
+using repro_torch::smem_u32;
 using repro_torch::store_from_f32;
 
 constexpr int kTileThreads = 256;  // tile path: a 16 x 16 thread grid
@@ -202,10 +236,6 @@ __device__ __forceinline__ void finish(const Epilogue& ep, float v, long base,
   v = activate(v, ep.act);
   if (ep.res != nullptr) v += load_as_f32(ep.res, o, ep.res_dt);
   store_from_f32(ep.out, o, ep.out_dt, v);
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // 16-byte copy global -> shared that bypasses registers; zero-fills when
@@ -753,6 +783,270 @@ sfc_matmul_tile(const TI* __restrict__ a, const TI* __restrict__ b,
   }
 }
 
+// ------------------------------------------------ tile path, tensor cores
+// bf16 operands that are 16-byte vectors, off the rows path (the file's
+// header gives the design).  Every element is one f32 sum in a fixed order
+// (k-blocks in order, four k16 steps each), so results repeat bit for bit,
+// and a batch element (kBatched) equals the one-GEMM launch on it.
+constexpr int kTcBK = 64;        // k per stage: one 128-byte swizzle row of bf16
+constexpr int kTcStages = 6;     // stages of the ring
+constexpr int kTcThreads = 3 * 128;  // up to two consumer warpgroups, then the producer's
+// registers a thread: the producer warpgroup gives back what the consumers
+// take (setmaxnreg), 2 x 128 x 232 + 128 x 40 <= 65536
+constexpr int kTcProducerRegs = 40;
+constexpr int kTcConsumerRegs = 232;
+
+template <int kBN>
+struct TcCfg {
+  static constexpr int kA = 128 * kTcBK * 2;    // bytes of a stage's A (up to 128 rows)
+  static constexpr int kB = kBN * kTcBK * 2;    // bytes of a stage's B
+  static constexpr int kStage = kA + kB;
+  // 1024 bytes to align the ring (the swizzle's period), then the ring
+  // and its 2 x kTcStages mbarriers
+  static constexpr size_t kSmem = 1024 + kTcStages * kStage + 2 * kTcStages * 8;
+};
+
+// the box at (c0, c1, c2) of ``map``'s tensor into shared memory at
+// ``dst``; completes on ``bar`` by complete_tx
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at
+// ``addr``: ``lbo`` and ``sbo`` in bytes (for K-major A the stride of 8-row
+// groups is sbo, lbo unused; for N-major B lbo steps 64 columns and sbo 8
+// k rows)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (+)= A (64 x 16, K-major) B (16 x N, N-major), f32 accumulate; the
+// accumulator is zeroed first when scale_d is 0
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int kN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[kN / 2], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (kN == 128) {
+    wgmma_n128(d, da, db, scale_d);
+  } else {
+    wgmma_n64(d, da, db, scale_d);
+  }
+}
+
+// keeps the compiler from moving accumulator accesses across a wgmma
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// two neighbouring output elements o, o + 1 (o even), one paired store
+__device__ __forceinline__ void store2(void* out, long o, int dt, float v0, float v1) {
+  if (dt == kF32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(v0, v1);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// map_a: A as (K, M, batch), boxes of 64 x (64 per consumer warpgroup);
+// map_b: B as (N, K, batch), boxes of 64 x 64; both 128-byte swizzled
+template <typename TI, int kBN, int kStages, bool kBatched>
+__global__ void __launch_bounds__(kTcThreads, 1)
+sfc_matmul_tile(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, const int* __restrict__ sched,
+                int M, int N, int K, int bm, int bn, int mt, int nt, int order, int mode,
+                int units, Epilogue ep) {
+  static_assert(sizeof(TI) == 2, "the tensor-core tile path takes bf16");
+  using C = TcCfg<kBN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * C::kStage);
+  uint64_t* empty = full + kStages;
+  const int nc = blockDim.x / 128 - 1;  // consumer warpgroups
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tiles = mt * nt;
+  const int kt = (K + kTcBK - 1) / kTcBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);            // the producer's arrival, then the bytes
+      mbar_init(&empty[s], 4 * nc);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the only block-wide barrier
+
+  // the roles split here and never meet again (setmaxnreg needs it)
+  if (warp >= 4 * nc) {  // the producer warpgroup: one lane issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTcProducerRegs));
+    if (warp != 4 * nc || lane != 0) return;
+    const uint32_t bytes = nc * 64 * kTcBK * 2 + C::kB;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int bz = kBatched ? u / tiles : 0;
+      int ti, tj;
+      decode_tile(u - bz * tiles, mode, mt, nt, order, sched, &ti, &tj);
+      for (int kb = 0; kb < kt; ++kb) {
+        mbar_wait(&empty[s], ph ^ 1u);  // the consumers are done with stage s
+        unsigned char* st = ring + s * C::kStage;
+        mbar_arrive_expect(&full[s], bytes);
+        tma_load3(st, &map_a, kb * kTcBK, ti * bm, bz, &full[s]);
+#pragma unroll
+        for (int c = 0; c < kBN / 64; ++c)
+          tma_load3(st + C::kA + c * 64 * kTcBK * 2, &map_b, tj * bn + 64 * c, kb * kTcBK, bz,
+                    &full[s]);
+        if (++s == kStages) {
+          s = 0;
+          ph ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTcConsumerRegs));
+
+  // a consumer warpgroup: rows 64 g .. 64 g + 63 of the block; acc[4 q +
+  // 2 h + e] is row r_in + 8 h, column 8 q + c_in + e of the tile
+  const int g = warp / 4;
+  const int r_in = 64 * g + 16 * (warp % 4) + lane / 4;
+  const int c_in = 2 * (lane % 4);
+  float acc[kBN / 2] = {};
+  int s = 0;
+  uint32_t ph = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int bz = kBatched ? u / tiles : 0;
+    int ti, tj;
+    decode_tile(u - bz * tiles, mode, mt, nt, order, sched, &ti, &tj);
+    const long base = static_cast<long>(bz) * M * N;
+    const int row0 = ti * bm;
+    const int col0 = tj * bn;
+    const int rows = min(bm, M - row0);
+    const int cols = min(bn, N - col0);
+    // the epilogue's bias (by column) and residual, fetched while the
+    // k-loop runs; zero where absent or outside the tile
+    float bv[kBN / 4], rv[kBN / 2];
+#pragma unroll
+    for (int q = 0; q < kBN / 8; ++q) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * q + c_in + e;
+        bv[2 * q + e] = ep.bias != nullptr && c < cols
+                            ? load_as_f32(ep.bias, col0 + c, ep.bias_dt) : 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r_in + 8 * h;
+          rv[4 * q + 2 * h + e] =
+              ep.res != nullptr && c < cols && r < rows
+                  ? load_as_f32(ep.res, base + static_cast<long>(row0 + r) * N + col0 + c,
+                                ep.res_dt)
+                  : 0.0f;
+        }
+      }
+    }
+
+    int prev = 0;
+    for (int kb = 0; kb < kt; ++kb) {
+      mbar_wait(&full[s], ph);
+      const uint32_t st = smem_u32(ring + s * C::kStage);
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k16 = 0; k16 < kTcBK / 16; ++k16) {
+        // A: +32 bytes a k16 step inside the swizzled 128-byte rows; B: 16 k rows
+        const uint64_t da = wgmma_desc(st + g * 64 * 128 + 32 * k16, 16, 1024);
+        const uint64_t db = wgmma_desc(st + C::kA + 2048 * k16, 64 * kTcBK * 2, 1024);
+        wgmma_tile<kBN>(acc, da, db, kb > 0 || k16 > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      fence_regs(acc);
+      if (kb > 0) {  // k-block kb - 1's wgmmas are done: its stage is free
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == kStages) {
+        s = 0;
+        ph ^= 1u;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // +bias -> act -> +residual on the f32 sum, one cast and one store an
+    // element (finish's arithmetic), two columns a store
+#pragma unroll
+    for (int q = 0; q < kBN / 8; ++q) {
+      const int c = 8 * q + c_in;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_in + 8 * h;
+        if (c >= cols || r >= rows) continue;
+        const int i = 4 * q + 2 * h;
+        const float v0 = activate(acc[i] + bv[2 * q], ep.act) + rv[i];
+        const float v1 = activate(acc[i + 1] + bv[2 * q + 1], ep.act) + rv[i + 1];
+        const long o = base + static_cast<long>(row0 + r) * N + col0 + c;
+        if (c + 1 < cols) {
+          store2(ep.out, o, ep.out_dt, v0, v1);
+        } else {
+          store_from_f32(ep.out, o, ep.out_dt, v0);
+        }
+      }
+    }
+  }
+}
+
 // Raise a kernel's dynamic shared memory limit to the ``bytes`` it
 // always asks for, once per kernel.
 template <auto Kernel>
@@ -764,6 +1058,68 @@ cudaError_t allow_smem(size_t bytes) {
 
 bool rows_path(int M, int N, int bn, int vec) {
   return M <= kRowsMaxM && bn == 128 && N % 8 == 0 && vec;
+}
+
+// the tile path on tensor cores: bf16 16-byte vectors off the rows path
+// (kernels/sfc_matmul.py::tile_path mirrors it)
+bool tc_path(int M, int N, int bn, int vec, size_t isz) {
+  return isz == 2 && vec && !rows_path(M, N, bn, vec);
+}
+
+// streaming multiprocessors of the current device (cached per device)
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (counts[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    counts[dev] = n > 0 ? n : 1;
+  }
+  return counts[dev];
+}
+
+// the map of a (batch, rows, cols) row-major bf16 tensor, read in boxes of
+// box_cols (128 bytes: the swizzle's span) x box_rows x 1, 128-byte
+// swizzled; TMA zero-fills past the tensor
+bool tc_map(CUtensorMap* map, const void* base, int batch, int rows, int cols,
+            int box_rows) {
+  const repro_torch::EncodeTiled encode = repro_torch::tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kTcBK),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor-core tile kernel over ``batch`` elements: one persistent
+// block per SM (fewer if there are fewer steps), 64 block rows per
+// consumer warpgroup
+template <int kBN, bool kB>
+cudaError_t launch_tc(const void* a, const void* b, const int* sched, int batch, int M,
+                      int N, int K, int bm, int bn, int mt, int nt, int order, int mode,
+                      const Epilogue& ep, cudaStream_t stream) {
+  constexpr auto kernel = sfc_matmul_tile<__nv_bfloat16, kBN, kTcStages, kB>;
+  const int nc = bm > 64 ? 2 : 1;
+  const long units = static_cast<long>(batch) * mt * nt;
+  if (units > 0x7fffffffL) return cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!tc_map(&map_a, a, batch, M, K, 64 * nc) || !tc_map(&map_b, b, batch, K, N, kTcBK))
+    return cudaErrorInvalidValue;
+  const size_t smem = TcCfg<kBN>::kSmem;
+  cudaError_t err = allow_smem<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(units < sm_count() ? units : sm_count());
+  kernel<<<grid, 128 * (nc + 1), smem, stream>>>(map_a, map_b, sched, M, N, K, bm, bn, mt, nt,
+                                                order, mode, static_cast<int>(units), ep);
+  return cudaGetLastError();
 }
 
 // a rows kernel over (T * split, batch) blocks, clusters of ``split``
@@ -791,6 +1147,19 @@ cudaError_t launch_rows(size_t smem, const TI* a, const TI* b,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// the SIMT tile kernel: one block per tile step, per batch element
+template <typename TI, bool kVec, bool kB>
+cudaError_t launch_tile(const TI* a, const TI* b, const int* sched, int batch, int M, int N,
+                        int K, int bm, int bn, int mt, int nt, int order, int mode,
+                        const Epilogue& ep, cudaStream_t stream) {
+  const size_t smem = TileCfg<TI>::kSmem;
+  const cudaError_t err = allow_smem<sfc_matmul_tile<TI, kVec, kB>>(smem);
+  if (err != cudaSuccess) return err;
+  sfc_matmul_tile<TI, kVec, kB><<<dim3(mt * nt, batch), kTileThreads, smem, stream>>>(
+      a, b, sched, M, N, K, bm, bn, mt, nt, order, mode, ep);
+  return cudaGetLastError();
+}
+
 template <typename TI, bool kB>
 cudaError_t launch(const void* a, const void* b, const int* sched, int batch,
                    int M, int N, int K, int bm, int bn, int mt, int nt,
@@ -812,19 +1181,23 @@ cudaError_t launch(const void* a, const void* b, const int* sched, int batch,
           stream);
     }
   }
-  const dim3 grid(mt * nt, batch);
-  const size_t smem = TileCfg<TI>::kSmem;
-  cudaError_t err;
-  if (vec) {
-    if ((err = allow_smem<sfc_matmul_tile<TI, true, kB>>(smem)) != cudaSuccess) return err;
-    sfc_matmul_tile<TI, true, kB><<<grid, kTileThreads, smem, stream>>>(
-        pa, pb, sched, M, N, K, bm, bn, mt, nt, order, mode, ep);
+  if constexpr (sizeof(TI) == 2) {
+    if (tc_path(M, N, bn, vec, sizeof(TI))) {
+      return bn > 64 ? launch_tc<128, kB>(pa, pb, sched, batch, M, N, K, bm, bn, mt, nt, order,
+                                          mode, ep, stream)
+                     : launch_tc<64, kB>(pa, pb, sched, batch, M, N, K, bm, bn, mt, nt, order,
+                                         mode, ep, stream);
+    }
+    // bf16 on the SIMT loop: only operands that are not 16-byte vectors
+    return launch_tile<TI, false, kB>(pa, pb, sched, batch, M, N, K, bm, bn, mt, nt, order,
+                                      mode, ep, stream);
+  } else if (vec) {
+    return launch_tile<TI, true, kB>(pa, pb, sched, batch, M, N, K, bm, bn, mt, nt, order,
+                                     mode, ep, stream);
   } else {
-    if ((err = allow_smem<sfc_matmul_tile<TI, false, kB>>(smem)) != cudaSuccess) return err;
-    sfc_matmul_tile<TI, false, kB><<<grid, kTileThreads, smem, stream>>>(
-        pa, pb, sched, M, N, K, bm, bn, mt, nt, order, mode, ep);
+    return launch_tile<TI, false, kB>(pa, pb, sched, batch, M, N, K, bm, bn, mt, nt, order,
+                                      mode, ep, stream);
   }
-  return cudaGetLastError();
 }
 
 size_t dtype_size(int dt) { return dt == kF32 ? 4 : 2; }

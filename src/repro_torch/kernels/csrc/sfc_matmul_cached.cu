@@ -93,6 +93,11 @@ namespace {
 
 using repro_torch::kBF16;
 using repro_torch::kF32;
+using repro_torch::mbar_arrive;
+using repro_torch::mbar_arrive_expect;
+using repro_torch::mbar_init;
+using repro_torch::mbar_wait;
+using repro_torch::smem_u32;
 using repro_torch::store_from_f32;
 using repro_torch::to_f32;
 
@@ -106,8 +111,6 @@ static_assert(1 << kRingLog2 == kRing, "kRing is a power of two");
 constexpr int kSlack = 3;         // steps past the needed one a wait covers
 constexpr int kFastNC = 2;        // outputs per thread, the study's blocks
 constexpr int kMaxSlots = 1 << 15;  // b_slot << 16 stays positive
-// a wait longer than this is a broken protocol: trap instead of hanging
-constexpr long long kWatchdogCycles = 20000000000ll;  // ~10 s at 1.98 GHz
 
 // one ring entry: what the consumers need of step s
 struct Step {
@@ -118,55 +121,6 @@ struct Step {
 // (nslots int2 each: the tag and the last step that used the slot);
 // kernels/sfc_matmul_cached.py::shared_bytes mirrors it
 constexpr size_t kRingBytes = kRing * (sizeof(Step) + 2 * sizeof(uint64_t));
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// arrive with release semantics: this thread's earlier shared-memory
-// accesses happen before the phase completes
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// arrive, and hold the phase open until ``bytes`` more have landed by
-// complete_tx
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
-                                                   uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// wait (acquire) until the phase of parity ``parity`` of ``bar`` completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  for (unsigned n = 1;; ++n) {
-    if (mbar_try(bar, parity)) return;
-    if ((n & 1023u) == 0 && clock64() - t0 > kWatchdogCycles) __trap();
-  }
-}
 
 // the phase of ring barrier ``bars`` that belongs to step u
 __device__ __forceinline__ void wait_step(uint64_t* bars, int u) {
@@ -559,35 +513,12 @@ sfc_matmul_cached_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // the map of a row-major rows x cols tensor of T, read in box_rows x
 // box_cols boxes
 template <typename T>
 bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
                 int box_rows, int box_cols) {
-  const EncodeTiled encode = encoder();
+  const auto encode = repro_torch::tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};

@@ -23,13 +23,27 @@ outermost, the curve on each element's tile plane), so each element
 equals :func:`sfc_matmul_cuda` on it bit for bit.  On a CPU tensor both
 wrappers run :func:`sfc_matmul_batched_plain`, which walks the same
 tiles from the same schedule and accumulates in f32 over bk-deep k
-blocks in k order.  For M <= 8 (every decode-step GEMM) the kernel
-takes its rows path: each 128-column tile is a thread-block cluster of
-:func:`split_plan` blocks, each summing a contiguous K range
-(:func:`split_ranges`), whose partials rank 0 adds in rank order; a
-block multiplies bf16 on tensor cores (f32 accumulate) and f32 with
-FFMA over 16 k-slices.  Either differs from the plain version by f32
-summation order only, and gives the same bits run to run.
+blocks in k order.  Which body a launch takes is :func:`tile_path`'s
+answer (the launcher's dispatch, mirrored):
+
+* ``"rows"``, M <= 8 (every decode-step GEMM): each 128-column tile is
+  a thread-block cluster of :func:`split_plan` blocks, each summing a
+  contiguous K range (:func:`split_ranges`), whose partials rank 0 adds
+  in rank order; a block multiplies bf16 on tensor cores (mma.sync, f32
+  accumulate) and f32 with FFMA over 16 k-slices.
+* ``"tc"``, every other bf16 launch whose operands are 16-byte vectors
+  (a prefill chunk's, training's, an encoder's GEMMs): persistent
+  blocks walk the curve's tile steps, TMA brings A and B into swizzled
+  shared memory and wgmma multiplies them on the tensor cores (bf16 in,
+  f32 accumulate, a k16 step at a time); counted in
+  :data:`tile_tc_launches`.
+* ``"simt"``: f32 (the paper's study; equal to cuBLAS's f32 product bit
+  for bit), and bf16 operands that are not vectors: FFMA in k order.
+
+Each path sums in f32 and differs from the plain version by summation
+order only (the tensor cores add a k16 step's products inside the
+instruction); every path gives the same bits run to run, and a B3
+element equals B1 on it.
 """
 from __future__ import annotations
 
@@ -47,13 +61,15 @@ from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
 __all__ = ["sfc_matmul_cuda", "sfc_matmul_batched_cuda", "sfc_matmul_plain",
            "sfc_matmul_batched_plain", "decode_step", "tile_schedule",
            "split_plan", "split_ranges", "launch_plan", "sm_count",
-           "tile_ok", "tile_smem_bytes", "ROWS_MAX_M", "launches",
-           "batched_launches"]
+           "tile_ok", "tile_smem_bytes", "tile_path", "ROWS_MAX_M",
+           "launches", "batched_launches", "tile_tc_launches"]
 
 # kernel launches made by sfc_matmul_cuda (B1) and sfc_matmul_batched_cuda
 # (B3); CPU calls are not counted
 launches = 0
 batched_launches = 0
+# the B1 and B3 launches among them that took the tensor-core tile path
+tile_tc_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}
@@ -99,6 +115,17 @@ def _rows_path(m: int, n: int, k: int, bn: int, itemsize: int) -> bool:
     8 and K of a 16-byte vector."""
     return (m <= ROWS_MAX_M and bn == 128 and n % 8 == 0
             and k % (16 // itemsize) == 0)
+
+
+def tile_path(dtype: torch.dtype, m: int, n: int, bn: int, vec: int) -> str:
+    """The kernel body a launch takes (csrc: rows_path, tc_path), given
+    ``vec`` from :func:`launch_plan`: ``"rows"`` (M <= ROWS_MAX_M, bn =
+    128, N a multiple of 8, vectors), else ``"tc"`` for bf16 vectors (TMA
+    and wgmma on the tensor cores), else ``"simt"`` (f32 always; bf16
+    operands that are not 16-byte vectors)."""
+    if vec and m <= ROWS_MAX_M and bn == 128 and n % 8 == 0:
+        return "rows"
+    return "tc" if vec and dtype == torch.bfloat16 else "simt"
 
 
 def split_plan(m: int, n: int, k: int, bn: int, dtype: torch.dtype,
@@ -280,6 +307,7 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
             use_prefetch, g, bias, activation, residual) -> torch.Tensor:
     """Launch ``entry`` of csrc/sfc_matmul.cu on CUDA operands (2-D for
     B1, 3-D for B3) or raise; returns the output."""
+    global tile_tc_launches
     if a.device.type != "cuda":
         raise ValueError(f"{entry} runs on cuda (or the plain version on "
                          f"cpu), got {a.device}")
@@ -323,6 +351,8 @@ def _launch(entry: str, a, b, *, schedule, bm, bn, bk, out_dtype,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+    if tile_path(a.dtype, m, n, bn, vec) == "tc":
+        tile_tc_launches += 1
     return out
 
 

@@ -2,13 +2,16 @@
 many blocks of a thread-block cluster share one 128-column output tile
 of a decode-width GEMM, and which K range each sums.  Pure host
 functions, held here with the H100's 132 SMs passed in; the kernel
-that runs the plan is checked on the card by ``chip_smoke.py``.
+that runs the plan is checked on the card by ``chip_smoke.py``.  Also
+which body a launch takes (``tile_path``: the rows path, the tile path
+on tensor cores, or the SIMT tile loop), the mirror of the launcher's
+dispatch that the wrapper counts ``tile_tc_launches`` by.
 """
 import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.sfc_matmul import launch_plan, split_plan, \
-    split_ranges
+    split_ranges, tile_path
 
 SMS = 132  # NVIDIA H100 SXM
 
@@ -100,3 +103,45 @@ def test_unaligned_operands_take_no_split():
     a = torch.zeros(4 * 2048 + 1, dtype=torch.bfloat16)[1:].view(4, 2048)
     b = torch.zeros(2048, 2048, dtype=torch.bfloat16)
     assert launch_plan(a, b, bk=128, bn=128, sms=SMS) == (0, 1)
+
+
+# (dtype, M, N, bm, bn, vec, the kernel body the launch takes)
+PATHS = [(torch.bfloat16, 512, 4096, 128, 128, 1, "tc"),    # docqa's chunk
+         (torch.bfloat16, 512, 256, 128, 128, 1, "tc"),
+         (torch.bfloat16, 512, 13696, 128, 128, 1, "tc"),
+         (torch.bfloat16, 4, 4096, 128, 128, 1, "rows"),    # a decode step
+         (torch.bfloat16, 8, 151552, 128, 128, 1, "rows"),
+         (torch.bfloat16, 9, 4096, 128, 128, 1, "tc"),
+         (torch.bfloat16, 4, 4096, 128, 64, 1, "tc"),      # rows need bn 128
+         (torch.bfloat16, 4, 4100, 128, 128, 1, "tc"),     # ... and N % 8
+         (torch.bfloat16, 4096, 4096, 64, 64, 1, "tc"),
+         (torch.bfloat16, 100, 200, 16, 16, 1, "tc"),
+         (torch.bfloat16, 512, 3257, 128, 128, 0, "simt"),  # hymba's N
+         (torch.bfloat16, 4, 3257, 128, 128, 0, "simt"),
+         (torch.float32, 512, 4096, 128, 128, 1, "simt"),
+         (torch.float32, 4096, 4096, 128, 128, 1, "simt"),  # the study
+         (torch.float32, 4, 4096, 128, 128, 1, "rows"),
+         (torch.float32, 4, 4096, 128, 128, 0, "simt")]
+
+
+@pytest.mark.parametrize("dtype,m,n,bm,bn,vec,path", PATHS,
+                         ids=[f"{str(p[0])[6:]}-{p[1]}x{p[2]}-{p[3]}x{p[4]}-"
+                              f"v{p[5]}" for p in PATHS])
+def test_tile_path_mirrors_the_launcher(dtype, m, n, bm, bn, vec, path):
+    assert tile_path(dtype, m, n, bn, vec) == path
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 512, 4096])
+@pytest.mark.parametrize("bm,bn", [(16, 16), (64, 128), (128, 64),
+                                   (128, 128), (96, 80)])
+@pytest.mark.parametrize("vec", [0, 1])
+def test_tensor_cores_take_bf16_vectors_off_the_rows_path(dtype, m, bm, bn,
+                                                          vec):
+    """f32 never takes tensor cores; bf16 does exactly where its operands
+    are 16-byte vectors and the rows path does not take the shape."""
+    path = tile_path(dtype, m, 4096, bn, vec)
+    rows = bool(vec) and m <= 8 and bn == 128
+    assert (path == "rows") == rows
+    assert (path == "tc") == (dtype == torch.bfloat16 and bool(vec)
+                              and not rows)
