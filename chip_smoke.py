@@ -54,6 +54,14 @@ just before it and read just after:
   mamba2-780m and hymba-1.5b (B1's tile path at hymba's in_proj, N =
   3257) 4 requests of 16 new tokens, lockstep and contiguous, as the
   reference serves them;
+* mellum2-12b-a2.5b (``mellum2_phase``) at full width and depth, 64
+  experts top 8 and 21 window layers of 1024 keys beside 7 full ones:
+  B5 (``sfc_matmul_grouped``) at the codectx cell's decode (7 tokens,
+  8-row tiles) and chunk (256 tokens, 64-row tiles) shapes and B2 with
+  and without the window at 8 rows of 2233-7512 keys, each against its
+  plain version, twice bit for bit and timed beside its bytes bound;
+  then 4 requests (3 past the window) served continuous and paged with
+  B1, B2, windowed B2 and B5 launches counted from 0 and held exact;
 * training, after them (``train_phase``): qwen3-1.7b at full width and
   depth in bf16 (random weights from seed 0, ``PackedSyntheticData``
   seed 0 batches of 4 x 256 tokens), 4 steps of ``make_train_step``
@@ -161,7 +169,11 @@ families (``families``: tok/s, ms a step and J per token of each serving
 run, each arch's decode step against the plain versions and B1 and B2
 beside their bounds, each trained arch's record as on the ``train``
 line: losses, ms, J and peak memory per step per schedule, the
-profiles, the gradient errors per leaf, pinned and not), the frontend
+profiles, the gradient errors per leaf, pinned and not), mellum2's
+(``mellum2``: B5 a decode and a chunk step and B2 with and without its
+window, each with its error, ms and bound, and the served run's steps,
+ms a step and launches; the ``kernels`` line gains a B5 row and a
+windowed-B2 row, a codectx decode step's), the frontend
 archs (``frontends``: hubert's encodes per schedule with their ms,
 frames/s, J, peak memory and logit error, B1 per encode beside its
 bound, its training record; llava's serving runs, decode steps, peak
@@ -363,6 +375,23 @@ SHARED_CACHE_LEN = 128
 # B2 is also checked and timed at these contexts (tokens per slot, 4
 # slots): 32768 is qwen3-1.7b's native context
 LONG_CONTEXTS = (512, 4096, 32768)
+
+# mellum2-12b-a2.5b (mellum2_phase), at the benchmark's codectx shapes:
+# B5 at a decode step's routed tokens (at most 8: its 8-row tiles) and a
+# chunk's prompt tokens (256: its 64-row tiles); B2 at 8 rows whose keys
+# are the cell's prompt lengths, the 8 quantiles of a log-uniform law on
+# 2048-8192 tokens.  Its served run: 4 slots, 16-token pages, 256 prompt
+# tokens a step, 3 of the 4 prompts longer than the 1024-key window
+MELLUM = "mellum2_12b_a2_5b"
+MELLUM_B5_TOKENS = (("decode", 7), ("chunk", 256))
+MELLUM_KEYS = tuple(round(2048 * 4 ** ((i + 0.5) / 8)) for i in range(8))
+MELLUM_PAGES = 521                 # codectx's cache_len 8320 / 16 + 1
+MELLUM_PROMPTS = (2233, 1400, 1100, 600)
+MELLUM_NEW = 8
+MELLUM_CACHE_LEN = 2304
+MELLUM_BUDGET = 256
+B5_BF16 = 2e-2          # B5's bf16 outputs (atol = rtol): one rounding
+B5_F32 = 1e-3           # B5's f32 outputs: f32 order over K <= 2304
 
 # the locality study: sizes, schedules, dtype and tile edge come from
 # configs/paper.py (see paper_study); B3 runs the smallest and the largest
@@ -993,17 +1022,17 @@ def checked_loop(cfg, params, sc, power=None, **kw):
             self.rows_checked += 1
             return super()._sample(logits_row)
 
-        def _mark(self, kind, fn, *a):
+        def _mark(self, kind, fn, *a, **kw):
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
-            out = fn(*a)
+            out = fn(*a, **kw)
             e.record()
             self.marks[kind].append((s, e, out))
             return out
 
-        def _step(self, *a):
-            return self._mark("decode", super()._step, *a)
+        def _step(self, *a, **kw):
+            return self._mark("decode", super()._step, *a, **kw)
 
         def _prefill_step(self):
             return self._mark("chunk", super()._prefill_step)
@@ -3455,6 +3484,279 @@ def families_phase(smi: str) -> tuple[dict, dict]:
     return {"serve": serve_rows, "step": step_rows}, by_path
 
 
+# ------------------------------------------------------------- mellum2 ----
+def _b5_operands(cfg, tokens: int, gen):
+    """``tokens`` tokens' top-k experts of random router logits, sorted by
+    expert: the rows (bf16), their (E + 1,) int32 offsets on the card and
+    the experts touched."""
+    import torch
+
+    e, k = cfg.moe_experts, cfg.moe_topk
+    idx = torch.randn(tokens, e, generator=gen, device="cuda").topk(
+        k, dim=-1).indices.reshape(-1)
+    order = torch.argsort(idx, stable=True)
+    counts = torch.bincount(idx, minlength=e)
+    off = torch.zeros(e + 1, dtype=torch.int32, device="cuda")
+    off[1:] = torch.cumsum(counts, 0)
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device="cuda")
+    return x[order // k].bfloat16(), off, int((counts > 0).sum())
+
+
+def b5_bound_ms(cfg, tokens: int, touched: int) -> float:
+    """B5's least time for one moe layer (both launches): the larger of
+    the assignments' 2 x 3 x d x F operations at the bf16 peak and the
+    touched experts' weights read once plus the rows (in, hidden out and
+    in, f32 out) at HBM's peak."""
+    d, f = cfg.d_model, cfg.moe_dff
+    r = tokens * cfg.moe_topk
+    ops = 2.0 * r * 3 * d * f
+    nbytes = touched * 3.0 * d * f * 2 + r * (2 * d + 4 * f + 4 * d)
+    return max(ops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def mellum_b5(cfg, rep: Report, gen, flush, smi: str) -> list[dict]:
+    """B5 at codectx's decode and chunk shapes: the gated up-projection
+    (bf16 out) and the down-projection (f32 out) against
+    ``sfc_matmul_grouped_plain`` within B5_BF16 and B5_F32 (which refuse
+    rows sent to the wrong expert), each twice bit for bit, then timed
+    (both launches, a moe layer) beside :func:`b5_bound_ms`."""
+    import torch
+
+    from repro_torch.kernels.sfc_matmul_grouped import grouped_row_tile, \
+        sfc_matmul_grouped, sfc_matmul_grouped_plain
+
+    d, f, e = cfg.d_model, cfg.moe_dff, cfg.moe_experts
+
+    def draw(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * shape[-2] ** -0.5).bfloat16()
+
+    w1, w3, w2 = draw(e, d, f), draw(e, d, f), draw(e, f, d)
+    rows = []
+    print(f"[mellum2] B5 sfc_matmul_grouped against its plain version, then "
+          f"a moe layer's two launches timed ({smi})")
+    for kind, t in MELLUM_B5_TOKENS:
+        x, off, touched = _b5_operands(cfg, t, gen)
+        bm = grouped_row_tile(t)
+
+        def layer(plain=False):
+            if plain:
+                h = sfc_matmul_grouped_plain(x, w1, off, w3=w3)
+                return h, sfc_matmul_grouped_plain(h, w2, off,
+                                                   out_dtype=torch.float32)
+            h = sfc_matmul_grouped(x, w1, off, w3=w3, seg_max=t)
+            return h, sfc_matmul_grouped(h, w2, off, seg_max=t,
+                                         out_dtype=torch.float32)
+
+        h, y = layer()
+        hp = sfc_matmul_grouped_plain(x, w1, off, w3=w3)
+        yp = sfc_matmul_grouped_plain(h, w2, off, out_dtype=torch.float32)
+        err_h = rep.check(f"B5 {kind} up {t}x{d}->{f} (bm {bm})", h, hp,
+                          B5_BF16, B5_BF16)
+        err_y = rep.check(f"B5 {kind} down {t}x{f}->{d} (bm {bm})", y, yp,
+                          B5_F32, B5_F32)
+        # the bound refuses each row sent to its neighbour expert
+        wrong = sfc_matmul_grouped_plain(x, w1.roll(1, 0), off,
+                                         w3=w3.roll(1, 0))
+        if not bool(((wrong.float() - hp.float()).abs() > B5_BF16 + B5_BF16
+                     * hp.float().abs()).any()):
+            rep.failures.append(f"B5 {kind}: a wrong expert not refused")
+        del wrong
+        h2, y2 = layer()
+        same = torch.equal(h, h2) and torch.equal(y, y2)
+        print(f"  {'ok  ' if same else 'FAIL'} B5 {kind}: two launches "
+              f"{'equal' if same else 'DIFFER'} bit for bit")
+        if not same:
+            rep.failures.append(f"B5 {kind} not bit-equal")
+        ms = _time_ms(layer, 20, flush)
+        plain = _time_ms(lambda: layer(True), 3, flush)
+        bound = b5_bound_ms(cfg, t, touched)
+        n_l = cfg.n_layers
+        print(f"[time] B5 {kind}: {t} tokens x top-{cfg.moe_topk}, {touched} "
+              f"of {e} experts touched, bm {bm}: {ms:.4f} ms a moe layer "
+              f"(bound {bound:.4f} ms, {bound / ms:.1%}; plain {plain:.3f} "
+              f"ms), x{n_l} = {n_l * ms:.3f} ms a {kind} step (bound "
+              f"{n_l * bound:.3f}) ({smi})")
+        rows.append({"step": kind, "tokens": t, "touched": touched, "bm": bm,
+                     "max_abs_err": max(err_h, err_y), "ms": n_l * ms,
+                     "bound_ms": n_l * bound, "plain_ms": n_l * plain})
+    return rows
+
+
+def mellum_b2(cfg, rep: Report, gen, flush, smi: str) -> list[dict]:
+    """B2 at 8 rows whose keys are MELLUM_KEYS, with the window (a window
+    layer) and without (a full layer), against
+    ``paged_decode_attention_ref`` per slot within B2_SLOT_REL (which
+    refuses the full attention as the window's answer) and twice bit for
+    bit, then timed beside the K/V bytes it must read (a window layer's
+    last ``sliding_window`` keys)."""
+    import torch
+
+    from repro_torch.kernels.paged_attention import \
+        paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    b, ps = len(MELLUM_KEYS), PAGE_SIZE
+    hkv, dh, h = cfg.n_kv_heads, cfg.d_head, cfg.n_heads
+    n_rows = b * MELLUM_PAGES + 1
+    kp = (torch.randn(n_rows, ps, hkv, dh, generator=gen, device="cuda")
+          * 0.5).bfloat16()
+    vp = torch.randn(n_rows, ps, hkv, dh, generator=gen,
+                     device="cuda").bfloat16()
+    kp[-1] = 0
+    vp[-1] = 0
+    tables = torch.randperm(n_rows - 1, generator=gen, device="cuda")[
+        :b * MELLUM_PAGES].reshape(b, MELLUM_PAGES).to(torch.int32)
+    q = torch.randn(b, h, dh, generator=gen, device="cuda").bfloat16()
+    pos = torch.tensor(MELLUM_KEYS, device="cuda") - 1
+    rows = []
+    kinds = (("window", cfg.sliding_window, cfg.layer_types.count(
+        "sliding_attention")), ("full", None, cfg.layer_types.count(
+            "full_attention")))
+    for kind, window, count in kinds:
+        def launch():
+            return paged_decode_attention_cuda(q, kp, vp, tables, pos,
+                                               window=window)
+        out = launch()
+        want = paged_decode_attention_ref(q, kp, vp, tables, pos, window)
+        err = float((out.float() - want.float()).abs().max())
+        scaled = slot_scaled_err(out, want)
+        ok = scaled <= B2_SLOT_REL
+        print(f"  {'ok  ' if ok else 'FAIL'} B2 {kind} ({window} keys) at "
+              f"keys {MELLUM_KEYS}: per slot {scaled:.3e} (bound "
+              f"{B2_SLOT_REL:g}), max_abs_err {err:.3e}")
+        if not ok:
+            rep.failures.append(f"B2 {kind}")
+        if window:
+            # every row holds more keys than the window: the full output
+            # is a wrong answer that the bound must refuse
+            wrong = slot_scaled_err(paged_decode_attention_cuda(
+                q, kp, vp, tables, pos), want)
+            print(f"  {'ok  ' if wrong > B2_SLOT_REL else 'FAIL'} B2 {kind}"
+                  f": attention over every key refused, per slot "
+                  f"{wrong:.3e}")
+            if wrong <= B2_SLOT_REL:
+                rep.failures.append("B2 window: full attention not refused")
+        same = torch.equal(out, launch())
+        print(f"  {'ok  ' if same else 'FAIL'} B2 {kind}: two launches "
+              f"{'equal' if same else 'DIFFER'} bit for bit")
+        if not same:
+            rep.failures.append(f"B2 {kind} not bit-equal")
+        keys = [min(n, window or n) for n in MELLUM_KEYS]
+        nbytes = sum(keys) * hkv * dh * 2 * 2 + 2 * b * h * dh * 2
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ms = _time_ms(launch, 50, flush)
+        print(f"[time] B2 {kind}: {ms:.4f} ms a launch (bound {bound:.5f} "
+              f"ms, {nbytes / 1e6:.1f} MB of K/V, {bound / ms:.1%}), x{count}"
+              f" = {count * ms:.3f} ms a decode step ({smi})")
+        rows.append({"layers": kind, "window": window, "launches_a_step":
+                     count, "max_abs_err": err, "ms": count * ms,
+                     "bound_ms": count * bound})
+    return rows
+
+
+def _mellum_counts() -> dict:
+    import repro_torch.kernels.paged_attention as pa_mod
+    import repro_torch.kernels.sfc_matmul_grouped as b5_mod
+    return {**_kernel_launches(), "B2 window": pa_mod.window_launches,
+            "B5": b5_mod.grouped_launches}
+
+
+def _zero_mellum_counts() -> None:
+    import repro_torch.kernels.paged_attention as pa_mod
+    import repro_torch.kernels.sfc_matmul_grouped as b5_mod
+    _zero_launches()
+    pa_mod.window_launches = 0
+    b5_mod.grouped_launches = 0
+
+
+def mellum_want_launches(cfg, steps: int, chunks: int) -> dict:
+    """The launches of a routed moe with window layers served paged over
+    ``steps`` decode steps and ``chunks`` prefill chunks: B1 the
+    attention's wq, wk, wv, wo and the router a layer (and the head a
+    decode step), B2 one a layer a decode step, the window layers'
+    windowed, B5 the experts' up and down projections a layer a step."""
+    n_l = cfg.n_layers
+    return {"B1": steps * (5 * n_l + 1) + chunks * 5 * n_l,
+            "B2": steps * n_l,
+            "B2 window": steps * sum(cfg.layer_window(i) is not None
+                                     for i in range(n_l)),
+            "B5": 2 * n_l * (steps + chunks)}
+
+
+def mellum2_phase(smi: str) -> tuple[dict, dict]:
+    """mellum2-12b-a2.5b at full width and depth (random bf16 weights
+    from seed 0): B5 (:func:`mellum_b5`) and B2 with and without its
+    window (:func:`mellum_b2`) at the codectx cell's shapes, then its main
+    path: MELLUM_PROMPTS served continuous and paged through
+    ``ServeLoop`` with every launch counted from 0 just before the run and
+    held exact (:func:`mellum_want_launches`), every logit row finite and
+    every page freed.  Returns (the ``mellum2`` line, the
+    launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import ServeConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    scratch = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    rep = Report()
+    cfg, params = init_arch(MELLUM)
+    b5_rows = mellum_b5(cfg, rep, gen, scratch.zero_, smi)
+    b2_rows = mellum_b2(cfg, rep, gen, scratch.zero_, smi)
+    del scratch
+    torch.cuda.empty_cache()
+    rep.raise_if_failed("mellum2 kernel checks")
+
+    sc = ServeConfig(slots=SLOTS, cache_len=MELLUM_CACHE_LEN,
+                     page_size=PAGE_SIZE, eos_id=-1, layout="paged",
+                     mode="continuous", prefill_budget=MELLUM_BUDGET, seed=0)
+    loop = checked_loop(cfg, params, sc)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab, size=n).tolist()
+               for n in MELLUM_PROMPTS]
+    for r, p in enumerate(prompts):
+        loop.submit(r, p)
+    torch.cuda.synchronize()
+    _zero_mellum_counts()
+    t0 = time.perf_counter()
+    out = loop.run(max_new=MELLUM_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = _mellum_counts()
+    steps, chunks = loop.steps, loop.chunk_steps
+    want = mellum_want_launches(cfg, steps, chunks)
+    print(f"[serve mellum2] prompts {list(MELLUM_PROMPTS)}, max_new "
+          f"{MELLUM_NEW}, {SLOTS} slots, {steps} decode steps and {chunks} "
+          f"prefill chunks of at most {MELLUM_BUDGET} tokens in {wall:.2f} s"
+          f"; launches {got} (want {want})")
+    bad = []
+    if got != want:
+        bad.append(f"launch counts {got} != {want}")
+    for r, p in enumerate(prompts):
+        if len(out[r]) != len(p) + MELLUM_NEW or out[r][:len(p)] != p:
+            bad.append(f"request {r} returned {len(out[r])} tokens")
+    if loop.rows_checked != len(prompts) * MELLUM_NEW:
+        bad.append("not every sampled row was checked")
+    loop.alloc.check_invariants()
+    if loop.alloc.pages_in_use:
+        bad.append(f"{loop.alloc.pages_in_use} pages in use after the drain")
+    if bad:
+        raise SystemExit(f"chip_smoke: mellum2 serving: {bad}")
+    decode_ms, chunk_ms = loop.spans_ms("decode"), loop.spans_ms("chunk")
+    rec = {"arch": cfg.name, "b5": b5_rows, "b2": b2_rows,
+           "serve": {"prompts": list(MELLUM_PROMPTS), "steps": steps,
+                     "chunk_steps": chunks, "wall_s": wall,
+                     "tok_per_s": len(prompts) * MELLUM_NEW / wall,
+                     "ms_per_decode_step": float(np.median(decode_ms)),
+                     "ms_per_chunk_step": float(np.median(chunk_ms)),
+                     "launches": got},
+           "card": smi}
+    del loop, params
+    torch.cuda.empty_cache()
+    return rec, got
+
+
 # ------------------------------------------------------------ training ----
 TRAIN_BATCH, TRAIN_SEQ = 4, 256   # 1024 tokens a step
 TRAIN_STEPS = 4
@@ -5022,6 +5324,9 @@ def main() -> int:
     families, family_launches = families_phase(smi)
     layout_launches.update(family_launches)
     lap("families serving")
+    mellum, mellum_launches = mellum2_phase(smi)
+    layout_launches[f"{mellum['arch']} continuous paged"] = mellum_launches
+    lap("mellum2")
     train, train_launches = train_phase(smi)
     lap("train qwen3-1.7b")
     dryrun, dryrun_launches = dryrun_phase(
@@ -5079,8 +5384,30 @@ def main() -> int:
         row.setdefault("by_arch", {}).update(shard)
     for row in long_rows:
         row["max_abs_err"] = errs[f"B2@{row['tokens_per_slot']}"]
+    # mellum2's: B5 and the windowed B2, a codectx decode step's (B5 also
+    # a chunk step's under by_step), launches those of its served run
+    b5_dec = mellum["b5"][0]
+    rows.append({"name": "B5 sfc_matmul_grouped", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/"
+                           "sfc_matmul_grouped.cu",
+                 "replaces": "src/repro/models/moe.py::_expert_ffn",
+                 "launches": mellum_launches["B5"],
+                 "max_abs_err": max(r["max_abs_err"] for r in mellum["b5"]),
+                 "ms": b5_dec["ms"], "plain_ms": b5_dec["plain_ms"],
+                 "bound_ms": b5_dec["bound_ms"], "bound_by": "bytes",
+                 "library_ms": None, "by_step": mellum["b5"]})
+    b2_win = mellum["b2"][0]
+    rows.append({"name": "B2 paged_decode_attention (window)",
+                 "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:103",
+                 "launches": mellum_launches["B2 window"],
+                 "max_abs_err": b2_win["max_abs_err"], "ms": b2_win["ms"],
+                 "plain_ms": None, "bound_ms": b2_win["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None})
     print("kernels: [B1 sfc_matmul, B2 paged_decode_attention, B3 "
-          "sfc_matmul_batched, B4 sfc_matmul_cached], all cuda")
+          "sfc_matmul_batched, B4 sfc_matmul_cached, B5 "
+          "sfc_matmul_grouped, B2 with a window], all cuda")
     print(f"[summary] step logits max err {step['max_abs_err']:.4e}, "
           f"greedy agree {step['agree']}/{SLOTS}; serve "
           f"{sv['tok_per_s']:.2f} tok/s; chunk K/V max err "
@@ -5111,14 +5438,15 @@ def main() -> int:
     print(json.dumps({"swa_ring": ring}))
     print(json.dumps({"train": train}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"mellum2": mellum}))
     print(json.dumps({"frontends": frontends}))
     print(json.dumps({"distributed": distributed}))
     print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"examples": examples, "card": smi}))
     print(json.dumps({"launches_by_path": by_path}))
     print(json.dumps({"phase_seconds": phase_s, "card": smi}))
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + ("by_arch",)
-                                   if k in r} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + (
+        "by_arch", "by_step") if k in r} for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

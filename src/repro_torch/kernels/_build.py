@@ -26,7 +26,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sfc_matmul", "paged_attention", "sfc_matmul_cached")
+SOURCES = ("sfc_matmul", "paged_attention", "sfc_matmul_cached",
+           "sfc_matmul_grouped")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -63,6 +63,13 @@
 //    page slot not a multiple of 128 bytes, or operands not 16-byte
 //    aligned) take the same kernel with plain loads and stores by every
 //    thread (kVec false).  Head counts come from the operands.
+//  * A sliding window of W keys (one per launch: a model's window layers)
+//    is the overload of paged_attn_kernel that takes `window` (kWin):
+//    slot b's live pages start at its first page inside the window,
+//    max(0, pos[b] - W + 1) / ps, so the ranks share only those, and the
+//    keys of that page below the window are masked like those past pos.
+//    Both kernels inline one body; the one without a window compiles to
+//    the code it had before windows existed.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
 #include <stdint.h>
@@ -177,16 +184,16 @@ __host__ __device__ __forceinline__ size_t area_bytes(int gw, int dh, int ps,
   return ((a > m ? a : m) + 15) / 16 * 16;
 }
 
-// grid: B * hkv * chunks * split blocks, clusters of `split` along x
-template <typename T, int GW, int kLpt, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                  const T* __restrict__ v_pages,
-                  const __grid_constant__ CUtensorMap map_k,
-                  const __grid_constant__ CUtensorMap map_v,
-                  const int* __restrict__ tables, const int* __restrict__ pos,
-                  T* __restrict__ out, int H, int hkv, int dh, int ps,
-                  int max_pages, int split, int stage_pages, float scale_log2) {
+// grid: B * hkv * chunks * split blocks, clusters of `split` along x;
+// kWin: keys at positions <= pos[b] - window are not attended
+template <typename T, int GW, int kLpt, bool kVec, bool kWin>
+__device__ __forceinline__ void
+attn_body(const T* __restrict__ q, const T* __restrict__ k_pages,
+          const T* __restrict__ v_pages, const CUtensorMap& map_k,
+          const CUtensorMap& map_v, const int* __restrict__ tables,
+          const int* __restrict__ pos, T* __restrict__ out, int H, int hkv,
+          int dh, int ps, int max_pages, int split, int stage_pages,
+          float scale_log2, int window) {
   constexpr int kGroups = kThreads / kLpt;  // token groups of a block
   constexpr int C = 16 / sizeof(T);
   constexpr int kWords = kNv * sizeof(T) / 4;
@@ -238,8 +245,17 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int e = 0; e < kNv; ++e) qr[g][e] = elem<T>(w, e);
   }
   const int live = last < 0 ? 0 : min(last / ps + 1, max_pages);
-  const int lo = static_cast<int>(static_cast<long>(rank) * live / split);
-  const int hi = static_cast<int>(static_cast<long>(rank + 1) * live / split);
+  int lo, hi;
+  long wlo = 0;  // the window's first position (kWin)
+  if constexpr (kWin) {
+    wlo = static_cast<long>(last) - window + 1;
+    const int first = wlo > 0 ? min(static_cast<int>(wlo / ps), live) : 0;
+    lo = first + static_cast<int>(static_cast<long>(rank) * (live - first) / split);
+    hi = first + static_cast<int>(static_cast<long>(rank + 1) * (live - first) / split);
+  } else {
+    lo = static_cast<int>(static_cast<long>(rank) * live / split);
+    hi = static_cast<int>(static_cast<long>(rank + 1) * live / split);
+  }
   int tab_base = whole ? 0 : lo;
   if (!whole)
     for (int e = tid; e < min(kTab, hi - lo); e += kThreads) tab_s[e] = trow[lo + e];
@@ -319,6 +335,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                          ? static_cast<long>(hi) * ps
                          : static_cast<long>(last) + 1;
     const int tend = lim - tok0 < T_tok ? static_cast<int>(lim - tok0) : T_tok;
+    // kWin: the stage's tokens below tbeg are outside the window
+    const int tbeg = kWin && wlo > tok0 ? static_cast<int>(wlo - tok0) : 0;
     // a group takes kJ tokens at once: their loads, dot products and
     // shuffles are independent, and one softmax update covers them.  Every
     // lane of a warp runs the same iterations (the shuffles need the whole
@@ -364,7 +382,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
         for (int u = 0; u < kJ; ++u) {
           s[u][g] *= scale_log2;
-          if (u < nv) mc = fmaxf(mc, s[u][g]);
+          if (u < nv && (!kWin || jb + u >= tbeg)) mc = fmaxf(mc, s[u][g]);
         }
         if (mc > m[g]) {  // a new max: rescale (skipped, exactly, otherwise)
           const float a = exp2f(m[g] - mc);
@@ -375,13 +393,14 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         }
 #pragma unroll
         for (int u = 0; u < kJ; ++u) {
-          s[u][g] = u < nv ? exp2f(s[u][g] - m[g]) : 0.0f;
+          s[u][g] = u < nv && (!kWin || jb + u >= tbeg) ? exp2f(s[u][g] - m[g]) : 0.0f;
           l[g] += s[u][g];
         }
       }
 #pragma unroll
       for (int u = 0; u < kJ; ++u) {
-        if (u >= nv) continue;  // its row may hold anything
+        if (u >= nv) continue;  // its row may hold anything (a token below
+                                // the window has weight 0 and a real row)
 #pragma unroll
         for (int g = 0; g < GW; ++g)
 #pragma unroll
@@ -476,6 +495,37 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+template <typename T, int GW, int kLpt, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                  const T* __restrict__ v_pages,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const int* __restrict__ tables, const int* __restrict__ pos,
+                  T* __restrict__ out, int H, int hkv, int dh, int ps,
+                  int max_pages, int split, int stage_pages, float scale_log2) {
+  attn_body<T, GW, kLpt, kVec, false>(q, k_pages, v_pages, map_k, map_v, tables, pos, out,
+                                      H, hkv, dh, ps, max_pages, split, stage_pages,
+                                      scale_log2, 0);
+}
+
+// the same with a sliding window of `window` keys
+template <typename T, int GW, int kLpt, bool kVec, bool kWin>
+__global__ void __launch_bounds__(kThreads)
+paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                  const T* __restrict__ v_pages,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const int* __restrict__ tables, const int* __restrict__ pos,
+                  T* __restrict__ out, int H, int hkv, int dh, int ps,
+                  int max_pages, int split, int stage_pages, float scale_log2,
+                  int window) {
+  static_assert(kWin, "the windowed overload");
+  attn_body<T, GW, kLpt, kVec, true>(q, k_pages, v_pages, map_k, map_v, tables, pos, out,
+                                     H, hkv, dh, ps, max_pages, split, stage_pages,
+                                     scale_log2, window);
+}
+
 // the map of a (rows, ps, hkv, dh) pool seen as (dh, hkv, rows * ps), read
 // in (dh, 1, ps) boxes: one kv-head of one page
 template <typename T>
@@ -507,11 +557,25 @@ struct Args {
   int B, H, hkv, dh, ps, max_pages, rows, split, stage_pages;
   float scale;
   cudaStream_t stream;
+  int window;  // 0: none
 };
 
-template <typename T, int GW, int kLpt, bool kVec>
+template <typename T, int GW, int kLpt, bool kVec, bool kWin>
 cudaError_t launch_k(const Args& a) {
-  const auto kernel = paged_attn_kernel<T, GW, kLpt, kVec>;
+  void (*kernel)(const T*, const T*, const T*, const CUtensorMap, const CUtensorMap,
+                 const int*, const int*, T*, int, int, int, int, int, int, int,
+                 float) = nullptr;
+  void (*kernel_w)(const T*, const T*, const T*, const CUtensorMap, const CUtensorMap,
+                   const int*, const int*, T*, int, int, int, int, int, int, int, float,
+                   int) = nullptr;
+  const void* fn;
+  if constexpr (kWin) {
+    kernel_w = paged_attn_kernel<T, GW, kLpt, kVec, true>;
+    fn = reinterpret_cast<const void*>(kernel_w);
+  } else {
+    kernel = paged_attn_kernel<T, GW, kLpt, kVec>;
+    fn = reinterpret_cast<const void*>(kernel);
+  }
   const size_t smem = area_bytes(GW, a.dh, a.ps, a.stage_pages, sizeof(T)) +
                       sizeof(int) * kTab + sizeof(uint64_t) * kStages;
   if (smem > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
@@ -524,7 +588,7 @@ cudaError_t launch_k(const Args& a) {
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
@@ -541,19 +605,34 @@ cudaError_t launch_k(const Args& a) {
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = a.split > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
-      static_cast<const T*>(a.v_pages), map_k, map_v, a.tables, a.pos,
-      static_cast<T*>(a.out), a.H, a.hkv, a.dh, a.ps, a.max_pages, a.split,
-      a.stage_pages, a.scale * 1.4426950408889634f);
+  cudaError_t err;
+  if constexpr (kWin) {
+    err = cudaLaunchKernelEx(
+        &cfg, kernel_w, static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
+        static_cast<const T*>(a.v_pages), map_k, map_v, a.tables, a.pos,
+        static_cast<T*>(a.out), a.H, a.hkv, a.dh, a.ps, a.max_pages, a.split,
+        a.stage_pages, a.scale * 1.4426950408889634f, a.window);
+  } else {
+    err = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
+        static_cast<const T*>(a.v_pages), map_k, map_v, a.tables, a.pos,
+        static_cast<T*>(a.out), a.H, a.hkv, a.dh, a.ps, a.max_pages, a.split,
+        a.stage_pages, a.scale * 1.4426950408889634f);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int GW, int kLpt>
+cudaError_t launch_lpt(const Args& a, bool vec) {
+  if (a.window > 0)
+    return vec ? launch_k<T, GW, kLpt, true, true>(a) : launch_k<T, GW, kLpt, false, true>(a);
+  return vec ? launch_k<T, GW, kLpt, true, false>(a) : launch_k<T, GW, kLpt, false, false>(a);
 }
 
 template <typename T, int GW>
 cudaError_t launch_gw(const Args& a, bool vec) {
-  if (lanes_per_token(a.dh) == 8)
-    return vec ? launch_k<T, GW, 8, true>(a) : launch_k<T, GW, 8, false>(a);
-  return vec ? launch_k<T, GW, 16, true>(a) : launch_k<T, GW, 16, false>(a);
+  if (lanes_per_token(a.dh) == 8) return launch_lpt<T, GW, 8>(a, vec);
+  return launch_lpt<T, GW, 16>(a, vec);
 }
 
 template <typename T>
@@ -579,13 +658,16 @@ cudaError_t launch(const Args& a, bool vec) {
 // two), and ``vec`` whether pages go by TMA (dh * sizeof(T) a multiple
 // of 16, ps * dh * sizeof(T) of 128, ps <= 256, q, the pools and out
 // 16-byte aligned); otherwise plain loads.  d_head is at most 256.
+// ``window`` > 0 attends only the keys at positions > pos[b] - window (0:
+// every key up to pos[b]).
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages, const void* tables,
                                       const void* pos, void* out, int B, int H,
                                       int hkv, int dh, int ps, int max_pages,
                                       int rows, float scale, int dt, int split,
-                                      int stage_pages, int vec, void* stream) {
-  if (B <= 0 || hkv <= 0 || H % hkv != 0 || dh <= 0 || dh > kMaxDh ||
+                                      int stage_pages, int vec, int window,
+                                      void* stream) {
+  if (B <= 0 || hkv <= 0 || H % hkv != 0 || dh <= 0 || dh > kMaxDh || window < 0 ||
       ps <= 0 || max_pages <= 0 || rows <= 0 ||
       (split != 1 && split != 2 && split != 4 && split != 8) ||
       stage_pages <= 0 || stage_pages > 64 ||
@@ -594,7 +676,8 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   }
   const Args a{q, k_pages, v_pages, static_cast<const int*>(tables),
                static_cast<const int*>(pos), out, B, H, hkv, dh, ps, max_pages,
-               rows, split, stage_pages, scale, static_cast<cudaStream_t>(stream)};
+               rows, split, stage_pages, scale, static_cast<cudaStream_t>(stream),
+               window};
   cudaError_t err;
   if (dt == kF32) {
     err = launch<float>(a, vec != 0);

@@ -19,6 +19,10 @@ a ring of :func:`attn_stage_pages`-page stages, and the ranks' online
 softmax states are merged in rank order, so the result is the same bits
 run to run.  :func:`repro_torch.kernels.ref.
 paged_decode_attention_split_ref` is that algorithm in plain PyTorch.
+A ``window`` (a model's sliding-window layers; one per launch) starts
+each slot's live pages at its first page inside the window and masks
+the keys below it (the kernel's windowed overload, counted in
+:data:`window_launches`).
 """
 from __future__ import annotations
 
@@ -35,16 +39,17 @@ from repro_torch.runtime.chaos import fire as _chaos_fire
 
 __all__ = ["paged_decode_attention_cuda", "attn_split_plan",
            "attn_stage_pages", "attn_smem_bytes", "attn_launch_plan",
-           "head_chunks", "launches"]
+           "head_chunks", "launches", "window_launches"]
 
 # kernel launches made by paged_decode_attention_cuda (CPU calls are not
-# counted)
+# counted), and those of them with a window
 launches = 0
+window_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"paged_attention_launch": (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-    + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ctypes.c_int)}
 _SPLITS = (1, 2, 4, 8)  # cluster sizes the kernel takes
 _MAX_DH = 256           # 16 lanes of 16 values hold a row (csrc: kMaxDh)
@@ -112,14 +117,16 @@ def attn_smem_bytes(page_size: int, d_head: int, itemsize: int,
 
 @functools.lru_cache(maxsize=256)
 def attn_launch_plan(b: int, h: int, hkv: int, dh: int, page_size: int,
-                     max_pages: int, itemsize: int, sms: int
-                     ) -> tuple[int, int, bool]:
+                     max_pages: int, itemsize: int, sms: int,
+                     window: int = 0) -> tuple[int, int, bool]:
     """(stage pages, planned split, whether the shape takes TMA) of one
     launch shape, worked out once per shape: the wrapper runs on every
-    layer of every decode step.  Raises ValueError for shapes the kernel
-    cannot take.  TMA copies 16-byte rows into 128-byte aligned page
-    slots in boxes of <= 256 tokens (the operands must also be 16-byte
-    aligned, which the wrapper checks per call)."""
+    layer of every decode step.  A ``window`` plans the split over the
+    pages it can span, ``ceil(window / page_size) + 1`` at most.  Raises
+    ValueError for shapes the kernel cannot take.  TMA copies 16-byte
+    rows into 128-byte aligned page slots in boxes of <= 256 tokens (the
+    operands must also be 16-byte aligned, which the wrapper checks per
+    call)."""
     if dh > _MAX_DH:
         raise ValueError(f"the kernel takes d_head <= {_MAX_DH}, got {dh}")
     stage_pages = attn_stage_pages(page_size, dh, itemsize)
@@ -127,7 +134,9 @@ def attn_launch_plan(b: int, h: int, hkv: int, dh: int, page_size: int,
     if smem > _SMEM_LIMIT:
         raise ValueError(f"a page of {page_size} x {dh} exceeds the kernel's "
                          f"shared memory ({smem} > {_SMEM_LIMIT} bytes)")
-    split = attn_split_plan(b, hkv, max_pages, sms, head_chunks(h // hkv))
+    pages = max_pages if not window else min(max_pages,
+                                             -(-window // page_size) + 1)
+    split = attn_split_plan(b, hkv, pages, sms, head_chunks(h // hkv))
     vec = (dh * itemsize % 16 == 0 and page_size * dh * itemsize % 128 == 0
            and page_size <= 256)
     return stage_pages, split, vec
@@ -136,16 +145,18 @@ def attn_launch_plan(b: int, h: int, hkv: int, dh: int, page_size: int,
 def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor,
                                 phys_tables: torch.Tensor,
-                                cur_pos, *, split: int | None = None
-                                ) -> torch.Tensor:
+                                cur_pos, *, split: int | None = None,
+                                window: int | None = None) -> torch.Tensor:
     """q: (B, H, dh); k_pages/v_pages: (R, page_size, Hkv, dh) physical
     pool (last row reserved zero); phys_tables: (B, max_pages) int32
     physical rows; cur_pos: newest position, a scalar (int or 0-d
-    tensor, broadcast to every slot) or a (B,) vector.  Returns
-    (B, H, dh) in the cache dtype.  Head counts come from the operands.
-    ``split`` overrides :func:`attn_split_plan`'s cluster size (1, 2, 4
-    or 8); it does not change the result beyond f32 summation order."""
-    global launches
+    tensor, broadcast to every slot) or a (B,) vector; ``window``: attend
+    only the keys at positions > cur_pos - window (None: every key up to
+    cur_pos).  Returns (B, H, dh) in the cache dtype.  Head counts come
+    from the operands.  ``split`` overrides :func:`attn_split_plan`'s
+    cluster size (1, 2, 4 or 8); it does not change the result beyond
+    f32 summation order."""
+    global launches, window_launches
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
@@ -159,10 +170,12 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          f"({b}, max_pages)")
     if split is not None and split not in _SPLITS:
         raise ValueError(f"split must be one of {_SPLITS}, got {split}")
+    if window is not None and window < 1:
+        raise ValueError(f"a window holds at least one key, got {window}")
     dev = q.device
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, phys_tables,
-                                          cur_pos)
+                                          cur_pos, window)
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention_cuda runs on cuda (or the "
                          f"plain version on cpu), got {dev}")
@@ -180,7 +193,7 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     stage_pages, planned, vec = attn_launch_plan(
         b, h, hkv, dh, page_size, phys_tables.shape[1], q.element_size(),
-        sm_count(dev))
+        sm_count(dev), window or 0)
     if split is None:
         split = planned
     pos = torch.as_tensor(cur_pos, device=dev).to(torch.int32).reshape(-1)
@@ -201,9 +214,11 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         phys_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, h, hkv, dh, page_size, phys_tables.shape[1], k_pages.shape[0],
         1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype], split, stage_pages, vec,
-        torch.cuda.current_stream(dev).cuda_stream)
+        window or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"paged_attention kernel launch failed: cudaError {err}")
     launches += 1
+    if window:
+        window_launches += 1
     return out

@@ -20,7 +20,8 @@ __all__ = ["ACTIVATIONS", "apply_activation", "activation_grad",
            "matmul_ref", "matmul_batched_ref", "matmul_fused_ref",
            "matmul_batched_fused_ref", "matmul_blocked_ref",
            "paged_decode_attention_ref", "attn_live_pages",
-           "attn_page_ranges", "paged_decode_attention_split_ref"]
+           "attn_first_page", "attn_page_ranges",
+           "paged_decode_attention_split_ref"]
 
 # epilogue activations the fused kernel supports
 ACTIVATIONS = ("none", "relu", "gelu", "silu")
@@ -133,13 +134,16 @@ def matmul_blocked_ref(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int,
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor,
                                phys_tables: torch.Tensor,
-                               cur_pos) -> torch.Tensor:
+                               cur_pos, window: int | None = None
+                               ) -> torch.Tensor:
     """Gather-then-softmax paged decode attention.
 
     q: (B, H, dh); k_pages/v_pages: (R, page_size, Hkv, dh) physical
     pool whose last row is the reserved zero row; phys_tables:
     (B, max_pages) physical rows; cur_pos: newest valid position, a
-    scalar or a (B,) vector.  Scores are taken in the cache dtype and
+    scalar or a (B,) vector; ``window``: only the keys at positions >
+    cur_pos - window count (None: all up to cur_pos).  Scores are taken
+    in the cache dtype and
     widened to f32, and the softmax weights are cast back to the value
     dtype before P.V, exactly as the reference does.
     """
@@ -153,7 +157,10 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     v = v_pages[idx].reshape(b, span, hkv, dh)
     pos = torch.as_tensor(cur_pos, device=q.device).to(torch.int64)
     pos = pos.reshape(-1).expand(b)
-    valid = torch.arange(span, device=q.device)[None, :] <= pos[:, None]
+    t = torch.arange(span, device=q.device)[None, :]
+    valid = t <= pos[:, None]
+    if window is not None:
+        valid = valid & (t > pos[:, None] - window)
     qg = q.reshape(b, hkv, g, dh)
     scores = torch.einsum("bhgd,bkhd->bhgk", qg, k).float()
     scores = scores * (1.0 / math.sqrt(dh))
@@ -171,23 +178,40 @@ def attn_live_pages(pos: int, page_size: int, max_pages: int) -> int:
     return 0 if pos < 0 else min(pos // page_size + 1, max_pages)
 
 
-def attn_page_ranges(live: int, split: int) -> list[tuple[int, int]]:
-    """[lo, hi) of the live pages each cluster rank of the paged attention
-    kernel takes: contiguous, in rank order, sizes differing by at most
-    one; ranks past ``live`` pages get an empty range (csrc: lo, hi)."""
-    return [(r * live // split, (r + 1) * live // split) for r in range(split)]
+def attn_first_page(pos: int, page_size: int, window: int | None,
+                    live: int) -> int:
+    """The first page the paged attention kernel reads for a slot: 0, or
+    under a ``window`` the page of position pos - window + 1, at most
+    ``live`` (csrc: first)."""
+    if window is None or pos - window + 1 <= 0:
+        return 0
+    return min((pos - window + 1) // page_size, live)
+
+
+def attn_page_ranges(live: int, split: int,
+                     first: int = 0) -> list[tuple[int, int]]:
+    """[lo, hi) of the live pages [first, live) each cluster rank of the
+    paged attention kernel takes: contiguous, in rank order, sizes
+    differing by at most one; ranks past the pages get an empty range
+    (csrc: lo, hi)."""
+    n = live - first
+    return [(first + r * n // split, first + (r + 1) * n // split)
+            for r in range(split)]
 
 
 def paged_decode_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                      v_pages: torch.Tensor,
                                      phys_tables: torch.Tensor, cur_pos,
-                                     split: int) -> torch.Tensor:
+                                     split: int,
+                                     window: int | None = None
+                                     ) -> torch.Tensor:
     """The paged attention kernel's split in plain PyTorch.
 
     Arguments as :func:`paged_decode_attention_ref`.  Each of ``split``
     ranks runs an f32 online softmax, page by page, over its
     :func:`attn_page_ranges` share of the slot's :func:`attn_live_pages`
-    (scores and weights in f32, masked positions weight 0; an empty rank
+    from its :func:`attn_first_page` (scores and weights in f32, masked
+    positions, past ``cur_pos`` or below the window, weight 0; an empty rank
     keeps m = -1e30, l = 0, acc = 0); then the ranks are merged in rank
     order (global max, rescale, sum) and ``acc / l`` is cast once to the
     value dtype.  Tests hold it to the reference; the card's path never
@@ -198,9 +222,13 @@ def paged_decode_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
     max_pages = phys_tables.shape[1]
     pos = torch.as_tensor(cur_pos, device=q.device).to(torch.int64)
     pos = pos.reshape(-1).expand(b)
-    ranges = torch.tensor(
-        [attn_page_ranges(attn_live_pages(p, page_size, max_pages), split)
-         for p in pos.tolist()], device=q.device)      # (b, split, 2)
+    ranges = []
+    for p in pos.tolist():
+        live = attn_live_pages(p, page_size, max_pages)
+        ranges.append(attn_page_ranges(
+            live, split, attn_first_page(p, page_size, window, live)))
+    ranges = torch.tensor(ranges, device=q.device)     # (b, split, 2)
+    low = pos - window if window is not None else torch.full_like(pos, -1)
     qg = q.float().reshape(b, hkv, g, dh)
     scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
     offs = torch.arange(page_size, device=q.device)
@@ -217,8 +245,8 @@ def paged_decode_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
             kk = k_pages[rows].float()                 # (b, ps, hkv, dh)
             vv = v_pages[rows].float()
             s = torch.einsum("bhgd,bthd->bhgt", qg, kk) * scale
-            ok = (p < hi)[:, None] & (p[:, None] * page_size + offs
-                                      <= pos[:, None])
+            t = p[:, None] * page_size + offs
+            ok = (p < hi)[:, None] & (t <= pos[:, None]) & (t > low[:, None])
             ok = ok[:, None, None, :]
             s = torch.where(ok, s, torch.full_like(s, -1e30))
             mn = torch.maximum(m, s.amax(-1))

@@ -16,8 +16,9 @@ ServeConfig.mode`):
 * ``continuous``: requests join and leave mid-flight.  Prompts are
   prefilled in chunks (``prefill_kv_chunk``, one gang of ``slots`` rows
   x ``prefill_budget`` tokens a step) interleaved with decode steps, so
-  a long prompt never stalls the slots already decoding (not under
-  SWA: a chunk has no ring).  With ``prefix_sharing`` (the default;
+  a long prompt never stalls the slots already decoding (not under a
+  whole-model SWA ring: a chunk has no ring; windows per layer, which
+  keep every page, serve here).  With ``prefix_sharing`` (the default;
   paged only), slots whose prompts share
   page-aligned prefixes map the same pages through a prefix index, an
   identical prompt clones its live source's whole block table, and a
@@ -91,6 +92,19 @@ card's idle inside the step.  The counters ``serve.prefill.rows``,
 ``serve.decode.rows`` and ``serve.decode.steps`` sum the same rows and
 steps for ``--metrics-report``.
 
+A routed moe (``cfg.routed_moe``) routes only the live decode rows (their
+indices uploaded with the step's inputs) and the gang's prompt tokens.
+Each step's per-expert counts, summed over layers, land in a small
+device tensor whose copy to the host is queued behind the step and read
+after the next logits copy (no sync of its own): the dispatch spans gain
+``moe_rows`` (the step's routed assignments, summed over layers, known
+on the host) and ``experts_touched`` (summed over layers, the experts
+with at least one row), the counters ``serve.moe.assignments`` and
+``serve.moe.experts_touched`` sum them, and ``moe_expert_rows`` the
+per-expert counts.  Set ``route_steps`` to a list to keep every step's
+routing, each routed row's request, position and experts a layer (the
+benchmark's check holds them to the reference's router).
+
 Fault tolerance, as in the reference: a deterministic chaos schedule
 (``ServeConfig.chaos``, :mod:`repro_torch.runtime.chaos`) injects
 faults at allocation, the decode step, the top of an iteration, the
@@ -137,6 +151,7 @@ from repro_torch.launch.steps import _engine_for
 from repro_torch.models import DotEngine, decode_step, \
     fused_epilogue_savings_bytes, init_decode_state, init_model, \
     prefill_kv_chunk
+from repro_torch.models.moe import MoeLog
 from repro_torch.obs import MetricsRegistry, Tracer, default_registry, \
     default_tracer, null_registry
 from repro_torch.power import EnergyMeter, EnergyReport, WorkloadHints, \
@@ -191,7 +206,8 @@ class ServeLoop:
                     f"(chunked prefill), got {cfg.family!r}")
             if cfg.swa_window is not None:
                 raise ValueError(
-                    "continuous batching does not support SWA rings yet")
+                    "continuous batching does not support a whole-model "
+                    "SWA ring yet (windows per layer serve)")
         self.config = sc
         self.cfg = cfg
         self.params = params
@@ -372,8 +388,20 @@ class ServeLoop:
         self.c_prefill_rows = m.counter("serve.prefill.rows")
         self.c_decode_rows = m.counter("serve.decode.rows")
         self.c_decode_steps = m.counter("serve.decode.steps")
+        if self.cfg.routed_moe:
+            self.c_moe_assign = m.counter("serve.moe.assignments")
+            self.c_moe_touched = m.counter("serve.moe.experts_touched")
         # (dispatch span args, start event, end event) not yet read
         self._device_marks: list[tuple[dict, object, object]] = []
+        # routed moe: (dispatch span args, host copy of the step's expert
+        # counts) not yet read, and the per-expert rows read so far
+        self._moe_pending: list[tuple[dict, torch.Tensor]] = []
+        self.moe_expert_rows = np.zeros(
+            self.params["layers"]["moe"]["router"].shape[-1], np.int64) \
+            if self.cfg.routed_moe else None
+        # a list keeps every step's routing (request ids, positions,
+        # (n_layers, rows, k) expert ids on the device); None keeps none
+        self.route_steps: list | None = None
 
     def _device_mark(self):
         """A timing event recorded on the current stream, or None: only
@@ -399,6 +427,50 @@ class ServeLoop:
         for args, start, end in self._device_marks:
             args["device_ms"] = start.elapsed_time(end)
         self._device_marks.clear()
+
+    def _moe_log(self):
+        """A step's :class:`~repro_torch.models.moe.MoeLog` (keeping the
+        routes where ``route_steps`` is a list), or None unless the moe is
+        routed."""
+        if not self.cfg.routed_moe:
+            return None
+        return MoeLog(len(self.moe_expert_rows), self.device,
+                      routes=self.route_steps is not None)
+
+    def _moe_queue(self, args: dict, log, rids, positions) -> None:
+        """After a step's dispatch: its routed assignments (a row a
+        request id in ``rids``, fed at ``positions``, x top-k x layers)
+        into ``args`` and the counter, a copy of its counts to the host
+        queued on the stream (read by :meth:`_read_moe` after the next
+        logits copy) and, where kept, its routes."""
+        if log is None:
+            return
+        n = len(rids) * self.cfg.moe_topk * self.cfg.n_layers
+        if self.tracer.enabled:
+            args["moe_rows"] = n
+        self.c_moe_assign.inc(n)
+        if self.device.type == "cuda":
+            host = torch.empty(log.counts.shape, dtype=log.counts.dtype,
+                               pin_memory=True)
+            host.copy_(log.counts, non_blocking=True)
+        else:
+            host = log.counts
+        self._moe_pending.append((args, host))
+        if log.routes is not None:
+            self.route_steps.append((np.asarray(rids), np.asarray(positions),
+                                     torch.stack(log.routes)))
+
+    def _read_moe(self) -> None:
+        """``experts_touched`` of every queued step: their copies were
+        queued before the logits copy that just waited for the stream."""
+        for args, host in self._moe_pending:
+            c = host.numpy()
+            e = len(self.moe_expert_rows)
+            if self.tracer.enabled:
+                args["experts_touched"] = int(c[e])
+            self.c_moe_touched.inc(int(c[e]))
+            self.moe_expert_rows += c[:e].astype(np.int64)
+        self._moe_pending.clear()
 
     def _fault(self, point: str, **args) -> None:
         """Count one observed or injected fault at ``point``: a
@@ -657,10 +729,10 @@ class ServeLoop:
                 torch.tensor(mask, device=dev))
 
     def _step(self, toks: torch.Tensor, pos: torch.Tensor,
-              mask: torch.Tensor):
+              mask: torch.Tensor, rows=None, moe_log=None):
         logits, self.state = decode_step(
             self.params, self.cfg, self.state, toks, pos, self.engine,
-            row_mask=mask)
+            row_mask=mask, rows=rows, moe_log=moe_log)
         self.steps += 1
         return logits
 
@@ -1006,9 +1078,16 @@ class ServeLoop:
                         rows=gang_rows) as args:
             inputs = [torch.tensor(a, device=dev) for a in host]
             start = self._device_mark()
+            log = self._moe_log()
             self.state = prefill_kv_chunk(self.params, self.cfg, self.state,
-                                          *inputs, self.engine)
+                                          *inputs, self.engine, moe_log=log)
             self._close_mark(args, start)
+            if log is not None:
+                # the valid entries in gang-row order, each row's in turn
+                self._moe_queue(
+                    args, log,
+                    [self.slot_req[s] for s, _, t in rows for _ in range(t)],
+                    [p for _, d, t in rows for p in range(d, d + t)])
         self.c_prefill_rows.inc(gang_rows)
         self.chunk_steps += 1
         # charged by the prompt tokens each row processed in the chunk
@@ -1098,16 +1177,27 @@ class ServeLoop:
                              f_scale=self.f_scale)) as em:
             with tr.span("serve.decode.upload", rows=n_active):
                 inputs = self._upload(toks, self.pos, self.active)
+                # a routed moe: the live rows, and the step's counts
+                live = np.flatnonzero(self.active)
+                moe = {"rows": torch.tensor(live, device=self.device),
+                       "moe_log": self._moe_log()} \
+                    if self.cfg.routed_moe else {}
             self.c_decode_rows.inc(n_active)
             self.c_decode_steps.inc()
             with tr.span("serve.decode.dispatch") as args:
                 start = self._device_mark()
-                logits = self._step(*inputs)
+                logits = self._step(*inputs, **moe)
                 self._close_mark(args, start)
+                if moe:
+                    self._moe_queue(args, moe["moe_log"],
+                                    [self.slot_req[s] for s in live],
+                                    self.pos[live])
             with tr.span("serve.decode.sync"):
                 logits = logits[:, 0].float().cpu().numpy()
             if self._device_marks:
                 self._read_device_ms()
+            if self._moe_pending:
+                self._read_moe()
         # one token per live slot: an even split
         j_per_req = em.reading.joules / max(n_active, 1)
         for s in range(self.slots):

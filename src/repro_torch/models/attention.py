@@ -118,10 +118,13 @@ def _sdpa(q, k, v, mask, scale):
 
 
 def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
-              q_chunk: int = 1024, residual=None, return_kv: bool = False):
+              q_chunk: int = 1024, residual=None, return_kv: bool = False,
+              window=...):
     """Full-sequence attention (prefill).  x: (B, S, d).
 
-    Causal iff ``cfg.causal``, sliding-window iff ``cfg.swa_window``.
+    Causal iff ``cfg.causal``, sliding-window iff ``window`` (the layer's,
+    :meth:`~repro_torch.models.config.ArchConfig.layer_window`; ``...``
+    means ``cfg.swa_window``).
     Causal attention runs in q chunks of ``q_chunk`` rows (S must be a
     multiple): chunk i attends to keys [lo, (i + 1) * q_chunk) with an
     exact softmax, lo = 0 or the window's start aligned down to a chunk.
@@ -129,11 +132,13 @@ def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
     ``return_kv=True`` also returns the post-rope/qk-norm (k, v), what
     the decode cache stores."""
     b, s, _ = x.shape
+    if window is ...:
+        window = cfg.swa_window
     c = tp_context()
     if c is not None and c.tp > 1 and not heads_divide(cfg, c.tp) \
             and not return_kv:
         return _seq_parallel_attention(x, p, cfg, engine, cos, sin,
-                                       q_chunk, residual)
+                                       q_chunk, residual, window)
     q, k, v = _project_qkv(x, p, cfg, engine, cos, sin)
     scale = 1.0 / math.sqrt(cfg.d_head)
     if not cfg.causal:
@@ -146,7 +151,7 @@ def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
         outs = []
         for i in range(s // ch):
             qpos = torch.arange(i * ch, (i + 1) * ch, device=x.device)
-            lo, hi, mask = _chunk_keys(cfg, i, ch, qpos)
+            lo, hi, mask = _chunk_keys(i, ch, qpos, window)
             outs.append(_sdpa(q[:, i * ch:hi], k[:, lo:hi], v[:, lo:hi],
                               mask, scale))
         out = torch.cat(outs, dim=1)
@@ -154,12 +159,11 @@ def attention(x, p, cfg, engine: DotEngine, cos, sin, *,
     return (out, k, v) if return_kv else out
 
 
-def _chunk_keys(cfg, i: int, ch: int, qpos):
+def _chunk_keys(i: int, ch: int, qpos, window):
     """(lo, hi, mask) of causal q chunk ``i`` of ``ch`` rows: it attends
-    to keys [lo, (i + 1) * ch), lo = 0 or the window's start aligned
+    to keys [lo, (i + 1) * ch), lo = 0 or the ``window``'s start aligned
     down to a chunk; ``mask`` broadcasts against the scores of the
     query positions ``qpos``."""
-    window = cfg.swa_window
     hi = (i + 1) * ch
     lo = 0
     if window is not None:
@@ -173,7 +177,7 @@ def _chunk_keys(cfg, i: int, ch: int, qpos):
 
 
 def _seq_parallel_attention(x, p, cfg, engine: DotEngine, cos, sin,
-                            q_chunk: int, residual):
+                            q_chunk: int, residual, window):
     """Full-sequence attention on a mesh whose m-way model axis the head
     counts do not divide: the reference's sequence-parallel core (its
     queries sharded over the model axis, head-count independent).
@@ -215,7 +219,7 @@ def _seq_parallel_attention(x, p, cfg, engine: DotEngine, cos, sin,
     scale = 1.0 / math.sqrt(dh)
     outs = []
     for i in range(n):
-        lo, hi, mask = _chunk_keys(cfg, i, ch, qpos[i]) if cfg.causal \
+        lo, hi, mask = _chunk_keys(i, ch, qpos[i], window) if cfg.causal \
             else (0, s, None)
         outs.append(_sdpa(q[:, i * rows:(i + 1) * rows], k[:, lo:hi],
                           v[:, lo:hi], mask, scale))
@@ -232,14 +236,15 @@ def prefill_kv(x, p, cfg, engine: DotEngine, cos, sin):
 
 def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
                            phys_tables, write_tables, cur_pos, cos, sin,
-                           row_mask=None, residual=None):
+                           row_mask=None, residual=None, window=None):
     """One-token decode against the paged KV pool.
 
     x: (B, 1, d); k_pages/v_pages: (R, page_size, Hkv, dh) physical pool
     (last row reserved zero); phys_tables: (B, max_pages) int32 physical
     rows for this layer; write_tables: (B, max_pages) logical block
     table (-1 = unallocated); cur_pos: (B,) int positions (or a scalar);
-    row_mask: (B,) bool, rows with False write nothing.
+    row_mask: (B,) bool, rows with False write nothing; ``window``: the
+    layer's sliding window (None: every key up to ``cur_pos``).
 
     The new token's K/V is written **in place** into the pool, at
     (cur_pos // page_size, cur_pos % page_size) of each slot's page, for
@@ -280,7 +285,8 @@ def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
     v_pages[rows, offset] = torch.where(sel, v_new[:, 0], v_pages[rows, offset])
 
     out = paged_decode_attention_cuda(q[:, 0].contiguous(), k_pages, v_pages,
-                                      phys_tables, pos).reshape(b, 1, -1)
+                                      phys_tables, pos, window=window
+                                      ).reshape(b, 1, -1)
     if full:
         out = _local_columns(out)
     out = out_proj(engine, out, p["wo"], residual)
@@ -304,7 +310,7 @@ def ring_positions(cur_pos, c: int):
 
 
 def decode_plan(cfg, b: int, c: int, cache_positions, write_slot, cur_pos,
-                row_mask=None, device=None):
+                row_mask=None, device=None, window=...):
     """What every layer of one contiguous decode step shares, since it
     depends on the positions alone: ``(index, select, mask)``, the
     index of the entry each row writes in a layer's (B, C, ...) strip
@@ -312,8 +318,10 @@ def decode_plan(cfg, b: int, c: int, cache_positions, write_slot, cur_pos,
     no index is read on the host), the rows that write ((B, 1, 1, 1)
     bool, ``row_mask`` or all) and the attention mask over the C
     entries, broadcast against :func:`_sdpa`'s (B, Hkv, G, 1, C).  The
-    rules are :func:`decode_attention`'s."""
-    window = cfg.swa_window
+    rules are :func:`decode_attention`'s, under ``window`` (``...``:
+    ``cfg.swa_window``)."""
+    if window is ...:
+        window = cfg.swa_window
     cur = torch.as_tensor(cur_pos, device=device).to(torch.int64)
     ws = torch.as_tensor(write_slot, device=device).to(torch.int64)
     sel = torch.ones(b, dtype=torch.bool, device=device) \

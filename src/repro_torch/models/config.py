@@ -5,7 +5,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["ArchConfig", "SHAPES", "ShapeSpec"]
+__all__ = ["ArchConfig", "LayeredArchConfig", "YarnRope", "SHAPES",
+           "ShapeSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +24,30 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnRope:
+    """YaRN rotary scaling (transformers' ``yarn`` rope type, ``truncate``
+    on), for a head of ``dim`` rotated dims at base ``theta``:
+
+    * ``find(b) = dim * ln(orig / (2 pi b)) / (2 ln theta)``, with
+      ``orig = original_max_position_embeddings``;
+      ``low = max(floor(find(beta_fast)), 0)``,
+      ``high = min(ceil(find(beta_slow)), dim - 1)`` (``high`` is raised
+      by 0.001 where it equals ``low``);
+    * for i < dim / 2: ``ramp_i = clamp((i - low) / (high - low), 0, 1)``
+      and ``inv_freq_i = (1 - ramp_i) * theta ** (-2 i / dim)
+      + ramp_i * theta ** (-2 i / dim) / factor``: the fast dims keep
+      their frequency, the slow ones are interpolated by ``factor``;
+    * cos and sin are multiplied by ``attention_factor``, so a score
+      q . k carries its square.
+    """
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +115,25 @@ class ArchConfig:
         """Can this arch run long_500k decode with bounded state?"""
         return self.family in ("ssm", "hybrid") or self.swa_window is not None
 
+    # ---------------- per-layer attention -----------------
+    def layer_window(self, i: int) -> int | None:
+        """Layer ``i``'s sliding window (a key at position j is visible to
+        the query at position p iff p - window < j <= p), or None for full
+        causal attention: ``swa_window`` on every layer."""
+        return self.swa_window
+
+    def layer_rope(self, i: int) -> tuple[float, YarnRope | None]:
+        """Layer ``i``'s rotary embedding: (theta, YaRN scaling or
+        None)."""
+        return self.rope_theta, None
+
+    @property
+    def routed_moe(self) -> bool:
+        """Whether serving runs the moe layer's dropless routed path
+        (each token's top-k experts only, :func:`repro_torch.models.moe.
+        moe_routed`) in place of the all-experts combine."""
+        return False
+
     def runnable_shapes(self) -> list[str]:
         out = ["train_4k", "prefill_32k"]
         if self.has_decode:
@@ -134,3 +178,47 @@ class ArchConfig:
         dense = self.params_count() - \
             n_l * self.moe_experts * 3 * d * self.moe_dff
         return dense + n_l * self.moe_topk * 3 * d * self.moe_dff
+
+
+@dataclasses.dataclass(frozen=True)
+class LayeredArchConfig(ArchConfig):
+    """An :class:`ArchConfig` whose layers differ in their attention:
+    ``layer_types[i]`` is ``"full_attention"`` (causal over every key,
+    rotary at ``rope_theta`` with ``full_rope_yarn`` when given) or
+    ``"sliding_attention"`` (a window of ``sliding_window`` keys, plain
+    rotary at ``rope_theta``).  ``swa_window`` stays None: the whole-model
+    ring of the contiguous layout is not this.  A moe family serves
+    through the routed path."""
+    layer_types: tuple = ()
+    sliding_window: int = 0
+    full_rope_yarn: YarnRope | None = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.layer_types) != self.n_layers:
+            raise ValueError(f"{self.name}: {len(self.layer_types)} layer "
+                             f"types for {self.n_layers} layers")
+        bad = set(self.layer_types) - {"full_attention", "sliding_attention"}
+        if bad:
+            raise ValueError(f"{self.name}: unknown layer types {sorted(bad)}")
+        if "sliding_attention" in self.layer_types and self.sliding_window < 1:
+            raise ValueError(f"{self.name}: sliding layers need a window")
+        if self.swa_window is not None:
+            raise ValueError(f"{self.name}: per-layer windows replace "
+                             f"swa_window")
+
+    def layer_window(self, i: int) -> int | None:
+        return self.sliding_window \
+            if self.layer_types[i] == "sliding_attention" else None
+
+    def layer_rope(self, i: int) -> tuple[float, YarnRope | None]:
+        full = self.layer_types[i] == "full_attention"
+        return self.rope_theta, self.full_rope_yarn if full else None
+
+    @property
+    def subquadratic(self) -> bool:
+        return all(t == "sliding_attention" for t in self.layer_types)
+
+    @property
+    def routed_moe(self) -> bool:
+        return self.family == "moe"

@@ -29,7 +29,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["DotEngine", "rms_norm", "layer_norm", "rope", "apply_rope",
+__all__ = ["DotEngine", "rms_norm", "layer_norm", "rope", "yarn_inv_freq",
+           "apply_rope",
            "swiglu_mlp", "init_linear", "init_rms", "init_swiglu",
            "copy_to", "reduce_sum", "scatter", "gather", "out_proj",
            "tp_context"]
@@ -170,13 +171,41 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * gamma + beta
 
 
-def rope(positions, d_head: int, theta: float = 10000.0):
-    """Rotary tables: positions (...,) -> cos/sin (..., d_head/2), f32."""
+def yarn_inv_freq(d_head: int, theta: float, yarn, device=None):
+    """The (d_head/2,) f32 frequencies of YaRN scaling
+    (:class:`repro_torch.models.config.YarnRope` writes the formula)."""
     half = d_head // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=positions.device) / half)
+
+    def find(b):
+        return d_head * math.log(
+            yarn.original_max_position_embeddings / (b * 2 * math.pi)) \
+            / (2 * math.log(theta))
+
+    low = max(math.floor(find(yarn.beta_fast)), 0)
+    high = min(math.ceil(find(yarn.beta_slow)), d_head - 1)
+    if high == low:
+        high += 0.001
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - low) / (high - low), 0, 1)
+    base = theta ** (-i / half)
+    return (1 - ramp) * base + ramp * base / yarn.factor
+
+
+def rope(positions, d_head: int, theta: float = 10000.0, yarn=None):
+    """Rotary tables: positions (...,) -> cos/sin (..., d_head/2), f32;
+    with ``yarn`` (a :class:`~repro_torch.models.config.YarnRope`) its
+    frequencies, and both tables times its ``attention_factor``."""
+    half = d_head // 2
+    if yarn is None:
+        freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                        device=positions.device) / half)
+    else:
+        freqs = yarn_inv_freq(d_head, theta, yarn, positions.device)
     ang = positions[..., None].float() * freqs
-    return torch.cos(ang), torch.sin(ang)
+    if yarn is None:
+        return torch.cos(ang), torch.sin(ang)
+    return (torch.cos(ang) * yarn.attention_factor,
+            torch.sin(ang) * yarn.attention_factor)
 
 
 def apply_rope(x, cos, sin):

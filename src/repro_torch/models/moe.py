@@ -1,6 +1,6 @@
 """Token-choice top-k MoE, granite-3.0 style (port of ``repro.models.moe``).
 
-Three paths:
+Four paths:
 
 * :func:`moe_dense`: every expert on every token, gates combined by a
   sum of one-hots; dropless, the decode path and the oracle.
@@ -12,17 +12,26 @@ Three paths:
   to their experts' ranks and back, and the expert GEMMs run through
   :class:`~repro_torch.models.layers.DotEngine`.
 
-:func:`moe_ffn` picks between them as the reference does.  Under an
-active mesh context the experts are sharded over the model axis
-(padded to a multiple of it, :func:`padded_experts`): the dense and
-capacity paths run this rank's experts and all-gather their outputs.
+* :func:`moe_routed`: dropless and routed, the serving path of a config
+  whose ``routed_moe`` is set: each token's k experts run on it and
+  nothing else, through B5 (``kernels/sfc_matmul_grouped.py``) on the
+  card.
 
-The router's f32 product and the expert einsums are plain products
-outside any Pallas kernel in the reference (XLA); here they are torch
-ops.  The dispatch writes only through unique indices (kept buckets,
-or a discarded spare row), and the combine sums each token's ``k``
-assignments in a fixed order, so a step is bit-equal run to run on the
-card (no atomic adds).
+:func:`moe_ffn` picks between the first three as the reference does.
+Under an active mesh context the experts are sharded over the model
+axis (padded to a multiple of it, :func:`padded_experts`): the dense
+and capacity paths run this rank's experts and all-gather their
+outputs.
+
+The router's f32 product and the expert einsums of the first two paths
+are plain products outside any Pallas kernel in the reference (XLA);
+here they are torch ops, which the granite configs' serving and
+training run.  The routed path takes no library product on the card:
+the router through B1, the experts through B5.  The dispatch writes
+only through unique indices (kept buckets, a discarded spare row, or a
+permutation), and the combine sums each token's ``k`` assignments in a
+fixed order, so a step is bit-equal run to run on the card (no atomic
+adds).
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ from .layers import DotEngine, copy_to, gather, init_linear, reduce_sum, \
     scatter, tp_context
 
 __all__ = ["init_moe", "padded_experts", "moe_dense", "moe_capacity",
-           "moe_ep", "moe_ffn"]
+           "moe_ep", "moe_ffn", "moe_routed", "MoeLog"]
 
 
 def padded_experts(cfg, model_axis_size: int | None = None) -> int:
@@ -88,19 +97,94 @@ def _router(xf, params, cfg):
     renormalised; the Switch load-balance loss E * sum_e f_e p_e with
     f_e the top-1 fractions."""
     e_real = cfg.moe_experts
-    logits = xf.float() @ params["router"]
-    e_pad = logits.shape[-1]
-    if e_pad > e_real:
+    probs, w, idx = _top_k(xf.float() @ params["router"], cfg)
+    e_pad = probs.shape[-1]
+    pe = probs.mean(0)
+    fe = _one_hot(idx[:, 0], e_pad).float().mean(0)
+    aux = e_real * torch.sum(fe * pe)
+    return w, idx, aux
+
+
+def _top_k(logits, cfg):
+    """f32 router logits (T, E) -> (probs, weights (T, k), idx (T, k)):
+    softmax with pad experts masked, top-k by a stable descending sort
+    (ties to the lower index), weights renormalised."""
+    e_real = cfg.moe_experts
+    if logits.shape[-1] > e_real:
         logits = torch.cat([logits[..., :e_real],
                             logits[..., e_real:] - 1e30], dim=-1)
     probs = torch.softmax(logits, dim=-1)
     w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = w[:, :cfg.moe_topk], idx[:, :cfg.moe_topk]
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
-    pe = probs.mean(0)
-    fe = _one_hot(idx[:, 0], e_pad).float().mean(0)
-    aux = e_real * torch.sum(fe * pe)
-    return w, idx, aux
+    return probs, w, idx
+
+
+class MoeLog:
+    """What a serving step's routed moe layers report.  ``counts``: an
+    (E + 1,) int32 device tensor, ``[:E]`` each expert's rows summed over
+    the layers, ``[E]`` the experts touched (with a row) summed over the
+    layers.  ``routes``: None, or a list that gains each layer's (T, k)
+    expert ids (a token's in descending router order), in row order,
+    layer after layer."""
+
+    def __init__(self, experts: int, device, routes: bool = False):
+        self.counts = torch.zeros(experts + 1, dtype=torch.int32,
+                                  device=device)
+        self.routes = [] if routes else None
+
+    def add(self, idx, counts) -> None:
+        e = len(counts)
+        self.counts[:e] += counts.to(self.counts.dtype)
+        self.counts[e] += (counts > 0).sum().to(self.counts.dtype)
+        if self.routes is not None:
+            self.routes.append(idx)
+
+
+def moe_routed(xf, params, cfg, engine: DotEngine, log: MoeLog | None = None):
+    """Dropless routed experts: xf (T, d) -> y (T, d) f32, each token
+    through its own top-k experts only.
+
+    The router's f32 product runs through ``engine.dot`` (B1) and
+    :func:`_top_k` renormalises the top-k.  The T k assignments are
+    ordered by expert on the device (a stable argsort: each expert's rows
+    in token order) and each expert's segment offsets come from a device
+    cumsum of the counts; the host learns nothing (no sync).  B5
+    (:func:`repro_torch.kernels.sfc_matmul_grouped.sfc_matmul_grouped`)
+    runs the gated up-projection ``silu(x w1_e) * (x w3_e)`` into the
+    activation dtype and the down-projection ``w2_e`` in f32, each over
+    every expert in one launch, tiles in ``engine.schedule``'s curve
+    order (morton where that names no curve).  Each token then sums its
+    k weighted outputs in f32 in a fixed order (no atomics).
+
+    ``log`` (a :class:`MoeLog`) gains the layer's counts and, where it
+    keeps them, its routes.
+    """
+    from repro_torch.core.schedule import SCHEDULES
+    from repro_torch.kernels.sfc_matmul_grouped import sfc_matmul_grouped
+
+    t, d = xf.shape
+    k = cfg.moe_topk
+    e = params["router"].shape[-1]
+    logits = engine.dot(xf.float(), params["router"], out_dtype=torch.float32)
+    _, w, idx = _top_k(logits, cfg)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = (flat[:, None] == torch.arange(e, device=xf.device)).sum(0)
+    offsets = torch.zeros(e + 1, dtype=torch.int32, device=xf.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    xs = xf[order // k].contiguous()                       # (T k, d)
+    sched = engine.schedule if engine.schedule in SCHEDULES else "morton"
+    h = sfc_matmul_grouped(xs, params["w1"], offsets, w3=params["w3"],
+                           seg_max=t, schedule=sched)
+    out = sfc_matmul_grouped(h, params["w2"], offsets, seg_max=t,
+                             schedule=sched, out_dtype=torch.float32)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=xf.device)
+    y = (out[inv].view(t, k, d) * w[..., None]).sum(1)
+    if log is not None:
+        log.add(idx, counts)
+    return y
 
 
 def _expert_ffn(buf, params):

@@ -238,9 +238,11 @@ def _unbind_layers(tree, n: int) -> list[dict]:
     return out
 
 
-def _layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
+def _layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin,
+               window=...):
     """One layer of the full-sequence forward -> (x, aux), the
-    reference's branch per family.  The residual adds ride the
+    reference's branch per family, attention under the layer's
+    ``window`` (``...``: ``cfg.swa_window``).  The residual adds ride the
     out-projection's and the down-projection's fused epilogues where
     the reference fuses them; ``aux`` is the moe router's load-balance
     loss (0 for the other families)."""
@@ -251,7 +253,7 @@ def _layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
     if cfg.family == "hybrid":
         h = rms_norm(x, lp["norm1"])
         a = attn_mod.attention(h, lp["attn"], cfg, engine, cos, sin,
-                               q_chunk=cfg.attn_q_chunk)
+                               q_chunk=cfg.attn_q_chunk, window=window)
         s = ssm_mod.ssd_forward(h, lp["ssm"], cfg, engine,
                                 chunk=cfg.ssd_chunk)
         x = x + 0.5 * (rms_norm(a, lp["attn_out_norm"])
@@ -259,12 +261,13 @@ def _layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
     else:
         x = attn_mod.attention(rms_norm(x, lp["norm1"]), lp["attn"], cfg,
                                engine, cos, sin, q_chunk=cfg.attn_q_chunk,
-                               residual=x)
+                               residual=x, window=window)
     x, aux = _ffn(x, lp, cfg, engine, impl="auto")
     return x, zero if aux is None else aux
 
 
-def _remat_layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
+def _remat_layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin,
+                     window=...):
     """:func:`_layer_fwd` under a per-layer checkpoint (non-reentrant).
     ``"full"`` keeps only the layer's input and recomputes the layer in
     the backward, GEMMs included; ``"dots"`` keeps the layer's GEMM
@@ -281,7 +284,7 @@ def _remat_layer_fwd(x, lp, cfg: ArchConfig, engine: DotEngine, cos, sin):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
                          f"choose 'dots' or 'full'")
     return torch.utils.checkpoint.checkpoint(
-        _layer_fwd, x, lp, cfg, engine, cos, sin, use_reentrant=False,
+        _layer_fwd, x, lp, cfg, engine, cos, sin, window, use_reentrant=False,
         context_fn=context_fn, preserve_rng_state=False)
 
 
@@ -309,7 +312,8 @@ def embed_inputs(params, cfg: ArchConfig, batch, engine: DotEngine):
 def forward(params, cfg: ArchConfig, batch, engine: DotEngine | None = None):
     """Full-sequence forward -> (logits (B, S, padded_vocab) f32, aux).
 
-    Rope over ``arange(S)``, the layer loop (each layer checkpointed
+    Rope over ``arange(S)`` (one table per kind of layer,
+    :func:`_layer_ropes`), the layer loop (each layer checkpointed
     when ``cfg.remat`` and grad mode are on), ``final_norm``, and the
     vocab head with its f32 output fused into the GEMM; padded vocab
     columns are masked to -1e30.  ``aux`` is the mean of the layers'
@@ -318,16 +322,12 @@ def forward(params, cfg: ArchConfig, batch, engine: DotEngine | None = None):
     engine = engine or DotEngine()
     x = embed_inputs(params, cfg, batch, engine)
     s = x.shape[1]
-    if cfg.has_attention and cfg.rope:
-        cos, sin = rope(torch.arange(s, device=x.device), cfg.d_head,
-                        cfg.rope_theta)
-    else:
-        cos = sin = None
+    ropes = _layer_ropes(cfg, torch.arange(s, device=x.device))
     layer = _remat_layer_fwd if cfg.remat and torch.is_grad_enabled() \
         else _layer_fwd
     auxs = []
-    for lp in _unbind_layers(params["layers"], cfg.n_layers):
-        x, aux = layer(x, lp, cfg, engine, cos, sin)
+    for i, lp in enumerate(_unbind_layers(params["layers"], cfg.n_layers)):
+        x, aux = layer(x, lp, cfg, engine, *ropes[i], cfg.layer_window(i))
         auxs.append(aux)
     x = rms_norm(x, params["final_norm"])
     logits = _head(x, params, cfg, engine) if cfg.vocab else x
@@ -438,18 +438,69 @@ def _decode_rope(cfg: ArchConfig, pos, device):
     return cos[:, None], sin[:, None]
 
 
-def _ffn(x, lp, cfg: ArchConfig, engine: DotEngine, impl: str = "dense"):
+def _layer_ropes(cfg: ArchConfig, positions) -> list[tuple]:
+    """Each layer's (cos, sin) at ``positions`` (``rope`` of its kind,
+    :meth:`~repro_torch.models.config.ArchConfig.layer_rope`): one table
+    a kind, built once and shared by its layers; (None, None) without
+    rope."""
+    if not (cfg.has_attention and cfg.rope):
+        return [(None, None)] * cfg.n_layers
+    tables: dict = {}
+    out = []
+    for i in range(cfg.n_layers):
+        key = cfg.layer_rope(i)
+        if key not in tables:
+            tables[key] = rope(positions, cfg.d_head, *key)
+        out.append(tables[key])
+    return out
+
+
+def _decode_ropes(cfg: ArchConfig, pos, device) -> list[tuple]:
+    """:func:`_layer_ropes` for a decode step's position(s): (1|B, 1,
+    dh/2) a table."""
+    pvec = torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1)
+    return [(c if c is None else c[:, None], s if s is None else s[:, None])
+            for c, s in _layer_ropes(cfg, pvec)]
+
+
+def _ffn(x, lp, cfg: ArchConfig, engine: DotEngine, impl: str = "serve",
+         rows=None, moe_log=None):
     """The block's second half -> (x, aux): the SwiGLU MLP (its residual
-    fused; aux None), or the moe layer through ``moe_ffn(impl=...)``:
-    ``"dense"``, dropless, in decode and prefill as in the reference,
-    ``"auto"`` in training."""
+    fused; aux None), or the moe layer.  ``impl="serve"`` (decode and
+    prefill) runs the routed path where ``cfg.routed_moe``
+    (:func:`_routed_ffn`: only ``rows``, flat indices of x's valid rows,
+    are routed) and otherwise ``moe_ffn(impl="dense")``, dropless, as in
+    the reference; any other ``impl`` goes to ``moe_ffn`` (``"auto"`` in
+    training)."""
     h = rms_norm(x, lp["norm2"])
     if cfg.family == "moe":
+        if impl == "serve" and cfg.routed_moe:
+            return _routed_ffn(x, h, lp["moe"], cfg, engine, rows,
+                               moe_log), None
         c = tp_context()
         y, aux = moe_mod.moe_ffn(h, lp["moe"], cfg, engine,
-                                 mesh=c.mesh if c else None, impl=impl)
+                                 mesh=c.mesh if c else None,
+                                 impl="dense" if impl == "serve" else impl)
         return x + y, aux
     return swiglu_mlp(h, lp["mlp"], engine, residual=x), None
+
+
+def _routed_ffn(x, h, params, cfg: ArchConfig, engine: DotEngine, rows,
+                moe_log):
+    """x + the routed experts' output on the rows ``rows`` (flat indices
+    into x's rows; None: every row), summed in f32 and rounded once; the
+    other rows keep x.  ``moe_log`` (a :class:`~repro_torch.models.moe.
+    MoeLog`) gains the layer's expert counts and routes."""
+    d = x.shape[-1]
+    xf, hf = x.reshape(-1, d), h.reshape(-1, d)
+    if rows is None:
+        y = moe_mod.moe_routed(hf, params, cfg, engine, moe_log)
+        return (xf.float() + y).to(x.dtype).reshape(x.shape)
+    out = xf.clone()
+    if rows.numel():
+        y = moe_mod.moe_routed(hf[rows], params, cfg, engine, moe_log)
+        out[rows] = (xf[rows].float() + y).to(x.dtype)
+    return out.reshape(x.shape)
 
 
 def _ssm_step(h, lp, cfg: ArchConfig, engine: DotEngine, state, i: int,
@@ -466,12 +517,13 @@ def _ssm_step(h, lp, cfg: ArchConfig, engine: DotEngine, state, i: int,
 
 
 def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
-                       engine: DotEngine, row_mask):
+                       engine: DotEngine, row_mask, rows=None,
+                       moe_log=None):
     from repro_torch.serve.paged_kv import physical_rows, zero_row_index
 
     dev = tokens.device
     x = _embed(params["embed"], tokens, cfg.act_torch_dtype())
-    cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
+    ropes = _decode_ropes(cfg, pos, dev)
     kp, vp = state["k_pages"], state["v_pages"]
     bt = state["block_tables"]
     # physical rows of every layer at once: (n_layers, B, max_pages);
@@ -481,19 +533,21 @@ def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
         x, kp, vp = attn_mod.paged_decode_attention(
-            h, lp["attn"], cfg, engine, kp, vp, phys[i], bt, pos, cos, sin,
-            row_mask, residual=x)
-        x, _ = _ffn(x, lp, cfg, engine)
+            h, lp["attn"], cfg, engine, kp, vp, phys[i], bt, pos, *ropes[i],
+            row_mask, residual=x, window=cfg.layer_window(i))
+        x, _ = _ffn(x, lp, cfg, engine, rows=rows, moe_log=moe_log)
     x = rms_norm(x, params["final_norm"])
     return _head(x, params, cfg, engine), state
 
 
 def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
-                            engine: DotEngine, row_mask):
+                            engine: DotEngine, row_mask, rows=None,
+                            moe_log=None):
     """The contiguous strips: the new token goes to entry ``pos % c``
     of its row (c the strips' length: a ring when SWA bounds it).  The
     write index and the attention mask are computed once for all
-    layers (:func:`~repro_torch.models.attention.decode_plan`).  A
+    layers (:func:`~repro_torch.models.attention.decode_plan`, one a
+    window where the layers' windows differ).  A
     scalar ``pos`` then sets ``kv_pos`` at that entry, as the reference
     does; per-row positions leave ``kv_pos`` alone, since their
     validity comes from each row's own clock and never reads it.  The
@@ -508,17 +562,24 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
     x = _embed(params["embed"], tokens, cfg.act_torch_dtype())
     p = torch.as_tensor(pos, device=dev).to(torch.int64)
     c = tp_context()
+    plans: dict = {}
     if cfg.has_attention:
-        cos, sin = _decode_rope(cfg, pos, dev) if cfg.rope else (None, None)
+        ropes = _decode_ropes(cfg, pos, dev)
         k, v, kv_pos = state["k"], state["v"], state["kv_pos"]
         seq = c.sp if c is not None else ()
         n_seq = c.mesh.size(seq) if seq else 1
         slot = torch.remainder(p, k.shape[2] * n_seq)
-        plan = None if c is not None else attn_mod.decode_plan(
-            cfg, k.shape[1], k.shape[2], kv_pos, slot, p, row_mask, dev)
+        if c is None:
+            for w in {cfg.layer_window(i) for i in range(cfg.n_layers)}:
+                plans[w] = attn_mod.decode_plan(
+                    cfg, k.shape[1], k.shape[2], kv_pos, slot, p, row_mask,
+                    dev, window=w)
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
+        if cfg.has_attention:
+            cos, sin = ropes[i]
+            plan = plans.get(cfg.layer_window(i))
         if cfg.family == "ssm":
             x = x + _ssm_step(h, lp, cfg, engine, state, i, row_mask)
             continue
@@ -533,7 +594,7 @@ def _decode_step_contiguous(params, cfg: ArchConfig, state, tokens, pos,
             x, _, _ = attn_mod.decode_attention(
                 h, lp["attn"], cfg, engine, k[i], v[i], kv_pos, slot, p,
                 cos, sin, row_mask, residual=x, plan=plan)
-        x, _ = _ffn(x, lp, cfg, engine)
+        x, _ = _ffn(x, lp, cfg, engine, rows=rows, moe_log=moe_log)
     if cfg.has_attention and p.dim() == 0:
         # a (1,) index: a 0-d index tensor would be read on the host
         if c is None:
@@ -587,16 +648,16 @@ def prefill_kv(params, cfg: ArchConfig, state, tokens, slot: int = 0,
         raise ValueError(f"a {seq}-token prompt outgrows the "
                          f"{state['k'].shape[2]}-entry strips")
     x = params["embed"][toks].to(cfg.act_torch_dtype())
-    cos, sin = rope(torch.arange(seq, device=dev), cfg.d_head,
-                    cfg.rope_theta) if cfg.rope else (None, None)
+    ropes = _layer_ropes(cfg, torch.arange(seq, device=dev))
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
         # q_chunk=seq: one exact-softmax chunk for any prompt length
-        x, k, v = attn_mod.attention(h, lp["attn"], cfg, engine, cos, sin,
+        x, k, v = attn_mod.attention(h, lp["attn"], cfg, engine, *ropes[i],
                                      q_chunk=seq, residual=x,
-                                     return_kv=True)
+                                     return_kv=True,
+                                     window=cfg.layer_window(i))
         x, _ = _ffn(x, lp, cfg, engine)
         ks.append(k[0])
         vs.append(v[0])
@@ -633,7 +694,8 @@ def _write_prompt_pages(state, slot: int, seq: int, npg: int, ks, vs):
 
 
 def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
-                     starts, lengths, engine: DotEngine | None = None):
+                     starts, lengths, engine: DotEngine | None = None,
+                     moe_log=None):
     """Chunked, batched prefill: one prompt chunk per row, written
     through the block tables into the paged pool or into the contiguous
     strips.
@@ -644,7 +706,12 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
     columns, and whole pad rows of length 0, write nothing).  Chunk
     queries attend to the slot's whole written span [0, start + length)
     (earlier chunks are read back from the cache), so chunks interleaved
-    with decode steps give the single-shot :func:`prefill_kv` K/V.  The
+    with decode steps give the single-shot :func:`prefill_kv` K/V.  On a
+    layer with a window W (:meth:`~repro_torch.models.config.ArchConfig.
+    layer_window`) a query at position p attends to the keys in
+    (p - W, p] only, and the paged layout gathers only the pages that
+    hold them: ``ceil((W + L - 1) / page_size) + 1`` a row from the
+    row's first page inside the window.  The
     positions written must be covered by allocated pages
     (``PageAllocator.ensure_range``), or lie within the strips (a
     position past them raises: chunked prefill has no ring).
@@ -659,7 +726,10 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
     cache is updated **in place** (the same object).  No logits: the
     serving loop samples the first token from a decode step fed the
     prompt's last token.  Pure-attention families, like
-    :func:`prefill_kv`."""
+    :func:`prefill_kv`; a routed moe routes the valid entries only (pad
+    columns and pad rows are not routed), and ``moe_log`` (a
+    :class:`~repro_torch.models.moe.MoeLog`) gains their expert counts
+    and routes, the valid entries in row-major order."""
     engine = engine or DotEngine()
     _require_attention_only(cfg, "chunked prefill")
     paged = state.layout.is_paged
@@ -675,8 +745,7 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
     pos2d = starts_v[:, None] + cols                           # (G, L)
     valid = cols[None, :] < lens_v[:, None]
     x = params["embed"][toks].to(cfg.act_torch_dtype())
-    cos, sin = rope(pos2d, cfg.d_head, cfg.rope_theta) if cfg.rope \
-        else (None, None)                                      # (G, L, dh/2)
+    ropes = _layer_ropes(cfg, pos2d)                           # (G, L, dh/2)
     scale = 1.0 / math.sqrt(cfg.d_head)
     if paged:
         from repro_torch.serve.paged_kv import physical_rows, zero_row_index
@@ -703,15 +772,38 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
     wi = wmask.reshape(-1).nonzero().squeeze(1)
     ent = ent[wi]
     # causal over the written extent: key t is visible to the query at
-    # position p iff t <= min(p, start + length - 1)
+    # position p iff t <= min(p, start + length - 1), and t > p - W on a
+    # layer with a window W
+    last = torch.minimum(pos2d, (starts_v + lens_v - 1)[:, None])  # (G, L)
     kpos = torch.arange(span, device=dev)[None, None, :]
-    mask = kpos <= torch.minimum(
-        pos2d, (starts_v + lens_v - 1)[:, None])[:, :, None]   # (G, L, span)
-    mask = mask[:, None, None]
+    masks = {}
+    first_page = {}
+    for w in {cfg.layer_window(i) for i in range(cfg.n_layers)}:
+        if w is None:
+            masks[w] = (kpos <= last[:, :, None])[:, None, None]
+        elif paged:
+            # the window's pages of each row: wp from the row's first
+            # page inside the window of its first query (clamped so the
+            # gather stays inside the table)
+            wp = min(max_pages, -(-(w + chunk - 1) // ps) + 1)
+            fp = torch.clamp((starts_v - w + 1) // ps, 0, max_pages - wp)
+            pages = fp[:, None] + torch.arange(wp, device=dev)   # (G, wp)
+            wpos = (pages[:, :, None] * ps
+                    + torch.arange(ps, device=dev)).reshape(g, 1, -1)
+            masks[w] = ((wpos <= last[:, :, None])
+                        & (wpos > pos2d[:, :, None] - w))[:, None, None]
+            first_page[w] = pages
+        else:
+            masks[w] = ((kpos <= last[:, :, None])
+                        & (kpos > pos2d[:, :, None] - w))[:, None, None]
+    # the valid entries' flat rows, routed by a routed moe
+    moe_rows = wi if cfg.routed_moe else None
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
-        q, k, v = attn_mod._project_qkv(h, lp["attn"], cfg, engine, cos, sin)
+        w = cfg.layer_window(i)
+        q, k, v = attn_mod._project_qkv(h, lp["attn"], cfg, engine,
+                                        *ropes[i])
         k_rows = k.reshape(g * chunk, *k.shape[2:])[wi]
         v_rows = v.reshape(g * chunk, *v.shape[2:])[wi]
         if paged:
@@ -719,17 +811,19 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
             rows = torch.gather(phys, 1, pg2d).reshape(-1)[wi]
             kc[rows, ent] = k_rows
             vc[rows, ent] = v_rows
-            kf = kc[phys].reshape(g, span, *k.shape[2:])
-            vf = vc[phys].reshape(g, span, *v.shape[2:])
+            if w in first_page:
+                phys = torch.gather(phys, 1, first_page[w])
+            kf = kc[phys].reshape(g, -1, *k.shape[2:])
+            vf = vc[phys].reshape(g, -1, *v.shape[2:])
         else:
             rows = slots_v[:, None].expand(g, chunk).reshape(-1)[wi]
             kc[i, rows, ent] = k_rows
             vc[i, rows, ent] = v_rows
             kf = kc[i, slots_v]                                # (G, C, ...)
             vf = vc[i, slots_v]
-        o = attn_mod._sdpa(q, kf, vf, mask, scale)
+        o = attn_mod._sdpa(q, kf, vf, masks[w], scale)
         x = engine.dot(o.reshape(g, chunk, -1), lp["attn"]["wo"], residual=x)
-        x, _ = _ffn(x, lp, cfg, engine)
+        x, _ = _ffn(x, lp, cfg, engine, rows=moe_rows, moe_log=moe_log)
     if not paged:
         kv_pos = state["kv_pos"]
         flat = pos2d.reshape(-1)[wi]
@@ -738,10 +832,14 @@ def prefill_kv_chunk(params, cfg: ArchConfig, state, tokens, slots,
 
 
 def decode_step(params, cfg: ArchConfig, state, tokens, pos,
-                engine: DotEngine | None = None, row_mask=None):
+                engine: DotEngine | None = None, row_mask=None, rows=None,
+                moe_log=None):
     """One decode step.  tokens: (B, 1) int; pos: a scalar position
     shared by every row or a (B,) vector of per-row positions; row_mask
-    (B,) bool: rows with False leave the cache untouched.
+    (B,) bool: rows with False leave the cache untouched.  A routed moe
+    (``cfg.routed_moe``) routes only ``rows`` ((n,) int64 indices of the
+    live rows; None: all B) and adds their expert counts and routes to
+    ``moe_log`` (a :class:`~repro_torch.models.moe.MoeLog`).
 
     The layout is read off the state: the paged pool (its decode
     kernel) or the contiguous strips, a ring of one window under SWA
@@ -759,4 +857,5 @@ def decode_step(params, cfg: ArchConfig, state, tokens, pos,
     _require_decode(cfg)
     step = _decode_step_paged if state.layout.is_paged \
         else _decode_step_contiguous
-    return step(params, cfg, state, tokens, pos, engine, row_mask)
+    return step(params, cfg, state, tokens, pos, engine, row_mask, rows,
+                moe_log)

@@ -500,12 +500,16 @@ def init_paged_decode_state(cfg, slots: int, *, page_size: int = 8,
     (row ``i`` holds the logical (layer, page) whose Morton position is
     ``i``; the last row is the reserved zero row), ``page_perm``
     (n_layers, num_pages) int32 and ``block_tables`` (slots,
-    max_pages_per_slot) int32, all -1."""
+    max_pages_per_slot) int32, all -1.  Every layer keeps the slot's
+    pages, window layers too (:meth:`~repro_torch.models.config.
+    ArchConfig.layer_window`: they read only their window's pages); a
+    whole-model ``swa_window`` ring raises."""
     if not cfg.has_attention or cfg.has_ssm:
         raise ValueError(
             f"paged KV cache needs a pure-attention family, got "
             f"{cfg.family!r} (ssm/hybrid states are not paged)")
     if cfg.swa_window is not None:
+        # a whole-model ring; windows per layer keep every page
         raise ValueError("paged KV cache does not implement SWA rings yet")
     dev = resolve_device(device)
     dtype = dtype or cfg.act_torch_dtype()
