@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.ref import paged_decode_attention_ref
 from repro_torch.kernels.sfc_matmul import sm_count
 from repro_torch.runtime.chaos import fire as _chaos_fire
@@ -45,6 +45,7 @@ __all__ = ["paged_decode_attention_cuda", "attn_split_plan",
 # counted), and those of them with a window
 launches = 0
 window_launches = 0
+launch_counts.register(__name__, "launches", "window_launches")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"paged_attention_launch": (

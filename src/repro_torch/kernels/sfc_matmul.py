@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from repro_torch.core.curves import hilbert_decode, morton_decode
 from repro_torch.core.schedule import grid_schedule, is_pow2, \
     schedule_extra_kwargs
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.ref import ACTIVATIONS, apply_epilogue_ref
 
 __all__ = ["sfc_matmul_cuda", "sfc_matmul_batched_cuda", "sfc_matmul_plain",
@@ -70,6 +70,8 @@ launches = 0
 batched_launches = 0
 # the B1 and B3 launches among them that took the tensor-core tile path
 tile_tc_launches = 0
+launch_counts.register(__name__, "launches", "batched_launches",
+                       "tile_tc_launches")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {"none": 0, "relu": 1, "gelu": 2, "silu": 3}

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_counts
 from repro_torch.kernels.sfc_matmul import _DTYPE_CODE, _device_table, \
     sfc_matmul_plain, tile_schedule
 from repro_torch.kernels.sfc_matmul import _SMEM_LIMIT as SMEM_LIMIT
@@ -39,6 +39,7 @@ __all__ = ["sfc_matmul_cached", "sfc_matmul_cached_plain", "dma_counts",
 
 # kernel launches made by sfc_matmul_cached (CPU calls are not counted)
 launches = 0
+launch_counts.register(__name__, "launches")
 
 _MAX_TILE = 256 * 64  # bm * bn: 256 consumer threads x 64 f32 accumulators
 RING = 128            # the kernel's kRing: ring entries (steps in flight)

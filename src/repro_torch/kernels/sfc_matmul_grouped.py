@@ -26,13 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.schedule import grid_schedule
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_counts
 
 __all__ = ["sfc_matmul_grouped", "sfc_matmul_grouped_plain",
            "grouped_tables", "grouped_row_tile", "grouped_launches"]
 
 # kernel launches made by sfc_matmul_grouped (CPU calls are not counted)
 grouped_launches = 0
+launch_counts.register(__name__, "grouped_launches")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"sfc_matmul_grouped_launch": (

@@ -92,6 +92,16 @@ card's idle inside the step.  The counters ``serve.prefill.rows``,
 ``serve.decode.rows`` and ``serve.decode.steps`` sum the same rows and
 steps for ``--metrics-report``.
 
+On the card with the paged pool, and with no chaos plan, mesh context or
+GEMM counter active, the decode step is a replay of a CUDA graph
+captured from the unchanged ``decode_step`` at the loop's first decode
+step (:mod:`repro_torch.launch.decode_graph`: the same kernels, in the
+same order, sent by one launch); everything else decodes eagerly.
+``serve.decode.graph_captures`` counts the graphs captured (one a key,
+each also an instant event) and ``serve.decode.graph_replays`` the
+decode steps replayed; their share of ``serve.decode.steps`` says how
+often the replay engages.
+
 A routed moe (``cfg.routed_moe``) routes only the live decode rows (their
 indices uploaded with the step's inputs) and the gang's prompt tokens.
 Each step's per-expert counts, summed over layers, land in a small
@@ -147,6 +157,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.decode_graph import DecodeGraphs, eager_reasons
 from repro_torch.launch.steps import _engine_for
 from repro_torch.models import DotEngine, decode_step, \
     fused_epilogue_savings_bytes, init_decode_state, init_model, \
@@ -351,6 +362,10 @@ class ServeLoop:
         every = sc.snapshot_every or (1 if self.chaos is not None else None)
         self.snapshotter = ServeSnapshotter(
             self, every=every, root=sc.snapshot_dir) if every else None
+        # the decode step's captured graphs and their static inputs, where
+        # the loop can replay (on the card, paged, no chaos plan or mesh)
+        self._graphs = DecodeGraphs(self) if not eager_reasons(self) \
+            else None
 
     # -------------------------------------------------------------- obs --
     def _bind_obs(self, metrics: MetricsRegistry, tracer: Tracer) -> None:
@@ -388,6 +403,9 @@ class ServeLoop:
         self.c_prefill_rows = m.counter("serve.prefill.rows")
         self.c_decode_rows = m.counter("serve.decode.rows")
         self.c_decode_steps = m.counter("serve.decode.steps")
+        # decode graphs captured (one a key) and decode steps replayed
+        self.c_graph_captures = m.counter("serve.decode.graph_captures")
+        self.c_graph_replays = m.counter("serve.decode.graph_replays")
         if self.cfg.routed_moe:
             self.c_moe_assign = m.counter("serve.moe.assignments")
             self.c_moe_touched = m.counter("serve.moe.experts_touched")
@@ -674,8 +692,10 @@ class ServeLoop:
             self._sync_tables()
 
     def _sync_tables(self):
-        self.state["block_tables"] = torch.tensor(
-            self.alloc.block_table, device=self.device)
+        """The allocator's block tables into the state's tensor, in place:
+        a decode graph reads it at the address it had at capture."""
+        self.state["block_tables"].copy_(
+            torch.from_numpy(self.alloc.block_table))
 
     def _scrub_pages(self, page_ids):
         """Zero the physical rows (all layers) of newly allocated pages
@@ -730,10 +750,21 @@ class ServeLoop:
 
     def _step(self, toks: torch.Tensor, pos: torch.Tensor,
               mask: torch.Tensor, rows=None, moe_log=None):
+        """One decode step: a replay of its captured graph where the loop
+        can replay (:mod:`repro_torch.launch.decode_graph`), else
+        eager.  A replay's logits are overwritten by the next step."""
+        if self._graphs is not None and not eager_reasons(self):
+            logits = self._graphs.step(toks, pos, mask, rows, moe_log)
+        else:
+            logits = self._decode(toks, pos, mask, rows, moe_log)
+        self.steps += 1
+        return logits
+
+    def _decode(self, toks, pos, mask, rows=None, moe_log=None):
+        """The eager decode step, which a decode graph captures."""
         logits, self.state = decode_step(
             self.params, self.cfg, self.state, toks, pos, self.engine,
             row_mask=mask, rows=rows, moe_log=moe_log)
-        self.steps += 1
         return logits
 
     def _preempt_victim(self, needer: int) -> bool:

@@ -88,13 +88,15 @@ def _run_both(weights, mode, sc, prompts, max_new=6, **extra):
 
 
 # the port's own series and spans, which the reference has no
-# counterpart of: the decode and chunk steps' rows, and the phases inside
-# serve.decode and serve.prefill_chunk
+# counterpart of: the decode and chunk steps' rows, the phases inside
+# serve.decode and serve.prefill_chunk, and the decode graphs' captures
+# and replays
 PORT_ONLY = ("serve.prefill.rows", "serve.decode.rows", "serve.decode.steps",
              "serve.decode.pages", "serve.decode.upload",
              "serve.decode.dispatch", "serve.decode.sync",
              "serve.decode.sample", "serve.prefill_chunk.plan",
-             "serve.prefill_chunk.dispatch")
+             "serve.prefill_chunk.dispatch", "serve.decode.graph_captures",
+             "serve.decode.graph_replays")
 
 
 def _series(loop):
