@@ -19,6 +19,7 @@ shards (``distributed.sp_attention``)."""
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +29,8 @@ from .layers import DotEngine, apply_rope, copy_to, gather, init_linear, \
     init_rms, out_proj, rms_norm, scatter, tp_context
 
 __all__ = ["init_attention", "attention", "prefill_kv",
-           "decode_attention", "decode_plan", "paged_decode_attention"]
+           "decode_attention", "decode_plan", "paged_decode_attention",
+           "paged_decode_plan", "PagedDecodePlan"]
 
 
 def init_attention(generator, cfg, dtype=torch.float32, *, lead=(),
@@ -234,26 +236,62 @@ def prefill_kv(x, p, cfg, engine: DotEngine, cos, sin):
     return k, v
 
 
+class PagedDecodePlan(NamedTuple):
+    """What every layer of one paged decode step shares, since it
+    depends on the positions, the block table and the row mask alone
+    (:func:`paged_decode_plan`)."""
+    pos: torch.Tensor      # (B,) int32, contiguous: B2's positions
+    offset: torch.Tensor   # (B,) int64: the entry of its page a row writes
+    page: torch.Tensor     # (B, 1) int64: its page, clamped into the table
+    write: torch.Tensor    # (B,) bool: rows that write
+
+
+def paged_decode_plan(cur_pos, block_tables, page_size: int,
+                      row_mask=None) -> PagedDecodePlan:
+    """The write plan of one paged decode step, built once for all its
+    layers.  cur_pos: (B,) int positions (or a scalar); block_tables:
+    (B, max_pages) logical block table (-1 = unallocated); row_mask:
+    (B,) bool, rows with False write nothing.
+
+    Row b writes at entry ``cur_pos[b] % page_size`` of its page
+    ``cur_pos[b] // page_size`` if that page's logical entry is
+    allocated and its row_mask is set.  A stale position of an idle
+    slot may point past its table: it writes nothing, and its page
+    index is clamped (the step gathers every layer's physical row with
+    it)."""
+    b, max_pages = block_tables.shape
+    pos = torch.as_tensor(cur_pos, device=block_tables.device) \
+        .to(torch.int32).reshape(-1).expand(b).contiguous()
+    p64 = pos.to(torch.int64)
+    page_idx = p64 // page_size
+    page = page_idx.clamp(max=max_pages - 1)[:, None]
+    write = (torch.gather(block_tables, 1, page)[:, 0] >= 0) \
+        & (page_idx < max_pages)
+    if row_mask is not None:
+        write = write & row_mask
+    return PagedDecodePlan(pos, p64 % page_size, page, write)
+
+
 def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
-                           phys_tables, write_tables, cur_pos, cos, sin,
-                           row_mask=None, residual=None, window=None):
+                           phys_tables, plan: PagedDecodePlan, write_rows,
+                           cos, sin, residual=None, window=None):
     """One-token decode against the paged KV pool.
 
     x: (B, 1, d); k_pages/v_pages: (R, page_size, Hkv, dh) physical pool
     (last row reserved zero); phys_tables: (B, max_pages) int32 physical
-    rows for this layer; write_tables: (B, max_pages) logical block
-    table (-1 = unallocated); cur_pos: (B,) int positions (or a scalar);
-    row_mask: (B,) bool, rows with False write nothing; ``window``: the
-    layer's sliding window (None: every key up to ``cur_pos``).
+    rows for this layer; plan: the step's :func:`paged_decode_plan`;
+    write_rows: (B,) int64, the physical row of each slot's page
+    ``plan.page`` in this layer; ``window``: the layer's sliding window
+    (None: every key up to the row's position).
 
     The new token's K/V is written **in place** into the pool, at
-    (cur_pos // page_size, cur_pos % page_size) of each slot's page, for
-    rows whose logical entry is allocated and whose row_mask is set.
-    Every other row writes its location's current value back (the
-    reference's gather-select-scatter, with no host sync): written rows
-    own distinct pages, and rows that write back may repeat a location
-    (the zero row) only with the value it already holds, so the index
-    write is deterministic.  Returns (out (B, 1, d), k_pages, v_pages).
+    (``write_rows``, ``plan.offset``), for the rows ``plan.write``
+    sets.  Every other row writes its location's current value back
+    (the reference's gather-select-scatter, with no host sync): written
+    rows own distinct pages, and rows that write back may repeat a
+    location (the zero row) only with the value it already holds, so
+    the index write is deterministic.  Returns (out (B, 1, d), k_pages,
+    v_pages).
 
     On a mesh the pool holds this rank's kv-heads (sharded over the
     model axis) and the kernel runs on them and their query heads, with
@@ -261,31 +299,16 @@ def paged_decode_attention(x, p, cfg, engine: DotEngine, k_pages, v_pages,
     every head is gathered, attended, and this rank's columns kept.
     """
     b = x.shape[0]
-    page_size = k_pages.shape[1]
-    max_pages = phys_tables.shape[1]
     c = tp_context()
     full = c is not None and c.tp > 1 and k_pages.shape[2] == cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(x, p, cfg, engine, cos, sin,
                                    full_heads=full)
-
-    pos = torch.as_tensor(cur_pos, device=x.device).to(torch.int64)
-    pos = pos.reshape(-1).expand(b)
-    page_idx = pos // page_size
-    offset = pos % page_size
-    # a stale position of an idle slot may point past its table: it
-    # writes nothing, and the gather index is clamped
-    in_table = page_idx < max_pages
-    pidx = page_idx.clamp(max=max_pages - 1)[:, None]
-    rows = torch.gather(phys_tables, 1, pidx)[:, 0].long()
-    wmask = (torch.gather(write_tables, 1, pidx)[:, 0] >= 0) & in_table
-    if row_mask is not None:
-        wmask = wmask & row_mask
-    sel = wmask[:, None, None]
-    k_pages[rows, offset] = torch.where(sel, k_new[:, 0], k_pages[rows, offset])
-    v_pages[rows, offset] = torch.where(sel, v_new[:, 0], v_pages[rows, offset])
+    idx, sel = (write_rows, plan.offset), plan.write[:, None, None]
+    k_pages[idx] = torch.where(sel, k_new[:, 0], k_pages[idx])
+    v_pages[idx] = torch.where(sel, v_new[:, 0], v_pages[idx])
 
     out = paged_decode_attention_cuda(q[:, 0].contiguous(), k_pages, v_pages,
-                                      phys_tables, pos, window=window
+                                      phys_tables, plan.pos, window=window
                                       ).reshape(b, 1, -1)
     if full:
         out = _local_columns(out)

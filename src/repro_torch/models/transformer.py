@@ -519,22 +519,31 @@ def _ssm_step(h, lp, cfg: ArchConfig, engine: DotEngine, state, i: int,
 def _decode_step_paged(params, cfg: ArchConfig, state, tokens, pos,
                        engine: DotEngine, row_mask, rows=None,
                        moe_log=None):
+    """The paged pool: the positions are converted once, and the write
+    plan (:func:`~repro_torch.models.attention.paged_decode_plan`) and
+    every layer's physical write row are worked out once for all
+    layers."""
     from repro_torch.serve.paged_kv import physical_rows, zero_row_index
 
     dev = tokens.device
     x = _embed(params["embed"], tokens, cfg.act_torch_dtype())
+    pos = torch.as_tensor(pos, device=dev).to(torch.int32).reshape(-1)
     ropes = _decode_ropes(cfg, pos, dev)
     kp, vp = state["k_pages"], state["v_pages"]
     bt = state["block_tables"]
+    plan = attn_mod.paged_decode_plan(pos, bt, kp.shape[1], row_mask)
     # physical rows of every layer at once: (n_layers, B, max_pages);
     # unallocated entries read the reserved zero row
     phys = physical_rows(state["page_perm"], bt, zero_row_index(kp))
+    # the row each slot writes in each layer: (n_layers, B)
+    writes = torch.gather(phys, 2, plan.page.expand(phys.shape[0], -1, -1)
+                          )[..., 0].long()
     for i in range(cfg.n_layers):
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["norm1"])
         x, kp, vp = attn_mod.paged_decode_attention(
-            h, lp["attn"], cfg, engine, kp, vp, phys[i], bt, pos, *ropes[i],
-            row_mask, residual=x, window=cfg.layer_window(i))
+            h, lp["attn"], cfg, engine, kp, vp, phys[i], plan, writes[i],
+            *ropes[i], residual=x, window=cfg.layer_window(i))
         x, _ = _ffn(x, lp, cfg, engine, rows=rows, moe_log=moe_log)
     x = rms_norm(x, params["final_norm"])
     return _head(x, params, cfg, engine), state

@@ -14,7 +14,10 @@
 * ``examples_torch/`` imports neither ``jax`` nor ``repro`` either;
   outside ``count_step`` a meta tensor still raises in ``ops.sfc_matmul``
   (the counter's hook is taken only inside it); the dry-run, host-only
-  by design, neither names nor initialises ``torch.cuda``.
+  by design, neither names nor initialises ``torch.cuda``;
+* a pytest-xdist worker runs its share of the cores, ``max(1, cores //
+  workers)`` intra-op threads, and hands it to the processes it spawns
+  (the root ``conftest.py``); a run in one process is left as it is.
 """
 import ast
 import json
@@ -246,3 +249,41 @@ def test_dryrun_touches_no_cuda(tmp_path):
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-2:] == ["ok", "False"]
+
+
+def test_this_xdist_worker_runs_its_share_of_the_cores():
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        pytest.skip("not a pytest-xdist worker")
+    workers = int(os.environ["PYTEST_XDIST_WORKER_COUNT"])
+    assert torch.get_num_threads() == max(1, os.cpu_count() // workers)
+
+
+@pytest.mark.parametrize("workers", [None, 3, 64])
+def test_root_conftest_gives_a_worker_its_share(workers):
+    """The root ``conftest.py`` loaded in a fresh process, as an xdist
+    worker of ``workers`` loads it (None: no worker): the worker's
+    threads and what it hands to its children, or nothing touched."""
+    keys = ("PYTEST_XDIST_WORKER", "PYTEST_XDIST_WORKER_COUNT",
+            "OMP_NUM_THREADS", "MKL_NUM_THREADS")
+    env = {k: v for k, v in os.environ.items() if k not in keys}
+    if workers is not None:
+        env.update(PYTEST_XDIST_WORKER="gw0",
+                   PYTEST_XDIST_WORKER_COUNT=str(workers))
+    code = ("import importlib.util, os, sys\n"
+            f"spec = importlib.util.spec_from_file_location("
+            f"'root_conftest', {str(ROOT / 'conftest.py')!r})\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "loaded = 'torch' in sys.modules\n"
+            "import torch\n"
+            "print(loaded, torch.get_num_threads(),"
+            " os.environ.get('OMP_NUM_THREADS'),"
+            " os.environ.get('MKL_NUM_THREADS'))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded, threads, omp, mkl = out.stdout.split()
+    if workers is None:
+        assert (loaded, omp, mkl) == ("False", "None", "None")
+    else:
+        share = str(max(1, os.cpu_count() // workers))
+        assert (loaded, threads, omp, mkl) == ("True", share, share, share)
